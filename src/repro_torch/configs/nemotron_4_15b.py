@@ -1,0 +1,10 @@
+"""nemotron-4-15b [dense]: GQA, squared-ReLU MLP. [arXiv:2402.16819;
+unverified]"""
+from repro_torch.models.common import ArchConfig
+
+CONFIG = ArchConfig(
+    arch_id="nemotron-4-15b", family="dense",
+    n_layers=32, d_model=6144, n_heads=48, n_kv_heads=8,
+    d_ff=24576, vocab=256000, head_dim=128,
+    activation="squared_relu", rope_theta=1e4,
+)

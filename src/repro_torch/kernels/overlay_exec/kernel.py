@@ -7,9 +7,9 @@ all four at run time, so ONE build serves every program and a new kernel is
 a write into the instruction buffers of an :class:`ExecImage`.
 
 Build: at first use ``nvcc`` compiles the source for ``sm_90a`` into the
-checkout's ``build/`` directory, under a name keyed on the hash of the
-source and the flags, and the shared library is loaded with ctypes.  Nothing is built or imported from CUDA when this
-module is imported.
+checkout's ``build/`` directory and ctypes loads it
+(:class:`repro_torch.cuda_build.CudaLibrary`).  Nothing is built or
+imported from CUDA when this module is imported.
 
 :func:`overlay_execute` is the wrapper: a CUDA tensor launches the kernel
 (``overlay_execute.launches`` counts the launches), a CPU tensor takes the
@@ -21,28 +21,19 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.program import N_OPCODES
+from repro_torch.cuda_build import CudaLibrary
 from repro_torch.kernels.overlay_exec import ref
-
-_SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "overlay_exec.cu"
-_REPO_ROOT = Path(__file__).resolve().parents[4]
 
 # -fmad=false with the explicit __fmul_rn/__fadd_rn intrinsics keeps every
 # op singly rounded like numpy; no --use_fast_math, so denormals survive
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+NVCC_FLAGS = ("-fmad=false",)
 
 # threads per block before the register file forces a smaller block
 DEFAULT_BLOCK = 256
@@ -142,81 +133,30 @@ class ExecImage:
         self.imms.copy_(torch.from_numpy(imms))
 
 
-class _Library:
-    """The built and loaded shared library, once per process."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._lib = None
-        self._smem: Dict[int, int] = {}
-        self.builds = 0          # libraries built or loaded by this process
-        self.build_log = ""      # nvcc's output (ptxas register/smem usage)
-
-    def get(self):
-        with self._lock:
-            if self._lib is None:
-                self._lib = self._load()
-            return self._lib
-
-    def smem_optin(self, device_index: int) -> int:
-        lib = self.get()
-        with self._lock:
-            if device_index not in self._smem:
-                val = ctypes.c_int(0)
-                err = lib.overlay_exec_smem_optin(device_index,
-                                                  ctypes.byref(val))
-                _check(lib, err, "cudaDeviceGetAttribute")
-                self._smem[device_index] = val.value
-            return self._smem[device_index]
-
-    def _load(self):
-        src = _SOURCE.read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
-        out_dir = _REPO_ROOT / "build"
-        so = out_dir / f"overlay_exec_{digest.hexdigest()[:16]}.so"
-        if not so.exists():
-            out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{self.build_log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        lib.overlay_exec_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_size_t,
-            ctypes.c_void_p]
-        lib.overlay_exec_launch.restype = ctypes.c_int
-        lib.overlay_exec_smem_optin.argtypes = [
-            ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        lib.overlay_exec_smem_optin.restype = ctypes.c_int
-        lib.overlay_exec_error_string.argtypes = [ctypes.c_int]
-        lib.overlay_exec_error_string.restype = ctypes.c_char_p
-        self.builds += 1
-        return lib
+LIBRARY = CudaLibrary(
+    "overlay_exec",
+    {"overlay_exec_launch": (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_size_t, ctypes.c_void_p],
+        ctypes.c_int),
+     "overlay_exec_smem_optin": (
+        [ctypes.c_int, ctypes.POINTER(ctypes.c_int)], ctypes.c_int)},
+    extra_flags=NVCC_FLAGS)
+_SMEM_LOCK = threading.Lock()
+_SMEM: Dict[int, int] = {}
 
 
-LIBRARY = _Library()
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(home) / "bin" / "nvcc"
-    found = str(cand) if cand.exists() else shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
-                           "PATH to build the overlay executor")
-    return found
-
-
-def _check(lib, err: int, what: str) -> None:
-    if err != 0:
-        msg = lib.overlay_exec_error_string(err).decode()
-        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+def smem_optin(device_index: int) -> int:
+    """The largest dynamic shared memory one block may opt in to."""
+    lib = LIBRARY.get()
+    with _SMEM_LOCK:
+        if device_index not in _SMEM:
+            val = ctypes.c_int(0)
+            err = lib.overlay_exec_smem_optin(device_index, ctypes.byref(val))
+            LIBRARY.check(err, "cudaDeviceGetAttribute")
+            _SMEM[device_index] = val.value
+        return _SMEM[device_index]
 
 
 def overlay_execute(image: ExecImage, x: torch.Tensor) -> torch.Tensor:
@@ -252,14 +192,14 @@ def overlay_execute(image: ExecImage, x: torch.Tensor) -> torch.Tensor:
     lib = LIBRARY.get()
     dev = x.device.index
     block, smem = launch_config(image.n_regs, image.n_instr,
-                                LIBRARY.smem_optin(dev))
+                                smem_optin(dev))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.overlay_exec_launch(
             image.instrs.data_ptr(), image.imms.data_ptr(), x.data_ptr(),
             out.data_ptr(), n, n_in, image.n_out, image.n_instr,
             image.n_regs, block, smem, stream)
-    _check(lib, err, "overlay_exec launch")
+    LIBRARY.check(err, "overlay_exec launch")
     overlay_execute.launches += 1
     return out
 

@@ -1,0 +1,175 @@
+"""Shared architecture config, parameter init and the weight carry-over.
+
+Every assigned architecture is an ``ArchConfig``; families:
+  dense   — decoder-only GQA transformer (yi, qwen3, llama3, nemotron,
+            internvl backbone)
+  moe     — mixture-of-experts transformer (mixtral, qwen3-moe)
+  ssm     — Mamba2 / SSD (attention-free)
+  hybrid  — Mamba2 backbone + shared attention blocks (zamba2)
+  audio   — whisper encoder-decoder (conv frontend stubbed)
+  vlm     — internvl (ViT frontend stubbed; backbone = dense)
+
+The port builds the dense and vlm families; the others wait for their
+slices (``ROADMAP.md``).  Parameters are nested dictionaries of tensors in
+the JAX package's layout: per-layer tensors stacked along a leading layer
+axis, weights ``(in, out)`` as in ``x @ W``, so
+:func:`params_from_numpy` carries the JAX package's parameters across as a
+plain copy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    arch_id: str
+    family: str                       # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                 # 0 → d_model // n_heads
+    qk_norm: bool = False
+    activation: str = "swiglu"        # swiglu | squared_relu
+    rope_theta: float = 1e4
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    # SSM
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    conv_width: int = 4
+    # hybrid
+    attn_every: int = 0               # shared attn block period (zamba2)
+    # attention variants
+    window: Optional[int] = None      # sliding-window attention (mixtral)
+    # enc-dec (whisper)
+    enc_layers: int = 0
+    # frontends (stubs)
+    frontend: Optional[str] = None    # 'audio' | 'vision' | None
+    norm_eps: float = 1e-6
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def vocab_padded(self) -> int:
+        """Vocab rounded up to 256 so the embedding shards on any mesh axis
+        (logits over padding ids are trained down by the CE loss; labels
+        never reference them)."""
+        return (self.vocab + 255) // 256 * 256
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """Can this arch run long_500k (sub-quadratic token mixing)?"""
+        return self.family in ("ssm", "hybrid") or self.window is not None
+
+    def param_count(self) -> int:
+        """Total parameters N (for 6·N·D roofline bookkeeping)."""
+        d, ff, v, L = self.d_model, self.d_ff, self.vocab, self.n_layers
+        hd, hq, hkv = self.hd, self.n_heads, self.n_kv_heads
+        attn = d * hd * (hq + 2 * hkv) + hq * hd * d
+        if self.activation == "swiglu":
+            mlp = 3 * d * ff
+        else:
+            mlp = 2 * d * ff
+        if self.family in ("moe",):
+            mlp = self.n_experts * 3 * d * self.moe_d_ff + d * self.n_experts
+        per_layer = attn + mlp + 2 * d
+        if self.family == "ssm":
+            di = self.ssm_expand * d
+            per_layer = (d * (2 * di + 2 * self.ssm_state +
+                              di // self.ssm_head_dim)
+                         + di * self.conv_width + di * d + 2 * d)
+        if self.family == "hybrid":
+            di = self.ssm_expand * d
+            ssm_l = (d * (2 * di + 2 * self.ssm_state +
+                          di // self.ssm_head_dim)
+                     + di * self.conv_width + di * d + 2 * d)
+            per_layer = ssm_l   # plus one shared attn block added below
+        total = L * per_layer + v * d * 2   # tied-off embed + lm head
+        if self.family == "hybrid":
+            total += attn + 3 * d * ff + 2 * d
+        if self.family == "audio":
+            total += self.enc_layers * (attn + mlp + 2 * d)
+            total += L * (attn + d * hd * (hq + 2 * hkv) // 1)  # cross-attn
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only top_k experts count)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, L = self.d_model, self.n_layers
+        hd, hq, hkv = self.hd, self.n_heads, self.n_kv_heads
+        attn = d * hd * (hq + 2 * hkv) + hq * hd * d
+        mlp = self.top_k * 3 * d * self.moe_d_ff + d * self.n_experts
+        return int(L * (attn + mlp + 2 * d) + self.vocab * d * 2)
+
+
+# --------------------------------------------------------------- init utils
+
+def dense_init(gen: torch.Generator, shape: Sequence[int],
+               dtype: torch.dtype = torch.bfloat16, device=None,
+               n_stack: int = 0) -> torch.Tensor:
+    """Normal(0, 1) · shape[0]^-0.5, drawn in float32 from ``gen``
+    (which must live on ``device``) and cast to ``dtype``.
+
+    ``n_stack`` > 0 stacks that many independent draws along a new leading
+    layer axis, drawn one layer at a time so the float32 draw never holds
+    more than one layer."""
+    scale = shape[0] ** -0.5
+    if not n_stack:
+        return (torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                            device=device) * scale).to(dtype)
+    out = torch.empty((n_stack, *shape), dtype=dtype, device=device)
+    for i in range(n_stack):
+        out[i] = dense_init(gen, shape, dtype, device)
+    return out
+
+
+# ------------------------------------------------------- weight carry-over
+
+def array_to_tensor(a: np.ndarray, device=None) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``, bit for bit.  A JAX
+    bfloat16 array arrives with ml_dtypes' ``bfloat16`` dtype, which torch
+    cannot read: it goes through its 16-bit integer view.  The array is
+    copied, so the tensor never shares a read-only JAX buffer."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
+                      device=None) -> Dict[str, Any]:
+    """The JAX package's parameter pytree, after
+    ``jax.tree.map(np.asarray, params)``, as the port's parameters: the
+    same nested dictionaries with every leaf a tensor on ``device``.
+
+    A plain copy: layouts agree (see the module docstring).  Every floating
+    leaf must already be ``cfg.dtype``; a mismatch raises rather than
+    rounding silently."""
+    def conv(node, path):
+        if isinstance(node, dict):
+            return {k: conv(v, f"{path}/{k}") for k, v in node.items()}
+        t = array_to_tensor(np.asarray(node), device)
+        if t.is_floating_point() and t.dtype != cfg.dtype:
+            raise ValueError(f"{path}: {t.dtype}, config says {cfg.dtype}")
+        return t
+    return conv(tree, "")

@@ -58,8 +58,8 @@ def test_no_source_imports_jax_or_the_reference_package():
 
 def test_port_mirrors_the_reference_layout():
     """Each port module sits at its reference's relative path; only the
-    package's own helpers have none."""
-    own = {"__init__.py", "device.py"}
+    package's own helpers (the device rule, the CUDA build) have none."""
+    own = {"__init__.py", "device.py", "cuda_build.py"}
     missing = [str(p.relative_to(PORT)) for p in PORT.rglob("*.py")
                if p.name not in own
                and not (ROOT / "src" / "repro" / p.relative_to(PORT)).exists()]
@@ -76,10 +76,13 @@ for name in mods:
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 import torch
-from repro_torch.kernels.overlay_exec import kernel
+from repro_torch.kernels.flash_attention import kernel as fa
+from repro_torch.kernels.overlay_exec import kernel as ox
+from repro_torch.kernels.rmsnorm import kernel as rn
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(mods), kernel.LIBRARY.builds, torch.cuda.is_initialized(), bad)
+builds = ox.LIBRARY.builds + rn.LIBRARY.builds + fa.LIBRARY.builds
+print(len(mods), builds, torch.cuda.is_initialized(), bad)
 """
 
 
@@ -91,7 +94,7 @@ def test_importing_every_module_loads_no_jax_and_builds_nothing():
     assert out.returncode == 0, out.stderr
     n_mods, builds, cuda_init, bad = out.stdout.strip().rsplit("\n", 1)[-1] \
         .split(" ", 3)
-    assert int(n_mods) >= 20
+    assert int(n_mods) >= 40
     assert (builds, cuda_init, bad) == ("0", "False", "[]")
 
 

@@ -1,0 +1,164 @@
+"""The port's RMSNorm against the JAX package.
+
+Same inputs (numpy, from a seed) through ``repro``'s plain
+``kernels/rmsnorm/ref.py``, its Pallas kernel in interpret mode, and the
+port's plain version.  Tolerances are those of ``tests/test_kernels.py``:
+1e-4 for float32 (only the order of the sum of squares and the spelling of
+the inverse root differ) and 3e-2 for bfloat16 (one rounding of the output,
+taken by two frameworks).  The ``gpu`` tests hold the CUDA kernel against
+the plain version on a card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.rmsnorm import ref as r_ref
+from repro.kernels.rmsnorm.kernel import rmsnorm as r_pallas
+from repro_torch.kernels.rmsnorm import kernel, ops, ref
+
+TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+SHAPES = [(4, 64), (2, 3, 128), (1, 257, 512)]
+
+
+def gpu(fn):
+    """Needs a CUDA card: decided when the test runs, not at import."""
+    fn = pytest.mark.skipif("not torch.cuda.is_available()",
+                            reason="needs a CUDA card")(fn)
+    return pytest.mark.gpu(fn)
+
+
+def _inputs(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = (rng.standard_normal(shape[-1]) * 0.1 + 1.0).astype(np.float32)
+    return x, w
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """One float32 array as a JAX and a torch array of ``dtype``; both
+    round to bfloat16 to nearest-even, so the two hold the same values."""
+    return (jnp.asarray(a).astype(getattr(jnp, dtype)),
+            torch.from_numpy(a).to(getattr(torch, dtype)))
+
+
+def _f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_matches_jax_ref_and_pallas(shape, dtype):
+    x, w = _inputs(shape)
+    jx, tx = _pair(x, dtype)
+    jw, tw = _pair(w, dtype)
+    got = ops.rmsnorm(tx, tw)                     # CPU tensor → plain
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    tol = TOL[dtype]
+    for want in (r_ref.rmsnorm(jx, jw), r_pallas(jx, jw)):
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_on_the_heads_view_matches_jax(dtype):
+    """q_norm/k_norm see (B, H, S, D), the transposed view of (B, S, H, D)."""
+    x, w = _inputs((2, 5, 3, 16), seed=1)
+    jx, tx = _pair(x, dtype)
+    jw, tw = _pair(w, dtype)
+    view = tx.transpose(1, 2)
+    assert not view.is_contiguous()
+    got = ops.rmsnorm(view, tw)
+    want = r_ref.rmsnorm(jx.transpose(0, 2, 1, 3), jw)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+def test_impl_ref_and_none_agree_on_the_cpu():
+    x, w = _inputs((3, 32))
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    assert torch.equal(ops.rmsnorm(tx, tw, impl="ref"), ops.rmsnorm(tx, tw))
+    assert torch.equal(ref.rmsnorm(tx, tw), kernel.rmsnorm(tx, tw))
+
+
+def test_unit_rms_with_unit_weight():
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (16, 128)).astype(np.float32) * 5)
+    y = ops.rmsnorm(x, torch.ones(128)).numpy()
+    np.testing.assert_allclose(np.sqrt((y ** 2).mean(-1)), 1.0, rtol=1e-3)
+
+
+@pytest.mark.parametrize("shape, perm, want", [
+    ((6, 8), None, (6, (1, 6), (0, 0, 8))),                 # contiguous
+    ((2, 3, 4, 8), None, (24, (1, 24), (0, 0, 8))),         # folds to one
+    ((2, 5, 3, 16), (0, 2, 1, 3), (30, (3, 5), (240, 16, 48))),  # heads view
+    ((1, 5, 3, 16), (0, 2, 1, 3), (15, (3, 5), (0, 16, 48))),    # B = 1
+    ((4, 1, 16), None, (4, (1, 4), (0, 0, 16))),             # size-1 drops
+])
+def test_row_layout(shape, perm, want):
+    x = torch.zeros(shape)
+    if perm:
+        x = x.permute(*perm)
+    assert kernel.row_layout(x) == want
+
+
+def test_row_layout_raises_past_three_dimensions():
+    x = torch.zeros((2, 3, 4, 5, 8)).permute(3, 0, 2, 1, 4)
+    with pytest.raises(ValueError, match="three dimensions"):
+        kernel.row_layout(x)
+
+
+def test_wrapper_validates():
+    x, w = torch.zeros((2, 8)), torch.ones(8)
+    with pytest.raises(ValueError, match="does not match"):
+        kernel.rmsnorm(x, torch.ones(4))
+    with pytest.raises(ValueError, match="both"):
+        kernel.rmsnorm(x, w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="both"):
+        kernel.rmsnorm(x.double(), w.double())
+    with pytest.raises(ValueError, match="no RMSNorm kernel"):
+        kernel.rmsnorm(x.to("meta"), w.to("meta"))
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.rmsnorm(x, w, impl="kernel")
+    with pytest.raises(ValueError, match="unknown"):
+        ops.rmsnorm(x, w, impl="pallas")
+
+
+def test_cpu_tensors_never_launch_or_build():
+    launches, builds = kernel.rmsnorm.launches, kernel.LIBRARY.builds
+    ops.rmsnorm(torch.ones((3, 8)), torch.ones(8))
+    assert kernel.rmsnorm.launches == launches
+    assert kernel.LIBRARY.builds == builds
+
+
+# ---------------------------------------------------------------- on a card
+@gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES + [(1000, 5120), (37, 128),
+                                            (3, 100)])
+def test_cuda_kernel_matches_plain(shape, dtype):
+    x, w = _inputs(shape, seed=3)
+    tx = torch.from_numpy(x).to("cuda", getattr(torch, dtype))
+    tw = torch.from_numpy(w).to("cuda", getattr(torch, dtype))
+    before = kernel.rmsnorm.launches
+    got = ops.rmsnorm(tx, tw)
+    assert kernel.rmsnorm.launches == before + 1
+    want = ref.rmsnorm(tx, tw)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_reads_the_heads_view_in_place(dtype):
+    x, w = _inputs((2, 33, 40, 128), seed=4)
+    tx = torch.from_numpy(x).to("cuda", getattr(torch, dtype))
+    tw = torch.from_numpy(w).to("cuda", getattr(torch, dtype))
+    view = tx.transpose(1, 2)
+    got = kernel.rmsnorm(view, tw)
+    assert got.is_contiguous() and got.shape == view.shape
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.rmsnorm(view, tw).float(),
+                               rtol=tol, atol=tol)
