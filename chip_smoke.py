@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout and needs one CUDA card; it builds the
-port's three CUDA kernels from ``src/repro_torch/csrc/`` with nvcc (the
-overlay executor, RMSNorm and flash attention).  Phases:
+port's CUDA kernels from ``src/repro_torch/csrc/`` with nvcc (the overlay
+executor, RMSNorm, and flash attention's two routes: the bfloat16
+tensor-core kernel and the float32 SIMT kernel).  Phases:
 
-  (a) set-up: the card's name and power limit, the three kernel builds,
-      one nvcc each, all started together;
+  (a) set-up: the card's name and power limit, the four kernel builds,
+      one nvcc each, all started together, with ptxas's registers, shared
+      memory and spills;
   (b) the executor kernel against its plain PyTorch version on the card,
       bit for bit, on hand-built images covering all 14 opcodes and both
       immediate ports, inputs holding NaN, +-0, +-inf and denormals,
@@ -27,17 +29,20 @@ overlay executor, RMSNorm and flash attention).  Phases:
       view), at decode shapes, ragged row counts and the shapes of
       ``tests/test_kernels.py``; timed beside ``torch.nn.functional.rms_norm``
       and the byte bound;
-  (f) the flash-attention kernel against its plain version on the card
-      (2e-3 in float32, 2e-2 in bfloat16): GQA groups 1, 4, 5 and 8,
-      causal and not, windows 32 and 128, Sq < Skv, Sq > Skv, ragged
-      lengths, head dims 64 and 128; then at the prefill shape q
-      (4, 40, 4096, 128) bfloat16, timed beside
-      ``scaled_dot_product_attention`` and the operations bound;
+  (f) the flash-attention kernels against their plain version on the
+      card: bfloat16 on the tensor-core route within
+      1e-4 + 2^-7 |plain| + 2^-7 plain(|v|), float32 on the SIMT route
+      within 2e-3; GQA groups 1, 4, 5 and 8, causal and not, windows 32,
+      64 and 128, Sq < Skv, Sq > Skv, ragged lengths, head dims 64 and
+      128; then at the prefill shape q (4, 40, 4096, 128) through the
+      path's heads views, and timed there in turns with the SIMT kernel
+      and ``scaled_dot_product_attention`` against the operations bound;
   (g) the dense serving path: qwen3-14b at full width and depth in
       bfloat16 with random weights from a seeded generator, one
       ``make_prefill_step`` on 4 prompts of 4096 tokens, then the
       ``launch/serve.py`` loop (4 requests, prompt 128, 32 tokens greedy),
-      with launches counted per kernel, times, and the logits held against
+      with launches counted per kernel (and per flash-attention route),
+      times, and the logits held against
       the prefill step, ``forward_train`` and the plain attention path, at
       two bfloat16 weight seeds and in float32 at full depth; each limit
       must also fail two faults planted in the attention.
@@ -84,8 +89,9 @@ PREFILL_B, PREFILL_S = 4, 4096
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 128, 32
 AGREE_S = 1024
 # kernel against plain version: the tolerances of tests/test_kernels.py
+# for RMSNorm, and for flash attention's float32 (SIMT) route
 RMS_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
-FA_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
+FA_TOL_F32 = 2e-3
 # (b, hq, hkv, sq, skv, d, causal, window)
 FA_CASES = (
     (2, 8, 8, 512, 512, 128, True, None),        # group 1
@@ -99,12 +105,23 @@ FA_CASES = (
     (2, 40, 8, 100, 700, 64, True, None),        # Sq < Skv
     (1, 40, 8, 300, 100, 128, True, None),       # Sq > Skv
     (1, 8, 8, 129, 257, 64, False, 100),         # window, not causal
+    (1, 16, 16, 200, 200, 64, True, 64),         # window 64, D 64
 )
-# the prefill-shape comparison in bfloat16 (phase (f)): kernel and plain
-# version both sum in float32 and round the output to bfloat16 once, so they
-# may differ by one bfloat16 rounding: 2^-7 of the value, plus 1e-4 for
-# outputs near 0 where the float32 sums' own order shows
-FA_PREFILL_BF16 = (1e-4, 2.0 ** -7)
+# bfloat16 on the tensor-core route against the plain version (phase (f)),
+# |kernel - plain| <= 1e-4 + 2^-7 |plain| + 2^-7 plain(|v|), where plain(|v|)
+# is the plain attention of |v|.  Both sum in float32 and round the output
+# to bfloat16 once, so they may differ by one bfloat16 rounding: 2^-7 of
+# the value, plus 1e-4 for outputs near 0 where the float32 sums' order
+# shows.  The tensor cores add one rounding, P -> bfloat16 before P V (the
+# products q k and p v of bfloat16 values are exact in float32): its unit
+# roundoff 2^-8 moves an output by at most 2^-8 sum(p |v|) / l, the plain
+# attention of |v|; the third term allows it with the same factor 2 of
+# margin.  It replaces the one-rounding limit 1e-4 + 2^-7 |plain| at the
+# prefill shape and 2e-2 + 2e-2 |plain| on the small cases.
+FA_BF16_LIMIT = (1e-4, 2.0 ** -7, 2.0 ** -7)
+# timing at the prefill shape: CUDA-event medians of this many runs, in
+# two turns of (tensor-core kernel, SIMT kernel, scaled_dot_product_attention)
+FA_REPS = 10
 # qwen3-14b logits held against each other (phase (g)), each check read at
 # two weight seeds in bfloat16 at full depth and at one in float32 at full
 # depth, and each against two faults planted in the attention that feeds one
@@ -123,7 +140,8 @@ AGREE_TOL = {"decode_vs_prefill": 0.25, "decode_vs_forward": 0.25,
 # layers read 1.4e-05 and 1.6e-05 on an H100)
 AGREE_TOL_F32 = {"decode_vs_prefill": 1e-3, "decode_vs_forward": 1e-3,
                  "kernel_vs_plain_attention": 1e-3}
-# the flash kernel's key/value tile: the planted fault drops the last one
+# keys the planted fault drops at the end of the sequence: 64, half the
+# tensor-core kernel's 128-key tile and 1/64 of the 4096-key prefill
 FAULT_KEYS = 64
 
 class SmokeFailure(RuntimeError):
@@ -247,6 +265,16 @@ def kernel_modules():
     return {"overlay_exec": ox, "rmsnorm": rn, "flash_attention": fa}
 
 
+def kernel_libraries():
+    """name → each CUDA library: one per source in ``csrc/``."""
+    mods = kernel_modules()
+    fa = mods["flash_attention"]
+    return {"overlay_exec": mods["overlay_exec"].LIBRARY,
+            "rmsnorm": mods["rmsnorm"].LIBRARY,
+            "flash_attention (wgmma)": fa.LIBRARY_WGMMA,
+            "flash_attention (SIMT)": fa.LIBRARY}
+
+
 def phase_setup():
     from concurrent.futures import ThreadPoolExecutor
     smi = subprocess.run(
@@ -263,20 +291,26 @@ def phase_setup():
         return time.perf_counter() - t0
 
     # one nvcc per source, all started together
-    mods = kernel_modules()
+    libs = kernel_libraries()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(mods)) as ex:
-        futs = {name: ex.submit(build, m.LIBRARY) for name, m in mods.items()}
+    with ThreadPoolExecutor(len(libs)) as ex:
+        futs = {name: ex.submit(build, lib) for name, lib in libs.items()}
         secs = {name: f.result() for name, f in futs.items()}
-    log(f"(a) built {len(mods)} kernel libraries for sm_90a in parallel in "
+    log(f"(a) built {len(libs)} kernel libraries for sm_90a in parallel in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name, m in mods.items():
+    for name, lib in libs.items():
         log(f"    {name}: {secs[name]:.1f} s (libraries built or loaded: "
-            f"{m.LIBRARY.builds})")
-        for line in m.LIBRARY.build_log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            f"{lib.builds})")
+        for line in lib.build_log.splitlines():
+            if any(w in line for w in ("registers", "smem", "spill",
+                                       "Performance Loss", "setmaxnreg")):
                 log(f"      ptxas: {line.strip()}")
-        check(m.LIBRARY.builds == 1, f"{name} library not built once")
+        check(lib.builds == 1, f"{name} library not built once")
+    from repro_torch.kernels.flash_attention import kernel as fa
+    smem = fa.LIBRARY_WGMMA.get().flash_attention_wgmma_smem_bytes
+    log(f"    flash_attention (wgmma): dynamic shared memory per block "
+        f"{smem(64)} bytes at D 64, {smem(128)} at D 128 (ptxas counts it "
+        f"nowhere: it is set at launch)")
     return card
 
 
@@ -594,33 +628,73 @@ def attention_bound_ms(b, hq, sq, skv, d, causal, window, itemsize):
             4 * d * pairs / BF16_OPS_PER_S * 1e3)
 
 
+def fa_bf16_limit(q, k, v, want, causal=True, window=None):
+    """FA_BF16_LIMIT for the bfloat16 tensor-core route against the plain
+    version ``want``, elementwise."""
+    from repro_torch.kernels.flash_attention import ref
+    a, r, rv = FA_BF16_LIMIT
+    w_abs = ref.attention(q, k, v.abs(), causal=causal, window=window)
+    return a + r * want.float().abs() + rv * w_abs.float()
+
+
+def limit_share(got, want, limit) -> float:
+    """The largest |got - want| / limit; inf where got is not finite."""
+    import torch
+    g = got.float()
+    if not bool(torch.isfinite(g).all()):
+        return float("inf")
+    return float(((g - want.float()).abs() / limit).max())
+
+
 def phase_flash_attention():
-    """(f) the flash-attention kernel against its plain version on the
-    card, then timed at the prefill shape."""
+    """(f) the flash-attention kernels against their plain version on the
+    card, then the tensor-core kernel timed at the prefill shape beside the
+    SIMT kernel and scaled_dot_product_attention."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel, ref
 
     gen = torch.Generator(device=DEVICE).manual_seed(4)
-    errs = {}
+    errs, shares = {}, {}
+    by_route = kernel.flash_attention.launches_by_route
     for dt in (torch.float32, torch.bfloat16):
+        routes = set()
         for case in FA_CASES:
             b, hq, hkv, sq, skv, d, causal, window = case
             q = randn(gen, (b, hq, sq, d), dt)
             k = randn(gen, (b, hkv, skv, d), dt)
             v = randn(gen, (b, hkv, skv, d), dt)
+            route = kernel.route(dt, d)
+            before = by_route[route]
             got = kernel.flash_attention(q, k, v, causal=causal,
                                          window=window)
             want = ref.attention(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
-            ok, err = close_enough(got, want, tol_of(FA_TOL, dt))
-            check(ok, f"flash attention != plain at {case} {dt}: "
-                      f"max abs err {err}")
+            check(by_route[route] == before + 1,
+                  f"flash attention at {case} {dt} did not take the "
+                  f"{route} route")
+            routes.add(route)
+            if route == "wgmma":
+                limit = fa_bf16_limit(q, k, v, want, causal, window)
+            else:
+                limit = FA_TOL_F32 + FA_TOL_F32 * want.float().abs()
+            share = limit_share(got, want, limit)
+            err = float((got.float() - want.float()).abs().max())
+            check(share <= 1.0, f"flash attention != plain at {case} {dt}: "
+                                f"max abs err {err}, share of the limit "
+                                f"{share}")
             errs[dt] = max(errs.get(dt, 0.0), err)
-        log(f"(f) {len(FA_CASES)} cases in {str(dt)[6:]} (GQA groups "
-            f"1/4/5/8, causal and not, windows 32/128, Sq < Skv, Sq > Skv, "
-            f"ragged, D 64/128): max abs err {errs[dt]:.3g} "
-            f"(tolerance {tol_of(FA_TOL, dt):g})")
+            shares[dt] = max(shares.get(dt, 0.0), share)
+        check(routes == ({"wgmma"} if dt == torch.bfloat16 else {"simt"}),
+              f"{dt} cases took the routes {routes}")
+        limit = ("1e-4 + 2^-7 |plain| + 2^-7 plain(|v|)"
+                 if dt == torch.bfloat16 else
+                 f"{FA_TOL_F32:g} + {FA_TOL_F32:g} |plain|")
+        log(f"(f) {len(FA_CASES)} cases in {str(dt)[6:]} on the "
+            f"{routes.pop()} route (GQA groups 1/4/5/8, causal and not, "
+            f"windows 32/64/128, Sq < Skv, Sq > Skv, ragged, D 64/128): max "
+            f"abs err {errs[dt]:.3g}, largest share of the limit {limit} "
+            f"{shares[dt]:.3g}")
 
     b, s = PREFILL_B, PREFILL_S
     hq, hkv, d = QWEN["hq"], QWEN["hkv"], QWEN["hd"]
@@ -629,49 +703,75 @@ def phase_flash_attention():
         """The path's heads view (B, H, S, D) of a (B, S, H*D) projection."""
         return randn(gen, (b, s, h * d), dt).view(b, s, h, d).transpose(1, 2)
     # float32 then bfloat16, at the prefill shape, through the heads views
-    for dt, (atol, rtol) in ((torch.float32, (FA_TOL["float32"],) * 2),
-                             (torch.bfloat16, FA_PREFILL_BF16)):
+    for dt in (torch.float32, torch.bfloat16):
         q, k, v = heads(hq, dt), heads(hkv, dt), heads(hkv, dt)
+        route = kernel.route(dt, d)
+        before = by_route[route]
         got = kernel.flash_attention(q, k, v)
+        check(by_route[route] == before + 1,
+              f"the prefill shape in {dt} did not take the {route} route")
         err = share = 0.0
         for i in range(b):        # the plain version one sequence at a time
-            want = ref.attention(q[i:i + 1], k[i:i + 1], v[i:i + 1])
-            ok, e = close_enough(got[i:i + 1], want, atol, rtol)
-            check(ok, f"flash attention != plain at the prefill shape, "
-                      f"{dt}, sequence {i}: max abs err {e}")
-            err = max(err, e)
-            share = max(share, float(((got[i:i + 1].float() - want.float())
-                                      .abs() / (atol + rtol * want.float()
-                                                .abs())).max()))
-        del want
+            one = slice(i, i + 1)
+            want = ref.attention(q[one], k[one], v[one])
+            if route == "wgmma":
+                limit = fa_bf16_limit(q[one], k[one], v[one], want)
+            else:
+                limit = FA_TOL_F32 + FA_TOL_F32 * want.float().abs()
+            sh = limit_share(got[one], want, limit)
+            e = float((got[one].float() - want.float()).abs().max())
+            check(sh <= 1.0, f"flash attention != plain at the prefill "
+                             f"shape, {dt}, sequence {i}: max abs err {e}, "
+                             f"share of the limit {sh}")
+            err, share = max(err, e), max(share, sh)
+        del want, limit
         log(f"(f) prefill shape q ({b},{hq},{s},{d}) {str(dt)[6:]} causal, "
-            f"q/k/v as heads views of (B, S, H*D): max abs err {err:.3g}, "
-            f"largest share of the tolerance {atol:g} + {rtol:g} |plain| "
-            f"{share:.3g}; output std {float(got.float().std()):.3g}")
+            f"q/k/v as heads views of (B, S, H*D), {route} route: max abs "
+            f"err {err:.3g}, largest share of the limit {share:.3g}; output "
+            f"std {float(got.float().std()):.3g}")
         if dt == torch.float32:
             errs[dt] = max(errs[dt], err)
         else:
             errs["prefill"] = err
-    k_ms, k_lo, k_hi = cuda_ms(lambda: kernel.flash_attention(q, k, v),
-                               reps=5)
+            shares["prefill"] = share
+
+    # in turns: the tensor-core kernel, the SIMT kernel, SDPA, twice
+    times = {"wgmma": [], "simt": [], "sdpa": []}
+    runs = {
+        "wgmma": lambda: kernel.flash_attention(q, k, v),
+        "simt": lambda: kernel._launch(q, k, v, route="simt"),
+        "sdpa": lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True),
+    }
+    for turn in range(2):
+        for name, fn in runs.items():
+            med, lo, hi = cuda_ms(fn, reps=FA_REPS, warm=2)
+            times[name].append(med)
+            log(f"(f) turn {turn}: {name} {med:.4f} ms (median of "
+                f"{FA_REPS}, {lo:.4f}-{hi:.4f})")
+    k_ms, simt_ms, l_ms = (statistics.mean(times[n])
+                           for n in ("wgmma", "simt", "sdpa"))
 
     def plain():
         for i in range(b):
             ref.attention(q[i:i + 1], k[i:i + 1], v[i:i + 1])
     p_ms = cuda_ms(plain, reps=3, warm=1)[0]
-    l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), reps=5)[0]
     byte_ms, op_ms = attention_bound_ms(b, hq, s, s, d, True, None, 2)
     b_ms = max(byte_ms, op_ms)
-    log(f"(f) prefill shape q ({b},{hq},{s},{d}) bf16 causal: kernel "
-        f"{k_ms:.3f} ms ({k_lo:.3f}-{k_hi:.3f}), plain "
-        f"{p_ms:.3f} ms ({b} calls at B=1), scaled_dot_product_attention "
-        f"{l_ms:.3f} ms; bound {b_ms:.4f} ms (operations; bytes "
-        f"{byte_ms:.4f} ms), share {b_ms / k_ms:.3f}, "
-        f"{4 * d * (s * (s + 1) // 2) * b * hq / k_ms / 1e9:.1f} TFLOP/s")
+    flop = 4 * d * (s * (s + 1) // 2) * b * hq
+    log(f"(f) prefill shape q ({b},{hq},{s},{d}) bf16 causal, mean of the "
+        f"two turns' medians: tensor-core kernel {k_ms:.4f} ms "
+        f"({flop / k_ms / 1e9:.1f} TFLOP/s, share of the bound "
+        f"{b_ms / k_ms:.3f}, {k_ms / l_ms:.3f} x SDPA); SIMT kernel "
+        f"{simt_ms:.3f} ms ({flop / simt_ms / 1e9:.1f} TFLOP/s); "
+        f"scaled_dot_product_attention {l_ms:.4f} ms "
+        f"({flop / l_ms / 1e9:.1f} TFLOP/s); plain {p_ms:.3f} ms ({b} calls "
+        f"at B=1); bound {b_ms:.4f} ms (operations; bytes {byte_ms:.4f} ms)")
     del q, k, v, got
-    return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                bound_by="operations" if op_ms >= byte_ms else "bytes"), errs
+    return dict(ms=k_ms, simt_ms=simt_ms, plain_ms=p_ms, library_ms=l_ms,
+                bound_ms=b_ms, ratio_to_library=k_ms / l_ms,
+                bound_by="operations" if op_ms >= byte_ms else "bytes",
+                ms_turns=times), errs, shares
 
 
 def profile_window(fn, n: int, trace_path: Path):
@@ -709,13 +809,22 @@ def profile_window(fn, n: int, trace_path: Path):
 
 
 def counts():
-    return {name: getattr(m, LAUNCHER[name]).launches
-            for name, m in kernel_modules().items()}
+    """Launches per kernel, and flash attention's per route under
+    "flash_attention_by_route"."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    out = {name: getattr(m, LAUNCHER[name]).launches
+           for name, m in kernel_modules().items()}
+    out["flash_attention_by_route"] = dict(
+        fa.flash_attention.launches_by_route)
+    return out
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels.flash_attention import kernel as fa
     for name, m in kernel_modules().items():
         getattr(m, LAUNCHER[name]).launches = 0
+    for route in fa.flash_attention.launches_by_route:
+        fa.flash_attention.launches_by_route[route] = 0
 
 
 def planted_faults():
@@ -855,12 +964,17 @@ def phase_model():
     launches = counts()
     # ----
     n_steps = SERVE_PROMPT + SERVE_GEN
-    serve_counts = {k: launches[k] - per_prefill[k] for k in launches}
+    serve_counts = {k: launches[k] - per_prefill[k] for k in LAUNCHER}
     log(f"(g) launches in one prefill step: {per_prefill}; in the serve "
         f"loop ({n_steps} decode steps): {serve_counts}")
     check(per_prefill["flash_attention"] == cfg.n_layers,
           f"prefill launched flash attention "
           f"{per_prefill['flash_attention']} times, not {cfg.n_layers}")
+    check(per_prefill["flash_attention_by_route"]
+          == {"wgmma": cfg.n_layers, "simt": 0},
+          f"prefill's flash-attention routes: "
+          f"{per_prefill['flash_attention_by_route']}, not {cfg.n_layers} "
+          f"on the tensor-core route")
     n_norm = 4 * cfg.n_layers + 1
     check(per_prefill["rmsnorm"] == n_norm,
           f"prefill launched RMSNorm {per_prefill['rmsnorm']} times, "
@@ -988,7 +1102,7 @@ def main() -> int:
     err = max(max_err)
     check(err == 0.0, f"max abs error {err}")
     rms, rms_errs = phase_rmsnorm()
-    fa, fa_errs = phase_flash_attention()
+    fa, fa_errs, fa_shares = phase_flash_attention()
     model_launches, agree_errs = phase_model()
     for name in ("rmsnorm", "flash_attention"):
         check(model_launches[name] > 0,
@@ -1030,15 +1144,23 @@ def main() -> int:
         "per": "one qwen3-14b prefill step at B=4, S=4096: 161 calls",
     }, {
         "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "route": "cuda (wgmma + TMA)",
+        "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+        "source_simt": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:25",
         "launches": model_launches["flash_attention"],
-        "match": "within 2e-3 (float32) and 2e-2 (bfloat16) of the plain "
-                 "version",
+        "launches_by_route": model_launches["flash_attention_by_route"],
+        "match": "bfloat16 (tensor-core route) within 1e-4 + 2^-7 |plain| + "
+                 "2^-7 plain(|v|) of the plain version; float32 (SIMT "
+                 "route) within 2e-3",
         "max_abs_err": fa_errs["prefill"],
+        "max_share_of_limit": fa_shares["prefill"],
+        "max_share_of_limit_cases": fa_shares[torch.bfloat16],
         "max_abs_err_float32": fa_errs[torch.float32],
         "ms": fa["ms"],
+        "ms_turns": fa["ms_turns"],
+        "simt_ms": fa["simt_ms"],
+        "ratio_to_library": fa["ratio_to_library"],
         "plain_ms": fa["plain_ms"],
         "bound_ms": fa["bound_ms"],
         "bound_by": fa["bound_by"],

@@ -20,11 +20,12 @@
 //
 // What bounds it.  At the prefill shape the work is 4 * D operations per
 // visible (query, key) pair, 687 GFLOP for q (4, 40, 4096, 128) causal,
-// against 0.34 GB of inputs and outputs: bound by operations.  This kernel
+// against 0.40 GB of inputs and outputs: bound by operations.  This kernel
 // does them as float32 FMAs outside the tensor cores (67 TFLOP/s at most),
 // as the TPU kernel's float32 dot_general does, so it cannot come near the
-// bfloat16 tensor-core bound (989 TFLOP/s); wgmma, TMA and warp
-// specialisation are later work.
+// bfloat16 tensor-core bound (989 TFLOP/s).  The binding therefore sends
+// bfloat16 at D 64 and 128, the main path, to the tensor-core kernel of
+// csrc/flash_attention_wgmma.cu; this one serves float32 and D 16 and 32.
 //
 // Design.  One block of 256 threads per (batch * query head, 64-row query
 // tile); the heaviest causal tiles launch first.  A loop inside the block over

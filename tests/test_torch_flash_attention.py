@@ -5,8 +5,15 @@ Same inputs (numpy, from a seed) through ``repro``'s plain
 kernel itself does not run under the installed JAX).  Tolerances are those
 of ``tests/test_kernels.py``: 2e-3 for float32 (the sums run in another
 order) and 2e-2 for bfloat16 (one rounding of the output, taken by two
-frameworks).  The ``gpu`` tests hold the CUDA kernel against the plain
-version on a card, over the cases ``chip_smoke.py`` runs at full size.
+frameworks).
+
+The bfloat16 tensor-core kernel (``csrc/flash_attention_wgmma.cu``) adds one
+rounding to that arithmetic, P -> bfloat16 before P V, and is held to
+:func:`tensor_core_limit`; a plain emulation of its arithmetic holds the
+limit itself on the CPU.  The ``gpu`` tests hold both CUDA kernels against
+the plain version on a card, over the cases ``chip_smoke.py`` runs at full
+size; run them there with ``python -m pytest -m gpu
+tests/test_torch_flash_attention.py``.
 """
 
 import jax.numpy as jnp
@@ -36,6 +43,46 @@ CASES = [
     (1, 4, 4, 1, 29, 128, True, None),
     (1, 4, 2, 33, 65, 128, True, 7),
 ]
+
+
+def tensor_core_limit(q, k, v, want, *, causal=True, window=None):
+    """The bound of the tensor-core route against the plain version
+    ``want``: 1e-4 + 2^-7 |plain| for one bfloat16 rounding of the output
+    (the float32 sums' order shows near 0), plus 2^-7 plain(|v|) for P ->
+    bfloat16, whose unit roundoff 2^-8 moves an output by at most 2^-8
+    sum(p |v|) / l, with the same factor 2 of margin."""
+    w_abs = ref.attention(q, k, v.abs(), causal=causal, window=window)
+    return 1e-4 + 2.0 ** -7 * (want.float().abs() + w_abs.float())
+
+
+def tensor_core_emulation(q, k, v, *, causal=True, window=None,
+                          drop_last=0):
+    """The wgmma kernel's arithmetic, plain: float32 scores from bfloat16
+    operands (whose products are exact in float32), scaled after the
+    product, masked with -1e30, P = exp(S - row max) in float32, the
+    denominator summed from the unrounded P, P rounded to bfloat16 for
+    P V, the output rounded to bfloat16.  ``drop_last`` plants a fault:
+    the last keys count as absent."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    group = hq // hkv
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * d ** -0.5
+    q_pos = torch.arange(sq)[:, None] + (skv - sq)
+    k_pos = torch.arange(skv)[None, :]
+    keep = torch.ones((sq, skv), dtype=torch.bool)
+    if causal:
+        keep &= k_pos <= q_pos
+    if window is not None:
+        keep &= k_pos > q_pos - window
+    s = torch.where(keep, s, ref.NEG_INF)
+    if drop_last:
+        s[..., skv - drop_last:] = -torch.inf
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), vf)
+    return (out / l).to(torch.bfloat16)
 
 
 def gpu(fn):
@@ -132,11 +179,65 @@ def test_wrapper_validates():
 
 def test_cpu_tensors_never_launch_or_build():
     launches = kernel.flash_attention.launches
-    builds = kernel.LIBRARY.builds
+    by_route = dict(kernel.flash_attention.launches_by_route)
+    builds = [lib.builds for lib in kernel.LIBRARIES.values()]
     q, k = torch.ones((1, 4, 8, 16)), torch.ones((1, 2, 8, 16))
     ops.attention(q, k, k)
+    ops.attention(q.bfloat16(), k.bfloat16(), k.bfloat16())
     assert kernel.flash_attention.launches == launches
-    assert kernel.LIBRARY.builds == builds
+    assert kernel.flash_attention.launches_by_route == by_route
+    assert [lib.builds for lib in kernel.LIBRARIES.values()] == builds
+
+
+LIMIT_CASES = CASES + [(1, 40, 8, 512, 512, 128, True, None)]
+
+
+@pytest.mark.parametrize("case", LIMIT_CASES, ids=str)
+def test_tensor_core_arithmetic_lies_within_its_limit(case):
+    """The limit holds the emulated tensor-core arithmetic against the
+    plain version, at every case in bfloat16."""
+    b, hq, hkv, sq, skv, d, causal, window = case
+    q, k, v = _torch(_qkv(b, hq, hkv, sq, skv, d, seed=6), "bfloat16")
+    want = ref.attention(q, k, v, causal=causal, window=window)
+    got = tensor_core_emulation(q, k, v, causal=causal, window=window)
+    limit = tensor_core_limit(q, k, v, want, causal=causal, window=window)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    share = ((got.float() - want.float()).abs() / limit).max()
+    assert share <= 1.0, float(share)
+
+
+@pytest.mark.parametrize("fault", ["GQA map shifted by one head",
+                                   "last 16 keys dropped"])
+@pytest.mark.parametrize("case", [c for c in LIMIT_CASES
+                                  if c[2] > 1 and c[4] > 16], ids=str)
+def test_tensor_core_limit_catches_planted_faults(case, fault):
+    b, hq, hkv, sq, skv, d, causal, window = case
+    q, k, v = _torch(_qkv(b, hq, hkv, sq, skv, d, seed=6), "bfloat16")
+    want = ref.attention(q, k, v, causal=causal, window=window)
+    limit = tensor_core_limit(q, k, v, want, causal=causal, window=window)
+    if fault.startswith("GQA"):
+        got = tensor_core_emulation(q, k.roll(-1, 1), v.roll(-1, 1),
+                                    causal=causal, window=window)
+    else:
+        got = tensor_core_emulation(q, k, v, causal=causal, window=window,
+                                    drop_last=16)
+    assert ((got.float() - want.float()).abs() > limit).any()
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt")])
+def test_route_is_chosen_by_dtype_and_head_dim(dtype, d, want):
+    assert kernel.route(dtype, d) == want
+
+
+def test_route_refuses_other_head_dims_and_dtypes():
+    with pytest.raises(ValueError, match="head dim 112"):
+        kernel.route(torch.bfloat16, 112)
+    with pytest.raises(ValueError, match="float16"):
+        kernel.route(torch.float16, 128)
 
 
 # ---------------------------------------------------------------- on a card
@@ -148,9 +249,41 @@ def test_cpu_tensors_never_launch_or_build():
 def test_cuda_kernel_matches_plain(case, dtype):
     b, hq, hkv, sq, skv, d, causal, window = case
     q, k, v = _torch(_qkv(b, hq, hkv, sq, skv, d, seed=5), dtype, "cuda")
+    route = kernel.route(q.dtype, d)
     before = kernel.flash_attention.launches
+    by_route = kernel.flash_attention.launches_by_route[route]
     got = ops.attention(q, k, v, causal=causal, window=window)
     assert kernel.flash_attention.launches == before + 1
+    assert kernel.flash_attention.launches_by_route[route] == by_route + 1
     want = ref.attention(q, k, v, causal=causal, window=window)
-    tol = TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if route == "wgmma":
+        limit = tensor_core_limit(q, k, v, want, causal=causal,
+                                  window=window)
+        assert bool(torch.isfinite(got.float()).all())
+        share = ((got.float() - want.float()).abs() / limit).max()
+        assert share <= 1.0, float(share)
+    else:
+        tol = TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@gpu
+def test_cuda_tensor_core_kernel_on_the_heads_view():
+    """The path's heads views (B, H, S, D) of (B, S, H*D) projections, at
+    S = 1024 with qwen3-14b's heads, taken at their strides."""
+    rng = np.random.default_rng(7)
+    b, s, hq, hkv, d = 2, 1024, 40, 8, 128
+
+    def heads(h):
+        x = torch.from_numpy(rng.standard_normal((b, s, h * d))
+                             .astype(np.float32))
+        return x.to("cuda", torch.bfloat16).view(b, s, h, d).transpose(1, 2)
+    q, k, v = heads(hq), heads(hkv), heads(hkv)
+    by_route = kernel.flash_attention.launches_by_route["wgmma"]
+    got = ops.attention(q, k, v)
+    assert kernel.flash_attention.launches_by_route["wgmma"] == by_route + 1
+    want = ref.attention(q, k, v)
+    share = ((got.float() - want.float()).abs()
+             / tensor_core_limit(q, k, v, want)).max()
+    assert got.is_contiguous() and share <= 1.0, float(share)

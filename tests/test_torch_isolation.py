@@ -81,7 +81,8 @@ from repro_torch.kernels.overlay_exec import kernel as ox
 from repro_torch.kernels.rmsnorm import kernel as rn
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-builds = ox.LIBRARY.builds + rn.LIBRARY.builds + fa.LIBRARY.builds
+builds = (ox.LIBRARY.builds + rn.LIBRARY.builds + fa.LIBRARY.builds
+          + fa.LIBRARY_WGMMA.builds)
 print(len(mods), builds, torch.cuda.is_initialized(), bad)
 """
 
