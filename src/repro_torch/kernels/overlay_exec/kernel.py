@@ -22,7 +22,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import threading
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -35,32 +35,75 @@ from repro_torch.kernels.overlay_exec import ref
 # op singly rounded like numpy; no --use_fast_math, so denormals survive
 NVCC_FLAGS = ("-fmad=false",)
 
-# threads per block before the register file forces a smaller block
-DEFAULT_BLOCK = 256
+# (work-items a thread, threads a block) in order of preference: the most
+# items a thread at a block of at least 128, then smaller blocks.  The
+# register file takes n_regs * block * items * 4 bytes of shared memory.
+# The interpreter's cost is per warp and per instruction, so more items a
+# thread spread it: on an H100 the paper's 12 cells ran fastest at
+# (8, 128) (``benchmarks/torch_kernel_times.py --alternatives``, PERF.md).
+PLANS = ((8, 128), (4, 256), (4, 128), (2, 256), (2, 128), (1, 256),
+         (1, 128), (4, 64), (2, 64), (1, 64), (4, 32), (2, 32), (1, 32))
 _WARP = 32
-# 6 int32 instruction words + 1 f32 immediate per instruction, staged in
-# shared memory behind the register file
-_INSTR_BYTES = 7 * 4
+# one 16-byte word per instruction, staged in shared memory before the
+# register file; after it the count and list of slots zeroed per tile
+_WORD_BYTES = 16
+# slots are 16-bit fields of the instruction word
+MAX_REGS = 1 << 16
 
 
-def launch_config(n_regs: int, n_instr: int,
-                  smem_limit: int) -> Tuple[int, int]:
-    """→ (threads per block, dynamic shared-memory bytes).
+class LaunchConfig(NamedTuple):
+    items: int       # work-items a thread
+    block: int       # threads a block
+    smem: int        # dynamic shared-memory bytes
 
-    The register file takes ``n_regs * block * 4`` bytes; the block halves
-    from ``DEFAULT_BLOCK`` until it fits ``smem_limit`` together with the
-    staged instructions.  Raises when not even one warp fits."""
-    fixed = n_instr * _INSTR_BYTES
-    block = DEFAULT_BLOCK
-    while block >= _WARP:
-        smem = n_regs * block * 4 + fixed
-        if smem <= smem_limit:
-            return block, smem
-        block //= 2
+
+def smem_bytes(n_regs: int, n_instr: int, items: int, block: int) -> int:
+    """Dynamic shared memory of one block."""
+    return (n_instr * _WORD_BYTES + n_regs * block * items * 4
+            + 4 * (n_regs + 1))
+
+
+def item_width(n: int, x_address: int) -> int:
+    """The most work-items a thread may take, 8, 4, 2 or 1: ``items``
+    divides N, and each input row ``x[i]`` starts on ``4 * items`` bytes
+    (16 for 8 items, which move as two 16-byte loads).  (The output, fresh
+    from PyTorch's allocator, starts on at least 512 bytes.)"""
+    for items in (8, 4, 2, 1):
+        if n % items == 0 and x_address % (4 * min(items, 4)) == 0:
+            return items
+    return 1
+
+
+def launch_config(n_regs: int, n_instr: int, smem_limit: int,
+                  width: int = 8) -> LaunchConfig:
+    """→ the first of :data:`PLANS` with at most ``width`` items a thread
+    that fits ``smem_limit``.  Raises when not even one warp of one item
+    fits."""
+    for items, block in PLANS:
+        smem = smem_bytes(n_regs, n_instr, items, block)
+        if items <= width and smem <= smem_limit:
+            return LaunchConfig(items, block, smem)
     raise ValueError(
         f"a register file of {n_regs} slots and {n_instr} instructions "
-        f"needs {n_regs * _WARP * 4 + fixed} B of shared memory for one "
-        f"warp; the device allows {smem_limit} B")
+        f"needs {smem_bytes(n_regs, n_instr, 1, _WARP)} B of shared memory "
+        f"for one warp; the device allows {smem_limit} B")
+
+
+def prefetch_depth(n_in: int) -> int:
+    """Tiles whose inputs a thread loads ahead: four registers of a
+    thread's work-items hold four tiles of one input, two of two, else one
+    (four inputs; any further ones load when their tile runs)."""
+    return 4 if n_in <= 1 else 2 if n_in == 2 else 1
+
+
+def grid_size(n: int, items: int, block: int, n_sm: int,
+              blocks_per_sm: int) -> int:
+    """Blocks of the launch: as many as the ``n_sm`` SMs hold at once
+    (``blocks_per_sm`` each), and no more than there are tiles of
+    ``block * items`` work-items, so each block walks its tiles in one
+    wave."""
+    tiles = -(-n // (block * items))
+    return max(1, min(tiles, n_sm * blocks_per_sm))
 
 
 def validate_image(instrs: np.ndarray, imms: np.ndarray, n_regs: int,
@@ -69,6 +112,9 @@ def validate_image(instrs: np.ndarray, imms: np.ndarray, n_regs: int,
     an unknown opcode or immediate port, or a slot outside the file."""
     if instrs.ndim != 2 or instrs.shape[1] != 6:
         raise ValueError(f"instrs must be (M, 6), got {instrs.shape}")
+    if n_regs > MAX_REGS:
+        raise ValueError(f"n_regs={n_regs}: register slots are 16 bits, "
+                         f"at most {MAX_REGS} slots")
     if imms.shape != (instrs.shape[0],):
         raise ValueError(f"imms must be ({instrs.shape[0]},), got "
                          f"{imms.shape}")
@@ -133,30 +179,63 @@ class ExecImage:
         self.imms.copy_(torch.from_numpy(imms))
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary(
     "overlay_exec",
     {"overlay_exec_launch": (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_size_t, ctypes.c_void_p],
+        [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _I, _I,
+         ctypes.c_size_t, _P],
         ctypes.c_int),
-     "overlay_exec_smem_optin": (
-        [ctypes.c_int, ctypes.POINTER(ctypes.c_int)], ctypes.c_int)},
+     "overlay_exec_device_limits": (
+        [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)], ctypes.c_int),
+     "overlay_exec_blocks_per_sm": (
+        [_I, _I, _I, ctypes.c_size_t, ctypes.POINTER(_I)], ctypes.c_int)},
     extra_flags=NVCC_FLAGS)
-_SMEM_LOCK = threading.Lock()
-_SMEM: Dict[int, int] = {}
+_LIMITS_LOCK = threading.Lock()
+_LIMITS: Dict[tuple, Tuple[int, ...]] = {}
 
 
-def smem_optin(device_index: int) -> int:
-    """The largest dynamic shared memory one block may opt in to."""
+def _query(key: tuple, fn, *args, n: int = 1) -> Tuple[int, ...]:
+    """``fn(*args, *n int pointers)`` once per ``key``, cached."""
+    with _LIMITS_LOCK:
+        if key not in _LIMITS:
+            vals = [ctypes.c_int(0) for _ in range(n)]
+            err = fn(*args, *(ctypes.byref(v) for v in vals))
+            LIBRARY.check(err, fn.__name__)
+            _LIMITS[key] = tuple(v.value for v in vals)
+        return _LIMITS[key]
+
+
+def device_limits(device_index: int) -> Tuple[int, int]:
+    """→ (dynamic shared memory one block may opt in to, SMs) of the
+    card."""
     lib = LIBRARY.get()
-    with _SMEM_LOCK:
-        if device_index not in _SMEM:
-            val = ctypes.c_int(0)
-            err = lib.overlay_exec_smem_optin(device_index, ctypes.byref(val))
-            LIBRARY.check(err, "cudaDeviceGetAttribute")
-            _SMEM[device_index] = val.value
-        return _SMEM[device_index]
+    return _query(("device", device_index), lib.overlay_exec_device_limits,
+                  device_index, n=2)
+
+
+class Launch(NamedTuple):
+    items: int       # work-items a thread
+    block: int       # threads a block
+    smem: int        # dynamic shared-memory bytes
+    depth: int       # tiles whose inputs a thread loads ahead
+    grid: int        # blocks
+
+
+def plan(image: "ExecImage", x: torch.Tensor) -> Launch:
+    """The launch of ``image`` over x on its card."""
+    dev = x.device.index
+    optin, n_sm = device_limits(dev)
+    n_in, n = x.shape
+    cfg = launch_config(image.n_regs, image.n_instr, optin,
+                        item_width(n, x.data_ptr()))
+    depth = prefetch_depth(n_in)
+    key = ("occupancy", dev, cfg.items, depth, cfg.block, cfg.smem)
+    with torch.cuda.device(dev):
+        per_sm, = _query(key, LIBRARY.get().overlay_exec_blocks_per_sm,
+                         cfg.items, depth, cfg.block, cfg.smem)
+    return Launch(*cfg, depth,
+                  grid_size(n, cfg.items, cfg.block, n_sm, per_sm))
 
 
 def overlay_execute(image: ExecImage, x: torch.Tensor) -> torch.Tensor:
@@ -191,14 +270,13 @@ def overlay_execute(image: ExecImage, x: torch.Tensor) -> torch.Tensor:
         return out
     lib = LIBRARY.get()
     dev = x.device.index
-    block, smem = launch_config(image.n_regs, image.n_instr,
-                                smem_optin(dev))
+    p = plan(image, x)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.overlay_exec_launch(
             image.instrs.data_ptr(), image.imms.data_ptr(), x.data_ptr(),
             out.data_ptr(), n, n_in, image.n_out, image.n_instr,
-            image.n_regs, block, smem, stream)
+            image.n_regs, p.items, p.depth, p.block, p.grid, p.smem, stream)
     LIBRARY.check(err, "overlay_exec launch")
     overlay_execute.launches += 1
     return out

@@ -8,9 +8,10 @@ time, so any image runs on the one build; programs padded to the same
 :class:`ExecImage`, and swapping kernels is a write into its buffers.
 
 Where the JAX package picked a block from a TPU VMEM budget and padded N to
-a multiple of it, :func:`~repro_torch.kernels.overlay_exec.kernel.launch_config`
-picks a Hopper block from the shared-memory limit, and the kernel masks the
-ragged end of N instead of padding it.
+a multiple of it, :func:`~repro_torch.kernels.overlay_exec.kernel.plan`
+picks the work-items a thread and the block from the shared-memory limit
+and the alignment of N and x, and the kernel masks the ragged end of N
+instead of padding it.
 """
 
 from __future__ import annotations

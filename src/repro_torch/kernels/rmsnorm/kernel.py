@@ -15,13 +15,17 @@ launches), a CPU tensor takes the plain version
 ``impl="ref"`` asks for the plain version on any device and
 ``impl="kernel"`` for the kernel, raising off a CUDA device.  The library
 is built at first launch (:class:`repro_torch.cuda_build.CudaLibrary`).
+:func:`launch_plan` decides how the kernel splits the rows; the CPU tests
+check it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -29,12 +33,127 @@ from repro_torch.cuda_build import CudaLibrary
 from repro_torch.kernels.rmsnorm import ref
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-LIBRARY = CudaLibrary("rmsnorm", {"rmsnorm_launch": (
-    [_P, _P, _P, _LL, _I, _LL, _LL, _LL, _LL, _LL, ctypes.c_float, _I, _P],
-    ctypes.c_int)})
+LIBRARY = CudaLibrary("rmsnorm", {
+    "rmsnorm_launch": (
+        [_P, _P, _P, _LL, _I, _LL, _LL, _LL, _LL, _LL, ctypes.c_float, _I,
+         _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    "rmsnorm_blocks_per_sm": (
+        [_I] * 7 + [ctypes.POINTER(_I)], ctypes.c_int)})
 
 # dtype codes of the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# kernel codes of the C interface: registers (one read of x), or the
+# scalar path's two passes
+KINDS = {"rows": 0, "loop": 1}
+# rmsnorm_rows' limits: threads per row, 16-byte vectors per thread
+MAX_TPR, MAX_VPT = 512, 8
+# the block each plan aims for
+_BLOCK = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How a call splits its rows.  ``kind`` "rows": a group of ``tpr``
+    threads owns a row, each thread keeping ``vpt`` loads of ``vec``
+    elements in registers, ``rows_per_group`` rows at once; with ``walk`` a
+    grid of as many blocks as the SMs hold walks tiles of
+    :attr:`rows_per_block` rows, loading each block's next tile ahead, else
+    one block per tile.  "loop": the scalar path, ``tpr`` threads walk a row
+    twice, one block per :attr:`rows_per_block` rows."""
+    kind: str
+    vec: int
+    tpr: int
+    vpt: int
+    rows_per_group: int
+    block: int
+    walk: bool
+
+    @property
+    def rows_per_block(self) -> int:
+        return self.block // self.tpr * self.rows_per_group
+
+
+def _even_split(nv: int) -> Tuple[int, int]:
+    """→ (threads per row, a multiple of 32 up to MAX_TPR; vectors per
+    thread up to MAX_VPT) covering ``nv`` vectors with the fewest idle
+    slots, then with the vectors per thread nearest 4 (on an H100, rows of
+    5120 ran fastest as 160 x 4 in bf16 and 320 x 4 in float32:
+    ``benchmarks/torch_kernel_times.py --alternatives``, PERF.md)."""
+    best = None
+    for vpt in range(1, MAX_VPT + 1):
+        tpr = -(-nv // (vpt * 32)) * 32
+        if tpr > MAX_TPR:
+            continue
+        key = (tpr * vpt - nv, abs(vpt - 4))
+        if best is None or key < best[0]:
+            best = (key, tpr, vpt)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(d: int, dtype: torch.dtype, aligned: bool) -> Plan:
+    """The split of rows of ``d`` elements of ``dtype``; ``aligned`` when
+    x, the weight and the output start on 16 bytes and every row stride is
+    a whole number of 16 bytes.
+
+    Rows of whole 16-byte vectors go to the register kernel: up to 32
+    vectors, a power-of-two group of lanes per row, several rows to a warp
+    and two rows a group, on a walking grid; wider rows, a block of whole
+    warps splitting the row evenly, one row a block.  Anything else (an
+    unaligned pointer, stride or width, or a row past MAX_TPR * MAX_VPT
+    vectors) takes the scalar path."""
+    vec = 16 // dtype.itemsize
+    if not aligned or d % vec:
+        vec = 1
+    nv = d // vec
+    if vec == 1 or nv > MAX_TPR * MAX_VPT:
+        tpr = 32
+        while tpr < 1024 and tpr * 4 < nv:
+            tpr *= 2
+        return Plan("loop", vec, tpr, -(-nv // tpr), 1, max(_BLOCK, tpr),
+                    False)
+    if nv <= 32:
+        tpr = 1 << (nv - 1).bit_length()
+        return Plan("rows", vec, tpr, 1, 2, _BLOCK, True)
+    tpr, vpt = _even_split(nv)
+    return Plan("rows", vec, tpr, vpt, 1, tpr, False)
+
+
+def grid_size(plan: Plan, n_rows: int, n_sm: int,
+              blocks_per_sm: int) -> int:
+    """Blocks of the launch: one per :attr:`Plan.rows_per_block` rows, or
+    for a walking plan no more than the ``n_sm`` SMs hold at once
+    (``blocks_per_sm`` each), so each block walks several tiles in one
+    wave."""
+    tiles = -(-n_rows // plan.rows_per_block)
+    if not plan.walk:
+        return tiles
+    return max(1, min(tiles, n_sm * blocks_per_sm))
+
+
+_LIMITS: Dict[tuple, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    key = ("sm", device.index)
+    if key not in _LIMITS:
+        _LIMITS[key] = torch.cuda.get_device_properties(
+            device.index).multi_processor_count
+    return _LIMITS[key]
+
+
+def _blocks_per_sm(plan: Plan, dtype: torch.dtype, device) -> int:
+    key = (plan, dtype, device.index)
+    if key not in _LIMITS:
+        val = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = LIBRARY.get().rmsnorm_blocks_per_sm(
+                DTYPES[dtype], KINDS[plan.kind], plan.vec, plan.vpt,
+                plan.rows_per_group, plan.walk, plan.block,
+                ctypes.byref(val))
+        LIBRARY.check(err, "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
+        _LIMITS[key] = val.value
+    return _LIMITS[key]
 
 
 def row_layout(x: torch.Tensor) -> Tuple[int, Tuple[int, int],
@@ -95,12 +214,21 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if n_rows == 0 or d == 0:
         return out
+    size = x.element_size()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, weight, out)) and \
+        all(st * size % 16 == 0 for st in (s0, s1, s2))
+    plan = launch_plan(d, x.dtype, aligned)
+    grid = grid_size(plan, n_rows, _sm_count(x.device),
+                     _blocks_per_sm(plan, x.dtype, x.device)
+                     if plan.walk else 0)
     lib = LIBRARY.get()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.rmsnorm_launch(
             x.data_ptr(), weight.data_ptr(), out.data_ptr(), n_rows, d,
-            n1, n2, s0, s1, s2, float(eps), DTYPES[x.dtype], stream)
+            n1, n2, s0, s1, s2, float(eps), DTYPES[x.dtype],
+            KINDS[plan.kind], plan.vec, plan.tpr, plan.vpt,
+            plan.rows_per_group, plan.walk, plan.block, grid, stream)
     LIBRARY.check(err, "rmsnorm launch")
     rmsnorm.launches += 1
     return out

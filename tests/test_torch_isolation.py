@@ -1,5 +1,6 @@
 """The port stands alone: nothing under ``src/repro_torch/``, and not
-``chip_smoke.py``, imports JAX or any module of the JAX package ``repro``.
+``chip_smoke.py`` or the port's benchmarks (``benchmarks/torch_*.py``),
+imports JAX or any module of the JAX package ``repro``.
 
 Checked twice: statically over every import statement, and in a fresh
 interpreter that imports every module of the port and then looks at
@@ -20,11 +21,12 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
+BENCHMARKS = sorted((ROOT / "benchmarks").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [SMOKE]
+    return sorted(PORT.rglob("*.py")) + [SMOKE] + BENCHMARKS
 
 
 def _forbidden(name: str) -> bool:
@@ -119,4 +121,15 @@ def test_chip_smoke_without_a_card_fails():
     out = _run_smoke(SMOKE, ROOT)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+    assert "no CUDA device" in out.stderr
+
+
+@pytest.mark.parametrize("script", BENCHMARKS, ids=lambda p: p.name)
+def test_port_benchmarks_without_a_card_fail(script):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the benchmark would run for real")
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=""))
+    assert out.returncode != 0
     assert "no CUDA device" in out.stderr

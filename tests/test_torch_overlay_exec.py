@@ -274,17 +274,68 @@ def test_cpu_tensors_never_launch_or_build():
     assert kernel.LIBRARY.builds == builds
 
 
-@pytest.mark.parametrize("n_regs, n_instr, block", [
-    (8, 6, 256), (17, 14, 256), (300, 244, 128), (1200, 343, 32)])
-def test_launch_config_shrinks_block_to_fit(n_regs, n_instr, block):
-    got, smem = kernel.launch_config(n_regs, n_instr, 232448)
-    assert got == block
-    assert smem == n_regs * block * 4 + n_instr * 28 <= 232448
+@pytest.mark.parametrize("n_regs, n_instr, items, block", [
+    (8, 6, 8, 128), (17, 14, 8, 128), (300, 244, 1, 128), (1200, 343, 1, 32)])
+def test_launch_config_shrinks_block_to_fit(n_regs, n_instr, items, block):
+    got_items, got, smem = kernel.launch_config(n_regs, n_instr, 232448)
+    assert (got_items, got) == (items, block)
+    # instruction words, register file, list of zeroed slots
+    assert smem == (n_instr * 16 + n_regs * block * items * 4
+                    + 4 * (n_regs + 1)) <= 232448
 
 
 def test_launch_config_raises_when_one_warp_does_not_fit():
     with pytest.raises(ValueError, match="one warp"):
         kernel.launch_config(2000, 10, 232448)
+
+
+SMEM_OPTIN, N_SM = 232448, 132      # an H100's
+
+
+@pytest.mark.parametrize("spec", [(8, 8, 2), (32, 8, 2)])
+def test_paper_programs_take_four_items_a_thread(spec):
+    """At N = 2^24 on an aligned x every paper program runs 8 work-items a
+    thread in blocks of 128, on one wave of blocks that walk the 16384
+    tiles."""
+    from repro_torch.configs.paper_suite import BENCHMARKS
+    from repro_torch.core.jit import jit_compile
+    from repro_torch.core.overlay import OverlaySpec
+    n = 1 << 24
+    for src, _, _ in BENCHMARKS.values():
+        ck = jit_compile(src, OverlaySpec(*spec))
+        instrs, _, n_regs, _ = ops.build_image(ck.program)
+        cfg = kernel.launch_config(n_regs, instrs.shape[0], SMEM_OPTIN,
+                                   kernel.item_width(n, 1 << 20))
+        assert cfg[:2] == (8, 128)
+        assert kernel.grid_size(n, cfg.items, cfg.block, N_SM, 3) == N_SM * 3
+
+
+@pytest.mark.parametrize("n, address, width", [
+    (1 << 24, 1 << 20, 8), (1 << 24, 16, 8), ((1 << 24) + 4, 0, 4),
+    ((1 << 24) + 2, 0, 2), ((1 << 24) + 1, 0, 1), (1 << 24, 8, 2),
+    (1 << 24, 4, 1), (5, 256, 1), (4095, 0, 1)])
+def test_unaligned_n_or_x_narrows_the_width(n, address, width):
+    assert kernel.item_width(n, address) == width
+    cfg = kernel.launch_config(17, 14, SMEM_OPTIN, width)
+    assert cfg[:2] == (width, 128 if width == 8 else 256)
+
+
+def test_prefetch_depth_holds_sixteen_registers_of_inputs():
+    assert [kernel.prefetch_depth(n_in) for n_in in range(7)] == \
+        [4, 4, 2, 1, 1, 1, 1]
+
+
+def test_grid_covers_small_n_with_one_block_per_tile():
+    assert kernel.grid_size(5, 1, 256, N_SM, 4) == 1
+    assert kernel.grid_size(4096 * 3, 4, 256, N_SM, 4) == 12
+    assert kernel.grid_size(1 << 24, 4, 256, N_SM, 4) == N_SM * 4
+
+
+def test_image_validation_bounds_slots_to_16_bits():
+    instrs = np.array([[1, 2, 0, 1, 0, 0]], np.int32)
+    with pytest.raises(ValueError, match="16 bits"):
+        kernel.ExecImage.from_arrays(instrs, np.zeros(1, np.float32),
+                                     (1 << 16) + 1, 1, CPU)
 
 
 # ---------------------------------------------------------------- on a card
@@ -334,3 +385,50 @@ def test_cuda_swap_keeps_one_build():
     got = kernel.overlay_execute(image, x)
     assert kernel.LIBRARY.builds == builds == 1
     assert_same_bits(got[0], r_ref.execute(r2, [x[0].cpu().numpy()])[0])
+
+
+def _random_image(rng, n_in, n_regs, n_out, m):
+    """Random rows over the whole register file, outputs parked last; half
+    the rows read the row before's result as a, a third as b (the chains
+    the kernel forwards in registers)."""
+    writable = n_regs - n_out
+    rows = np.stack([rng.integers(0, N_OPCODES, m),
+                     *rng.integers(0, writable, (4, m)),
+                     rng.integers(0, 3, m)], axis=1)
+    for k in range(1, m):
+        for col, p in ((2, 0.5), (3, 0.3)):
+            if rng.random() < p:
+                rows[k, col] = rows[k - 1, 1]
+    instrs = np.concatenate([
+        rows, [[OP_PASS, writable + j, int(rng.integers(writable)), 0, 0, 0]
+               for j in range(n_out)]]).astype(np.int32)
+    imms = rng.standard_normal(len(instrs)).astype(np.float32)
+    imms[::7] = np.nan
+    return instrs, imms
+
+
+@gpu
+@pytest.mark.parametrize("n_items", [1, 5, 4094, 4095, 4096, (1 << 20) + 3,
+                                     (1 << 20) + 4, (1 << 20) + 8])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n_in", [1, 2, 3, 6])
+def test_cuda_kernel_ragged_n_and_offset_x(n_items, offset, n_in):
+    """Ragged N (each width: 8, 4, 2 and 1 work-items a thread), x starting
+    one element past 16 bytes (one work-item a thread), each prefetch
+    depth, and more inputs than the kernel loads ahead into registers."""
+    rng = np.random.default_rng(n_items + offset)
+    n_regs, n_out = 24, 2
+    instrs, imms = _random_image(rng, n_in, n_regs, n_out, 60)
+    x_np = rng.standard_normal((n_in, n_items)).astype(np.float32)
+    x_np[:, :min(n_items, len(SPECIALS))] = SPECIALS[:n_items]
+    buf = torch.empty(n_in * n_items + offset, device="cuda")
+    x = buf[offset:].view(n_in, n_items)
+    x.copy_(torch.from_numpy(x_np))
+    image = kernel.ExecImage.from_arrays(instrs, imms, n_regs, n_out, "cuda")
+    items = kernel.plan(image, x).items
+    assert items == kernel.item_width(n_items, x.data_ptr())
+    if offset:
+        assert items == 1
+    got = kernel.overlay_execute(image, x)
+    assert_same_bits(got, r_ref.execute_image(instrs, imms, n_regs, x_np,
+                                              n_out))

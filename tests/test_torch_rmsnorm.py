@@ -133,6 +133,69 @@ def test_cpu_tensors_never_launch_or_build():
     assert kernel.LIBRARY.builds == builds
 
 
+N_SM = 132          # the H100's SMs
+
+
+def test_plan_splits_rows_of_5120_evenly():
+    plan = kernel.launch_plan(5120, torch.bfloat16, True)
+    assert (plan.kind, plan.vec, plan.rows_per_group) == ("rows", 8, 1)
+    assert plan.tpr * plan.vpt * plan.vec == 5120        # no idle slot
+    assert (plan.tpr, plan.vpt, plan.block) == (160, 4, 160)
+    # one row a block, whatever the SMs hold
+    assert not plan.walk and kernel.grid_size(plan, 16384, N_SM, 5) == 16384
+    # 100 floats are 25 whole 16-byte vectors: not the scalar path
+    assert kernel.launch_plan(100, torch.float32, True).vec == 4
+    f32 = kernel.launch_plan(5120, torch.float32, True)
+    assert (f32.tpr, f32.vpt, f32.vec) == (320, 4, 4)
+
+
+def test_plan_puts_16_lanes_on_a_row_of_128():
+    plan = kernel.launch_plan(128, torch.bfloat16, True)
+    assert (plan.kind, plan.vec, plan.tpr, plan.vpt) == ("rows", 8, 16, 1)
+    assert plan.rows_per_group == 2 and plan.block == 256
+    assert plan.rows_per_block == 32           # two rows a warp, twice
+    # a grid of one wave: each block walks several tiles
+    assert plan.walk and kernel.grid_size(plan, 655360, N_SM, 4) == N_SM * 4
+    assert kernel.grid_size(plan, 160, N_SM, 4) == 5     # decode: 160 rows
+
+
+@pytest.mark.parametrize("d, dtype, aligned", [
+    (100, torch.bfloat16, True),               # width not whole vectors
+    (102, torch.float32, True),
+    (5120, torch.bfloat16, False),             # pointer or stride
+    (128, torch.float32, False)])
+def test_plan_takes_the_scalar_path(d, dtype, aligned):
+    plan = kernel.launch_plan(d, dtype, aligned)
+    assert (plan.kind, plan.vec) == ("loop", 1)
+    # one block per group of rows, whatever the SMs hold
+    assert kernel.grid_size(plan, 3000, N_SM, 1) == \
+        -(-3000 // plan.rows_per_block)
+
+
+def test_plan_walks_rows_too_wide_for_registers():
+    d = kernel.MAX_TPR * kernel.MAX_VPT * 8 + 8
+    plan = kernel.launch_plan(d, torch.bfloat16, True)
+    assert (plan.kind, plan.vec, plan.rows_per_block) == ("loop", 8, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plan_covers_every_width(dtype):
+    vec = 16 // dtype.itemsize
+    for d in range(vec, kernel.MAX_TPR * kernel.MAX_VPT * vec + 1, vec * 7):
+        plan = kernel.launch_plan(d, dtype, True)
+        nv = d // vec
+        assert plan.kind == "rows" and plan.vec == vec
+        assert plan.tpr * plan.vpt >= nv > plan.tpr * (plan.vpt - 1)
+        assert plan.vpt <= kernel.MAX_VPT and plan.block <= 512
+        assert plan.block % plan.tpr == 0
+        if nv <= 32:
+            assert plan.tpr >= nv and plan.tpr & (plan.tpr - 1) == 0
+            assert plan.walk and plan.rows_per_group == 2
+        else:
+            assert plan.tpr % 32 == 0 and plan.block == plan.tpr
+            assert not plan.walk and plan.rows_per_group == 1
+
+
 # ---------------------------------------------------------------- on a card
 @gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -161,4 +224,26 @@ def test_cuda_kernel_reads_the_heads_view_in_place(dtype):
     assert got.is_contiguous() and got.shape == view.shape
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), ref.rmsnorm(view, tw).float(),
+                               rtol=tol, atol=tol)
+
+
+@gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape, view", [
+    ((2, 33, 40, 128), "heads"),        # the heads view, odd S
+    ((4, 1, 40, 128), "heads"),         # the (4, 40, 1, 128) decode view
+    ((40000, 128), None),               # more rows than the grid has blocks
+    ((5000, 5120), None),
+    ((7, 1000), None),                  # a split with idle slots
+    ((3, 6144), None), ((2, 8192), None), ((2, 40008), None)])
+def test_cuda_kernel_edges(shape, view, dtype):
+    x, w = _inputs(shape, seed=5)
+    tx = torch.from_numpy(x).to("cuda", getattr(torch, dtype))
+    tw = torch.from_numpy(w).to("cuda", getattr(torch, dtype))
+    if view == "heads":
+        tx = tx.transpose(1, 2)
+    got = kernel.rmsnorm(tx, tw)
+    assert got.is_contiguous() and got.shape == tx.shape
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.rmsnorm(tx, tw).float(),
                                rtol=tol, atol=tol)
