@@ -49,12 +49,31 @@ tensor-core kernel and the float32 SIMT kernel).  Phases:
       times, and the logits held against
       the prefill step, ``forward_train`` and the plain attention path, at
       two bfloat16 weight seeds and in float32 at full depth; each limit
-      must also fail two faults planted in the attention.
+      must also fail two faults planted in the attention;
+  (h) the runtime seam at N = 2^24 work-items per buffer on an 8x8
+      overlay, every execution through the executor on a resident image,
+      every output bit for bit against ``run_reference`` and still on the
+      card: (h1) the OpenCL host flow of ``examples/opencl_runtime_demo.py``
+      for the six kernels (build and ledger debit, three enqueues with one
+      image load and one config charge, release and credit, rebuild from
+      the cache); (h2) the three tenants of
+      ``examples/multi_tenant_serving.py`` on two overlay devices, one
+      launch per enqueue; (h3) ``examples/graph_replay.py``'s five
+      requests, one launch per partition, the fused replay equal to the
+      nodewise one and to chained ``run_reference``; (h4) a second Session
+      on the same ``persist_dir`` with no cold build; then the host µs per
+      ``Session.enqueue`` and ``Session.launch`` at 2^24 and 2048
+      work-items, their device ms, the host µs of each layer below
+      ``Session.enqueue``, ``run_overlay`` from numpy, and for each of the
+      six kernels the device ms of a ``Session.enqueue`` at 2^24 beside
+      the executor alone, the copy that stacks its inputs, and phase (c)'s
+      time of the cell.
 
 Exits non-zero, printing no result, without a card or when any check
 fails.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists each ported kernel with its launches on the main paths
-(phase (c) for the executor, phase (g) for RMSNorm and flash attention).
+(phases (c) and (h) for the executor, phase (g) for RMSNorm and flash
+attention).
 """
 
 from __future__ import annotations
@@ -79,6 +98,13 @@ N_MAIN = 1 << 24
 N_CHECK = (1, 5, 127, 4094, 4095, 4096, (1 << 20) + 3, (1 << 20) + 4,
            (1 << 20) + 8, (1 << 20) + 37)
 N_SWAP = 1 << 20
+# phase (h): work-items per buffer, the small N of the host-cost reading,
+# and the calls timed on the host clock for each reading
+N_RUNTIME = 1 << 24
+N_RUNTIME_SMALL = 2048
+RUNTIME_REPS = 50
+# phase (h4)'s persistent cache (gitignored, emptied first)
+PERSIST_DIR = ROOT / "build" / "chip_smoke_jit"
 REPS = 10
 # read before each timed RMSNorm launch to evict the 50 MB L2 (a read
 # leaves clean lines; a write would leave dirty ones whose write-back lands
@@ -494,6 +520,7 @@ def phase_main_path(max_err: list):
 
     totals = dict(ms=0.0, ms_with_host=0.0, plain_ms=0.0, bound_ms=0.0,
                   byte_ms=0.0, op_ms=0.0)
+    cell_ms = {}
     for spec, name, ck, xs, got, compile_ms, run_ms, launches in runs:
         check(launches >= 1, f"{name}: run_overlay never launched the kernel")
         check(got.device.type == DEVICE and got.shape == (N_MAIN,)
@@ -528,6 +555,7 @@ def phase_main_path(max_err: list):
         b_ms = max(byte_ms, op_ms)
         b_by = "bytes" if byte_ms >= op_ms else "operations"
         totals["ms"] += k_ms
+        cell_ms[(spec.width, spec.height, spec.dsp_per_fu, name)] = k_ms
         totals["ms_with_host"] += h_ms
         totals["plain_ms"] += p_ms
         totals["bound_ms"] += b_ms
@@ -552,7 +580,7 @@ def phase_main_path(max_err: list):
         f"{totals['bound_ms']:.4f} ms (share "
         f"{totals['bound_ms'] / totals['ms']:.3f}), plain "
         f"{totals['plain_ms']:.3f} ms")
-    return main_launches, totals, len(runs)
+    return main_launches, totals, len(runs), cell_ms
 
 
 def phase_reconfig(max_err: list) -> None:
@@ -623,6 +651,400 @@ def phase_reconfig(max_err: list) -> None:
         f"(host clock, write + synchronize; first {swap_ms[0] * 1e3:.1f} "
         f"us), all bit-exact at N={N_SWAP}; one CUDA graph replayed after "
         f"swaps among {len(one_input)} one-input programs, bit-exact")
+
+
+# ------------------------------------------------ (h) the runtime seam
+class Refs:
+    """``run_reference`` (numpy, on the host) of each artifact on inputs
+    drawn from one pool, computed once per (artifact, inputs)."""
+
+    def __init__(self, pool):
+        self.pool = pool
+        self._memo = {}
+
+    def __call__(self, ck, n_in: int):
+        key = (ck.program.content_hash(), n_in)
+        if key not in self._memo:
+            self._memo[key] = ck.run_reference(*self.pool[:n_in])
+        return self._memo[key]
+
+
+def check_resident(buf, want, what: str) -> None:
+    """A Buffer holds ``want``'s bits and still lies on the card."""
+    import numpy as np
+    import torch
+    check(buf.data.device.type == "cuda" and buf.data.dtype == torch.float32,
+          f"{what}: output on {buf.data.device} {buf.data.dtype}")
+    check(same_bits(buf.data.cpu(), torch.from_numpy(
+        np.ascontiguousarray(want))), f"{what}: != run_reference")
+
+
+def runtime_opencl_flow(spec, bufs, refs):
+    """(h1) ``examples/opencl_runtime_demo.py`` for the six kernels: build
+    (ledger debit), enqueue three times, release (credit), then rebuild
+    each from the cache."""
+    from repro_torch.configs.paper_suite import BENCHMARKS
+    from repro_torch.core.cache import JITCache
+    from repro_torch.core.options import CompileOptions
+    from repro_torch.core.runtime import Context, Device, Platform
+    from repro_torch.kernels.overlay_exec import kernel, ops
+
+    dev = Platform([Device("zynq-overlay", spec)]).devices[0]
+    cache = JITCache()
+    ctx = Context(dev, cache=cache)
+    q = ctx.create_queue()
+    check(q.use_overlay_executor, "the queue does not run the executor")
+    cold, warm, charges = {}, {}, []
+    for rebuild in (False, True):
+        for name, (src, _, _) in BENCHMARKS.items():
+            loads, launches = ops.image_loads, kernel.overlay_execute.launches
+            prog = ctx.build_program(src, opts=CompileOptions())
+            plan = prog.compiled.plan
+            check((dev.fu_used, dev.io_used) == (plan.fus_used, plan.io_used),
+                  f"(h1) {name}: the build did not debit the ledger")
+            n_in = len(prog.compiled.dfg.inputs)
+            reps = 1 if rebuild else 3
+            evs = [q.enqueue_kernel(prog.create_kernel().set_args(
+                *bufs[:n_in])) for _ in range(reps)]
+            want = refs(prog.compiled, n_in)
+            for ev in evs:
+                check_resident(ev.outputs[0], want, f"(h1) {name}")
+            check(ops.image_loads - loads == 1,
+                  f"(h1) {name}: {ops.image_loads - loads} image loads")
+            check(kernel.overlay_execute.launches - launches == reps,
+                  f"(h1) {name}: launches != enqueues")
+            charges.append([ev.config_us > 0.0 for ev in evs])
+            (warm if rebuild else cold)[name] = prog.build_ms
+            prog.release()
+            check(dev.fu_used == dev.io_used == 0 and ctx.ledger_consistent()
+                  and prog._images == {},
+                  f"(h1) {name}: release did not credit the ledger")
+    check(cache.stats.hits == len(BENCHMARKS),
+          f"(h1) rebuilds were not cache hits: {cache.stats.as_dict()}")
+    check(all(c[0] and not any(c[1:]) for c in charges[:len(BENCHMARKS)]),
+          f"(h1) config charges {charges}")
+    check(kernel.LIBRARY.builds == 1, "(h1) the executor was rebuilt")
+    log(f"(h1) OpenCL flow, six kernels at N={bufs[0].data.numel()}: "
+        f"bit-exact, outputs on the card, one image load and one config "
+        f"charge per program over 3 enqueues, ledger debited and credited; "
+        f"cold build ms " + ", ".join(f"{k} {v:.1f}" for k, v in cold.items())
+        + "; rebuild from the cache ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in warm.items()))
+
+
+# examples/multi_tenant_serving.py's request streams
+TENANTS = {
+    "tenant-a": ["poly1", "poly1", "chebyshev", "poly1"],
+    "tenant-b": ["sgfilter", "sgfilter", "poly2"],
+    "tenant-c": ["chebyshev", "mibench", "chebyshev", "qspline"],
+}
+
+
+def runtime_multi_tenant(spec, bufs, refs):
+    """(h2) ``examples/multi_tenant_serving.py``: three tenants on two
+    overlay devices of the one card."""
+    from repro_torch.configs.paper_suite import BENCHMARKS
+    from repro_torch.core.cache import JITCache
+    from repro_torch.core.options import CompileOptions
+    from repro_torch.core.runtime import Device
+    from repro_torch.core.session import Session
+    from repro_torch.kernels.overlay_exec import kernel
+
+    opts = CompileOptions(max_replicas=6)
+    with Session([Device("ovl0", spec), Device("ovl1", spec)],
+                 cache=JITCache(capacity=32), max_workers=4) as sess:
+        sess.set_priority("tenant-a", 1)
+        futures = {(t, k): sess.compile(BENCHMARKS[k][0], opts, tenant=t)
+                   for t, stream in TENANTS.items() for k in set(stream)}
+        n = 0
+        for tenant, stream in TENANTS.items():
+            for kname in stream:
+                fut = futures[(tenant, kname)]
+                ck = fut.result().compiled
+                n_in = len(ck.dfg.inputs)
+                before = kernel.overlay_execute.launches
+                ev = sess.enqueue(fut, *bufs[:n_in], tenant=tenant)
+                check(kernel.overlay_execute.launches - before == 1,
+                      f"(h2) {tenant} {kname}: not one launch")
+                check_resident(ev.outputs[0], refs(ck, n_in),
+                               f"(h2) {tenant} {kname}")
+                n += 1
+        check(sess.ledger_consistent(), "(h2) ledger out of balance")
+        devices = sorted({f.result().ctx.device.name
+                          for f in futures.values()})
+        makespan = sess.finish()
+        for fut in futures.values():
+            fut.result().release()
+        sess.build(BENCHMARKS["poly1"][0], opts, tenant="tenant-a")
+        check(sess.cache.stats.hits >= 1, "(h2) no cache hit after churn")
+        log(f"(h2) multi-tenant flow: {n} requests of 3 tenants on "
+            f"{devices}, one executor launch each, bit-exact, ledger "
+            f"consistent; modelled makespan {makespan:.0f} us, "
+            f"config {sess.config_charges()}")
+
+
+PIPELINE_STAGES = ("normalize", "poly1", "act", "rescale")
+
+
+def record_pipeline(sess, opts):
+    """``examples/graph_replay.py``'s four-stage pipeline."""
+    from repro_torch.configs.paper_suite import BENCHMARKS
+    srcs = (lambda x: x * 0.5 - 1.0, BENCHMARKS["poly1"][0],
+            lambda x: x * x * 0.25 + x, lambda x: x * 0.125 + 2.0)
+    with sess.capture("tenant-a", name="pipeline") as g:
+        buf = g.input("x")
+        for name, src in zip(PIPELINE_STAGES, srcs):
+            buf = g.call(src, opts.replace(n_inputs=1, name=name), buf)
+    return g
+
+
+def runtime_graph_replay(spec, xs):
+    """(h3) ``examples/graph_replay.py``: five requests, replayed as an
+    instantiated graph and node by node, each in its own Session."""
+    import numpy as np
+    from repro_torch.core.jit import jit_compile
+    from repro_torch.core.options import CompileOptions
+    from repro_torch.core.runtime import Device
+    from repro_torch.core.session import Session
+    from repro_torch.kernels.overlay_exec import kernel
+
+    opts = CompileOptions(max_replicas=4)
+    outs, charges = {}, {}
+    for mode in ("graph", "nodewise"):
+        with Session([Device("ovl0", spec)]) as sess:
+            g = record_pipeline(sess, opts)
+            gx = sess.instantiate(g) if mode == "graph" else None
+            outs[mode] = []
+            for x in xs:
+                before = kernel.overlay_execute.launches
+                ev = sess.launch(gx, x) if gx is not None else \
+                    sess.launch_nodewise(g, x)
+                n = kernel.overlay_execute.launches - before
+                want = gx.n_partitions if gx is not None else len(g.nodes)
+                check(n == want, f"(h3) {mode}: {n} launches for {want} "
+                      f"partitions")
+                outs[mode].append(ev.outputs[0])
+            charges[mode] = (sess.config_charges(),
+                             gx.n_partitions if gx is not None else None)
+            stages = [jit_compile(node.dfg, spec, opts=node.opts)
+                      for node in g.nodes]
+    for x, got, node in zip(xs, outs["graph"], outs["nodewise"]):
+        want = x.read()
+        for ck in stages:
+            want = np.asarray(ck.run_reference(want), np.float32)
+        check_resident(got, want, "(h3) graph replay")
+        check_resident(node, want, "(h3) nodewise replay")
+    log(f"(h3) graph replay, {len(xs)} requests at N={xs[0].data.numel()}: "
+        f"{charges['graph'][1]} partition(s), one executor launch each; "
+        f"fused = nodewise = chained run_reference, bit-exact; modelled "
+        f"config charges: graph {charges['graph'][0]}, nodewise "
+        f"{charges['nodewise'][0]}")
+
+
+def runtime_persistence(spec, bufs, refs, persist: Path):
+    """(h4) a second Session on the same ``persist_dir`` warm-loads every
+    artifact with no cold build, and its outputs are equal."""
+    import shutil
+    from repro_torch.configs.paper_suite import BENCHMARKS
+    from repro_torch.core.options import CompileOptions
+    from repro_torch.core.runtime import Device
+    from repro_torch.core.session import Session
+
+    shutil.rmtree(persist, ignore_errors=True)
+    opts = CompileOptions(max_replicas=4)
+    runs = []
+    for _ in range(2):
+        with Session([Device("ovl0", spec)], persist_dir=str(persist)) as s:
+            outs = []
+            for name, (src, _, _) in BENCHMARKS.items():
+                prog = s.build(src, opts)
+                n_in = len(prog.compiled.dfg.inputs)
+                ev = s.enqueue(prog, *bufs[:n_in])
+                check_resident(ev.outputs[0], refs(prog.compiled, n_in),
+                               f"(h4) {name}")
+                outs.append(ev.outputs[0].data)
+                prog.release()
+            gx = s.instantiate(record_pipeline(s, opts)).result()
+            outs.append(s.launch(gx, bufs[0]).outputs[0].data)
+            runs.append((s.cache.stats.as_dict(), outs))
+    (cold, first), (warm, second) = runs
+    check(warm["misses"] == 0 and warm["disk_hits"] == cold["misses"],
+          f"(h4) restart was not warm: {warm}")
+    check(all(same_bits(a, b) for a, b in zip(first, second)),
+          "(h4) outputs after the restart differ")
+    log(f"(h4) persistence: {cold['misses']} cold builds, then a second "
+        f"Session on the same persist_dir: {warm['misses']} cold builds, "
+        f"{warm['disk_hits']} disk hits, outputs bit-identical")
+
+
+def host_us(call, drain) -> float:
+    """Median host µs of ``call`` (the host clock around the call, the
+    launch left queued) over RUNTIME_REPS calls.  A first pass of as many
+    calls leaves the allocator holding the outputs' memory, so the timed
+    pass reads the runtime, not cudaMalloc; the card is synchronised and
+    ``drain`` run after each pass."""
+    import torch
+    for timed in (False, True):
+        times = []
+        for _ in range(RUNTIME_REPS):
+            t0 = time.perf_counter()
+            call()
+            times.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+        drain()
+    return statistics.median(times)
+
+
+def runtime_times(spec, card: str, cell_ms: dict):
+    """The runtime's own cost, poly1 on a 1-partition pipeline graph:
+
+      - the host µs per Session.enqueue and Session.launch and their device
+        ms (CUDA events, the host's enqueue hidden), at 2^24 and 2048;
+      - at 2048, the host µs of each layer under Session.enqueue called
+        alone: CommandQueue.enqueue_kernel, Kernel.enqueue, the executor's
+        wrapper, and one torch add_ (a launch's floor);
+      - run_overlay from numpy (host clock, copies to and from the card);
+      - for each of the six kernels at 2^24, the device ms of a
+        Session.enqueue beside the executor alone on the same inputs, the
+        copy that stacks a multi-input kernel's buffers, and phase (c)'s
+        kernel ms of the same cell."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_suite import BENCHMARKS
+    from repro_torch.core.options import CompileOptions
+    from repro_torch.core.runtime import Buffer, Device
+    from repro_torch.core.session import Session
+    from repro_torch.kernels.overlay_exec import kernel
+
+    out = {}
+    rng = np.random.default_rng(6)
+    opts = CompileOptions(max_replicas=4)
+    with Session([Device("ovl0", spec)]) as sess:
+        prog = sess.build(BENCHMARKS["poly1"][0], opts)
+        gx = sess.instantiate(record_pipeline(sess, opts)).result()
+        queue = sess.queue_for("tenant-a", "ovl0")
+        for n in (N_RUNTIME, N_RUNTIME_SMALL):
+            x_np = rng.uniform(-1, 1, n).astype(np.float32)
+            buf = Buffer(x_np)
+            for what, call in (("enqueue", lambda: sess.enqueue(
+                    prog, buf, tenant="tenant-a")),
+                    ("launch", lambda: sess.launch(gx, buf))):
+                out[f"{what}_host_us_{n}"] = host_us(call, queue.drain)
+                out[f"{what}_device_ms_{n}"] = cuda_ms(
+                    call, before=hide_host())[0]
+                queue.drain()
+            run_ms = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prog.compiled.run_overlay(x_np).cpu()
+                run_ms.append((time.perf_counter() - t0) * 1e3)
+            out[f"run_overlay_numpy_ms_{n}"] = statistics.median(run_ms)
+            log(f"(h) N={n}: Session.enqueue {out[f'enqueue_host_us_{n}']:.1f}"
+                f" us host (median of {RUNTIME_REPS}), "
+                f"{out[f'enqueue_device_ms_{n}']:.4f} ms device; "
+                f"Session.launch ({gx.n_partitions} partition) "
+                f"{out[f'launch_host_us_{n}']:.1f} us host, "
+                f"{out[f'launch_device_ms_{n}']:.4f} ms device; "
+                f"run_overlay from numpy "
+                f"{out[f'run_overlay_numpy_ms_{n}']:.3f} ms host (poly1, "
+                f"8x8; {card})")
+        # each layer under Session.enqueue alone, at the small N, in turns
+        # (three rounds, the median of each layer's three readings): the
+        # host clock drifts between readings far apart
+        kern = prog.create_kernel().set_args(buf)
+        kern.enqueue()
+        (_, image), = prog._images.values()
+        x2 = buf.data.reshape(1, -1)
+        calls = {
+            "Session.enqueue": lambda: sess.enqueue(
+                prog, buf, tenant="tenant-a"),
+            "CommandQueue.enqueue_kernel": lambda: queue.enqueue_kernel(
+                prog.create_kernel().set_args(buf)),
+            "Kernel.enqueue": kern.enqueue,
+            "overlay_execute": lambda: kernel.overlay_execute(image, x2),
+            "torch add_": lambda: x2.add_(0.0),
+        }
+        rounds = [{k: host_us(c, queue.drain) for k, c in calls.items()}
+                  for _ in range(3)]
+        layers = {k: statistics.median(r[k] for r in rounds) for k in calls}
+        names = list(layers)
+        own = {a: layers[a] - (layers[b] if b else 0.0)
+               for a, b in zip(names, names[1:] + [None])}
+        out["layers_host_us_2048"] = layers
+        log(f"(h) N={N_RUNTIME_SMALL}, host us of each layer called alone "
+            f"(its own share): " + ", ".join(
+                f"{k} {v:.1f} ({own[k]:.1f})" for k, v in layers.items())
+            + f"; {card}")
+        # the six kernels at 2^24: a Session.enqueue's device time is the
+        # executor's plus, for more than one input, the copy stacking them
+        bufs = [Buffer(rng.uniform(-1, 1, N_RUNTIME).astype(np.float32))
+                for _ in range(4)]
+        cells = {}
+        for name, (src, _, _) in BENCHMARKS.items():
+            p = sess.build(src, opts)
+            n_in = len(p.compiled.dfg.inputs)
+            args = bufs[:n_in]
+            enq = cuda_ms(lambda: sess.enqueue(p, *args, tenant="tenant-a"),
+                          before=hide_host())[0]
+            queue.drain()
+            x = torch.stack([b.data for b in args])
+            (_, img), = p._images.values()
+            exe = cuda_ms(lambda: kernel.overlay_execute(img, x),
+                          before=hide_host())[0]
+            stack = cuda_ms(lambda: torch.stack([b.data for b in args]),
+                            before=hide_host())[0] if n_in > 1 else 0.0
+            cells[name] = dict(
+                n=N_RUNTIME, n_in=n_in, enqueue_device_ms=enq,
+                executor_ms=exe, stack_ms=stack, phase_c_kernel_ms=cell_ms.get(
+                    (spec.width, spec.height, spec.dsp_per_fu, name)))
+            log(f"(h) {name:9s} N={N_RUNTIME} n_in={n_in}: Session.enqueue "
+                f"{enq:.4f} ms device = executor {exe:.4f} + stack copy "
+                f"{stack:.4f} (phase (c) kernel "
+                f"{cells[name]['phase_c_kernel_ms']:.4f}); {card}")
+            p.release()
+            del x
+        out["by_kernel"] = cells
+    return out
+
+
+def phase_runtime(card: str, cell_ms: dict):
+    """(h) the runtime seam on the card: device Buffers, command queues,
+    Sessions, graph replay and the persistent cache, every execution
+    through the executor on resident images."""
+    import numpy as np
+    import torch
+    from repro_torch.core.overlay import OverlaySpec
+    from repro_torch.core.runtime import Buffer
+    from repro_torch.kernels.overlay_exec import kernel
+
+    t0 = time.perf_counter()
+    spec = OverlaySpec(*SPECS[0])
+    rng = np.random.default_rng(4)
+    pool = [rng.uniform(-1, 1, N_RUNTIME).astype(np.float32)
+            for _ in range(4)]
+    refs = Refs(pool)
+    bufs = [Buffer(x) for x in pool]
+    requests = [Buffer(rng.uniform(0, 2, N_RUNTIME).astype(np.float32))
+                for _ in range(5)]
+    builds = kernel.LIBRARY.builds
+    # ---- the main path: counts set to 0 just before, read just after
+    kernel.overlay_execute.launches = 0
+    runtime_opencl_flow(spec, bufs, refs)
+    runtime_multi_tenant(spec, bufs, refs)
+    runtime_graph_replay(spec, requests)
+    runtime_persistence(spec, bufs, refs, PERSIST_DIR)
+    launches = kernel.overlay_execute.launches
+    # ----
+    check(launches > 0, "(h) the runtime never launched the executor")
+    check(kernel.LIBRARY.builds == builds == 1,
+          f"(h) the executor was built {kernel.LIBRARY.builds} times")
+    times = runtime_times(spec, card, cell_ms)
+    del bufs, requests
+    torch.cuda.empty_cache()
+    log(f"(h) runtime seam: {launches} executor launches, builds "
+        f"{kernel.LIBRARY.builds}, {time.perf_counter() - t0:.1f} s")
+    return launches, times
 
 
 def close_enough(got, want, tol: float, rtol: float = None):
@@ -1217,8 +1639,9 @@ def main() -> int:
     max_err: list = []
     card = phase_setup()
     phase_kernel_vs_plain(max_err)
-    launches, totals, n_runs = phase_main_path(max_err)
+    launches, totals, n_runs, cell_ms = phase_main_path(max_err)
     phase_reconfig(max_err)
+    runtime_launches, runtime = phase_runtime(card, cell_ms)
     err = max(max_err)
     check(err == 0.0, f"max abs error {err}")
     rms, rms_errs = phase_rmsnorm()
@@ -1234,7 +1657,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/overlay_exec.cu",
         "replaces": "src/repro/kernels/overlay_exec/kernel.py:30",
-        "launches": launches,
+        "launches": launches + runtime_launches,
+        "launches_by_path": {"(c) run_overlay": launches,
+                             "(h) runtime seam": runtime_launches},
         "match": "bit-exact",
         "max_abs_err": err,
         "ms": totals["ms"],
@@ -1246,6 +1671,7 @@ def main() -> int:
         "library_ms": None,
         "main_path_programs": n_runs,
         "work_items_per_launch": N_MAIN,
+        "runtime_seam": runtime,
     }, {
         "name": "rmsnorm",
         "route": "cuda",

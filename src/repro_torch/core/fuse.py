@@ -7,18 +7,19 @@ DSP-sized ops merges into a single placed FU ("super-node").
 
 The output of this pass is what gets replicated, placed and routed: its node
 count is the paper's "FU requirement" for the kernel.
-
-N-ary kernel fusion (``fuse_dfgs``, graph capture) is not part of this
-package yet; it arrives with the graph-replay slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, Hashable, Iterable, List, Sequence, Tuple
 
-from repro_torch.core.dfg import DFG, dce
+from repro_torch.core.dfg import DFG, dce, optimize
 
+
+class FusionError(ValueError):
+    """A requested kernel fusion is malformed (bad wiring, wrong arity,
+    parts out of dependency order)."""
 
 # ops a single DSP block can absorb as the multiply stage
 _MUL_OPS = ("mul",)
@@ -172,3 +173,97 @@ class FUGraph:
 def to_fu_graph(g: DFG, dsp_per_fu: int = 2) -> FUGraph:
     """DFG → fused → clustered FU netlist."""
     return FUGraph(fuse_muladd(g), dsp_per_fu=dsp_per_fu)
+
+
+# ======================================================== n-ary kernel fusion
+
+# how one input of a fused part is fed:
+#   ("ext", key)           — an external buffer; equal keys share ONE fused
+#                            input (alias-safe: the value is read-only)
+#   ("int", src_idx, oidx) — output ``oidx`` of the EARLIER part ``src_idx``
+FuseRef = Tuple
+
+
+def fuse_dfgs(parts: Sequence[Tuple[DFG, Sequence[FuseRef]]],
+              keep_outputs: Iterable[Tuple[int, int]],
+              name: str = "fused",
+              run_optimize: bool = True) -> Tuple[DFG, List[Hashable]]:
+    """Merge several kernel DFGs into ONE fused DFG (graph-replay tentpole).
+
+    ``parts[i] = (dfg, args)`` wires input ``j`` of that dfg to ``args[j]``
+    (a :data:`FuseRef`).  Values flowing between parts are stitched
+    producer-to-consumer directly — the producer's ``output`` node and the
+    consumer's ``input`` node are both **elided**, so an intermediate buffer
+    costs neither an IO pad nor a perimeter route in the fused artifact.
+    Only ``keep_outputs`` (``(part_idx, output_idx)``, in the order the
+    fused kernel should expose them) survive as real outputs: everything a
+    later partition or the graph's caller needs to observe.
+
+    Returns ``(fused_dfg, ext_keys)`` where ``ext_keys`` lists the distinct
+    external-input keys in fused-input order (first appearance): the launch
+    path gathers the actual buffers in exactly this order.
+
+    The merged graph is re-run through :func:`~repro_torch.core.dfg.optimize`
+    (``run_optimize``), so subexpressions duplicated ACROSS the constituent
+    kernels collapse too — fusion is where cross-kernel CSE becomes legal.
+    Evaluation order of every surviving op is unchanged (same primitive ops
+    on the same float32 values), so the fused kernel is numerically
+    identical to running the parts back-to-back.
+    """
+    fused = DFG(name)
+    ext_ids: Dict[Hashable, int] = {}
+    val: Dict[Tuple[int, int], int] = {}       # (part, local nid) -> fused nid
+    out_src: Dict[Tuple[int, int], int] = {}   # (part, out idx)  -> fused nid
+    for i, (g, args) in enumerate(parts):
+        if len(args) != len(g.inputs):
+            raise FusionError(
+                f"{name}: part {i} ({g.name}) takes {len(g.inputs)} inputs, "
+                f"wiring gives {len(args)}")
+        for n in g.toposort():
+            if n.op == "input":
+                ref = args[g.inputs.index(n.nid)]
+                if ref[0] == "ext":
+                    key = ref[1]
+                    if key not in ext_ids:
+                        ext_ids[key] = fused.add(
+                            "input", name=f"I{len(ext_ids)}")
+                    val[(i, n.nid)] = ext_ids[key]
+                elif ref[0] == "int":
+                    src = (ref[1], ref[2])
+                    if ref[1] >= i or src not in out_src:
+                        raise FusionError(
+                            f"{name}: part {i} reads output {ref[2]} of "
+                            f"part {ref[1]} — parts must be wired in "
+                            f"dependency order")
+                    val[(i, n.nid)] = out_src[src]
+                else:
+                    raise FusionError(f"{name}: unknown input ref {ref!r}")
+            elif n.op == "output":
+                out_src[(i, g.outputs.index(n.nid))] = val[(i, n.args[0])]
+            elif n.op == "const":
+                val[(i, n.nid)] = fused.add("const", imm=n.imm)
+            else:
+                val[(i, n.nid)] = fused.add(
+                    n.op, tuple(val[(i, a)] for a in n.args), imm=n.imm)
+    for pos, (i, oi) in enumerate(keep_outputs):
+        if (i, oi) not in out_src:
+            raise FusionError(f"{name}: keep_outputs names output {oi} of "
+                              f"part {i}, which does not exist")
+        fused.add("output", (out_src[(i, oi)],), name=f"O{pos}")
+    if not fused.outputs:
+        raise FusionError(f"{name}: fusion exposes no outputs")
+    fused = optimize(fused) if run_optimize else fused
+    # every fused DFG goes through the static analyzer before it can reach
+    # a compile: a fusion bug (dropped dependency, dead operator, broken IO
+    # perimeter) surfaces here as a FusionError with structured findings,
+    # not as a mis-mapped artifact.  Lazy import — repro_torch.analysis depends
+    # on this module.
+    from repro_torch.analysis import dfg_checks as _dfg_checks
+    bad = [d for d in _dfg_checks.check_dfg(fused, origin="fuse")
+           if d.severity == "error"]
+    if bad:
+        raise FusionError(
+            f"{name}: fused DFG failed semantic checks: "
+            + "; ".join(str(d) for d in bad[:4])
+            + (f" (+{len(bad) - 4} more)" if len(bad) > 4 else ""))
+    return fused, list(ext_ids.keys())

@@ -24,7 +24,11 @@ Two P&R strategies feed the place/route/latency stages (``pr_mode``):
   * ``"template"`` — place & route ONE replica in a compact region, stamp
     R transformed copies on all four perimeter edges, and grow toward the
     replication plan with per-replica gap fill (:mod:`repro_torch.core.template`).
-    P&R cost is O(one replica) + O(one replica per remnant).
+    P&R cost is O(one replica) + O(one replica per remnant); with a
+    :class:`~repro_torch.core.cache.JITCache` the template itself is cached on
+    (kernel, spec, seed, effort) — independent of the free-resource
+    snapshot — so replica-count changes skip place/route entirely and only
+    re-stamp (``stage_times_ms["stamp"]``).
   * ``"joint"``    — the original annealer over all R replicas at once;
     kept for parity testing and as the last-resort fallback.
   * ``"auto"``     — the default: the template path, unless it cannot reach
@@ -36,10 +40,17 @@ Two P&R strategies feed the place/route/latency stages (``pr_mode``):
     the template path can reach (≥ 95 % of plan by default — in practice
     all of the bench suite) the joint annealer never runs at all.
 
-The compile cache (``cache=``) and the static verifier
-(``CompileOptions.verify_level``) are not part of this package yet: they
-arrive with the runtime slice and the analysis slice, and asking for either
-raises ``NotImplementedError``.
+With a cache the full build is keyed on a content hash of (kernel, spec,
+effective replication cap, knobs) — see :func:`repro_torch.core.cache.make_cache_key`
+for why the free-resource snapshot is *normalized* to the replica cap it
+implies before hashing.  A :class:`~repro_torch.core.cache.JITCache` constructed
+with ``persist_dir`` additionally writes every artifact through to a
+content-addressed on-disk store, so a restarted process warm-loads compiled
+kernels in milliseconds instead of recompiling.
+
+The static verifier (``CompileOptions.verify_level``) is not part of this
+package yet: it arrives with the analysis slice, and asking for it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ import numpy as np
 
 from repro_torch.core import template as template_mod
 from repro_torch.core.bitstream import Bitstream, generate
+from repro_torch.core.cache import JITCache, make_cache_key, make_template_key
 from repro_torch.core.dfg import DFG, optimize, trace
 from repro_torch.core.faults import InjectedFault, fault_point
 from repro_torch.core.fuse import FUGraph, to_fu_graph
@@ -69,7 +81,7 @@ from repro_torch.device import DeviceLike, to_tensors
 from repro_torch.obs import trace as obs_trace
 
 __all__ = ["CompiledKernel", "CompileOptions", "DEFAULT_MIN_TEMPLATE_FILL",
-           "jit_compile", "lower_to_dfg", "overlay_jit"]
+           "jit_compile", "lower_cached", "lower_to_dfg", "overlay_jit"]
 
 
 @dataclasses.dataclass
@@ -145,7 +157,7 @@ def lower_to_dfg(kernel: Union[str, Callable, DFG],
                  name: Optional[str] = None,
                  parse_source: bool = False) -> Union[str, DFG]:
     """Lower a callable (and, with ``parse_source``, OpenCL-C text) to a DFG
-    so repeated compile probes don't re-trace or re-parse.
+    so repeated compile probes / cache keying don't re-trace or re-parse.
     DFGs pass through; str passes through unless ``parse_source``.
 
     Every returned DFG is fully optimized (``DFG.optimized`` set), so the
@@ -162,6 +174,28 @@ def lower_to_dfg(kernel: Union[str, Callable, DFG],
     return optimize(_lower_consts(trace(kernel, n_inputs, name)))
 
 
+def lower_cached(kernel: Union[str, Callable, DFG],
+                 n_inputs: Optional[int] = None,
+                 name: Optional[str] = None,
+                 cache: Optional["JITCache"] = None) -> DFG:
+    """:func:`lower_to_dfg` through a cache's frontend tier.
+
+    OpenCL text keys on the raw source hash (computable without parsing),
+    so a warm process skips even parse+optimize.  This is THE lowering
+    entry point shared by ``jit_compile``, graph capture and the default
+    :class:`~repro_torch.core.graph.KernelGraph` lowerer — one definition of the
+    cached normal form."""
+    if cache is not None and isinstance(kernel, str):
+        from repro_torch.core.cache import kernel_fingerprint
+        fkey = kernel_fingerprint(kernel)
+        g = cache.get_frontend(fkey)
+        if g is None:
+            g = lower_to_dfg(kernel, n_inputs, name, parse_source=True)
+            cache.put_frontend(fkey, g)
+        return g
+    return lower_to_dfg(kernel, n_inputs, name, parse_source=True)
+
+
 def jit_compile(kernel: Union[str, Callable, DFG],
                 spec: OverlaySpec,
                 n_inputs: Optional[int] = None,
@@ -171,7 +205,7 @@ def jit_compile(kernel: Union[str, Callable, DFG],
                 io_headroom: int = 0,
                 seed: int = 0,
                 place_effort: float = 1.0,
-                cache: Optional[Any] = None,
+                cache: Optional["JITCache"] = None,
                 pr_mode: str = "auto",
                 min_template_fill: float = DEFAULT_MIN_TEMPLATE_FILL,
                 opts: Optional[CompileOptions] = None) -> CompiledKernel:
@@ -188,9 +222,12 @@ def jit_compile(kernel: Union[str, Callable, DFG],
     kernel, not the build, and remain the convenient way to trace a python
     callable.)
 
-    ``cache`` and ``opts.verify_level != "off"`` raise NotImplementedError:
-    the compile cache comes with the runtime slice and the verifier with the
-    analysis slice.  ``opts.pr_mode`` selects the P&R
+    With ``cache``, the build is keyed on a content hash of (kernel, spec,
+    effective replica cap implied by the free-resource snapshot,
+    ``opts.key_tail()``); a hit returns the previously built CompiledKernel
+    without running any compiler stage.  ``opts.verify_level != "off"``
+    raises NotImplementedError: the verifier comes with the analysis
+    slice.  ``opts.pr_mode`` selects the P&R
     strategy (see module docstring): ``"auto"`` (default), ``"template"``,
     or ``"joint"``; ``opts.min_template_fill`` is the fraction of the
     planned replica count the template path must reach for ``auto`` to skip
@@ -212,10 +249,6 @@ def jit_compile(kernel: Union[str, Callable, DFG],
                               max_replicas=max_replicas, seed=seed,
                               place_effort=place_effort, pr_mode=pr_mode,
                               min_template_fill=min_template_fill)
-    if cache is not None:
-        raise NotImplementedError(
-            "jit_compile(cache=...): the compile cache is not ported yet; "
-            "it arrives with the runtime slice (core/cache.py)")
     if opts.verify_level != "off":
         raise NotImplementedError(
             f"verify_level={opts.verify_level!r}: the static verifier is not "
@@ -223,9 +256,15 @@ def jit_compile(kernel: Union[str, Callable, DFG],
     n_inputs, name = opts.n_inputs, opts.name
     times: Dict[str, float] = {}
 
+    # frontend runs before the cache lookup: keying needs the DFG normal
+    # form, and snapshot normalization needs the FU graph — both are
+    # microseconds next to any P&R stage, so the warm path stays ~free.
+    # OpenCL text goes through the cache's frontend tier (keyed on the raw
+    # source hash, computable without parsing), so a warm process skips
+    # even the parse+optimize pipeline
     t0 = time.perf_counter()
     with obs_trace.span("jit:frontend", "compile") as _sp:
-        g = lower_to_dfg(kernel, n_inputs, name, parse_source=True)
+        g = lower_cached(kernel, n_inputs, name, cache=cache)
         fault_point("frontend", g.name)
         _sp["kernel"] = g.name
     times["frontend"] = (time.perf_counter() - t0) * 1e3
@@ -247,13 +286,26 @@ def jit_compile(kernel: Union[str, Callable, DFG],
             f"{spec.n_fus - fu_headroom} FUs / {spec.n_io - io_headroom} IO")
     times["replicate"] = (time.perf_counter() - t0) * 1e3
 
+    key = None
+    if cache is not None:
+        key = make_cache_key(g, spec,
+                             free_fus=spec.n_fus - fu_headroom,
+                             free_io=spec.n_io - io_headroom,
+                             opts=opts, fug=fug)
+        with obs_trace.span("jit:cache", "compile", kernel=g.name) as _sp:
+            hit = cache.get(key)
+            _sp["hit"] = hit is not None
+        if hit is not None:
+            return hit
+
     # ---- template path: P&R one replica, stamp R copies, gap-fill ---------
     tpl_out = None
     ttimes: Dict[str, float] = {}
     if opts.pr_mode in ("auto", "template"):
         try:
             tpl_out = _template_par(fug, g, spec, plan, opts.seed,
-                                    opts.place_effort, opts.pr_mode, ttimes)
+                                    opts.place_effort, cache, opts.pr_mode,
+                                    ttimes)
         except InjectedFault:
             # degradation ladder, rung 1: an injected fault anywhere in the
             # template path (single-replica place, strip route, stamp) is
@@ -338,12 +390,15 @@ def jit_compile(kernel: Union[str, Callable, DFG],
 
     ck = CompiledKernel(g.name, fug.dfg, fug, spec, plan, placement,
                         routing, lat, bs, prog, times, pr_path=pr_path)
+    if cache is not None and key is not None:
+        cache.put(key, ck)
     return ck
 
 
 def _template_par(fug: FUGraph, g: DFG, spec: OverlaySpec,
                   plan: ReplicationPlan, seed: int, place_effort: float,
-                  pr_mode: str, times: Dict[str, float]):
+                  cache: Optional["JITCache"], pr_mode: str,
+                  times: Dict[str, float]):
     """Run the template-stamping P&R path: fetch/build the template, stamp
     up to its slot capacity, then gap-fill toward the replication plan.
 
@@ -351,26 +406,37 @@ def _template_par(fug: FUGraph, g: DFG, spec: OverlaySpec,
     at the achieved replica count when the template path fell short — or
     None when no template region maps at all (``auto`` then falls back to
     the joint annealer; forced ``template`` mode re-raises).  Stage times
-    land in ``times``; gap-fill time is booked under "infill".
+    land in ``times``: a template cache hit books zero place/route/latency
+    (the stages did not run), and gap-fill time is booked under "infill".
     """
-    try:
-        with obs_trace.span("jit:template_build", "compile", kernel=g.name):
-            tmpl = template_mod.build_template(fug, spec, seed=seed,
-                                               effort=place_effort,
-                                               target=plan.replicas)
-    except template_mod.TemplateError:
-        if pr_mode == "template":
-            raise
-        return None
+    tkey = make_template_key(g, spec, seed, place_effort) \
+        if cache is not None else None
+    tmpl = cache.get_template(tkey) if cache is not None else None
+    built = False
+    if tmpl is None:
+        try:
+            with obs_trace.span("jit:template_build", "compile",
+                                kernel=g.name):
+                tmpl = template_mod.build_template(fug, spec, seed=seed,
+                                                   effort=place_effort,
+                                                   target=plan.replicas)
+        except template_mod.TemplateError:
+            if pr_mode == "template":
+                raise
+            return None
+        built = True
+        if cache is not None:
+            cache.put_template(tkey, tmpl)
 
     # plan.replicas >= 1 was enforced by the caller and a built Template
     # always has at least one verified slot, so replicas >= 1 here
     replicas = min(plan.replicas, tmpl.capacity)
 
-    times["place"] = tmpl.build_ms["place"]
-    times["route"] = tmpl.build_ms["route"]
-    times["latency"] = tmpl.build_ms["latency"]
-    if tmpl.build_ms.get("scan", 0.0) > 0.0:
+    # a template hit means the place/route/latency stages did not run at all
+    times["place"] = tmpl.build_ms["place"] if built else 0.0
+    times["route"] = tmpl.build_ms["route"] if built else 0.0
+    times["latency"] = tmpl.build_ms["latency"] if built else 0.0
+    if built and tmpl.build_ms.get("scan", 0.0) > 0.0:
         times["template_scan"] = tmpl.build_ms["scan"]
     t0 = time.perf_counter()
     with obs_trace.span("jit:stamp", "compile", kernel=g.name,

@@ -12,11 +12,17 @@ a multiple of it, :func:`~repro_torch.kernels.overlay_exec.kernel.plan`
 picks the work-items a thread and the block from the shared-memory limit
 and the alignment of N and x, and the kernel masks the ragged end of N
 instead of padding it.
+
+:func:`resident_image` is what the runtime (``core/runtime.py``) keeps one
+of per program and device: it loads an image once and, when another
+program replaces it, rewrites it in place.  ``image_loads`` and
+``image_writes`` count the images uploaded and rewritten by this module.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import threading
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +30,17 @@ import torch
 from repro_torch.core.program import OP_PASS, OverlayProgram
 from repro_torch.device import DeviceLike, to_tensors
 from repro_torch.kernels.overlay_exec.kernel import ExecImage, overlay_execute
+
+image_loads = 0
+image_writes = 0
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(loads: int = 0, writes: int = 0) -> None:
+    global image_loads, image_writes
+    with _COUNT_LOCK:
+        image_loads += loads
+        image_writes += writes
 
 
 def build_image(program: OverlayProgram, pad_to: int = 0,
@@ -62,7 +79,25 @@ def load_image(program: OverlayProgram, device, pad_to: int = 0,
     """:func:`build_image`, validated and resident on ``device``."""
     instrs, imms, n_regs, n_out = build_image(program, pad_to=pad_to,
                                               pad_regs=pad_regs)
-    return ExecImage.from_arrays(instrs, imms, n_regs, n_out, device)
+    image = ExecImage.from_arrays(instrs, imms, n_regs, n_out, device)
+    _count(loads=1)
+    return image
+
+
+def resident_image(program: OverlayProgram, device,
+                   image: Optional[ExecImage] = None) -> ExecImage:
+    """The image of ``program`` on ``device``: ``image`` rewritten in place
+    (:meth:`ExecImage.write`, no new buffers) when it lies on ``device``
+    with the program's (M, n_regs, n_out) signature, else a new one."""
+    device = torch.device(device)
+    if image is not None and image.device == device:
+        instrs, imms, n_regs, n_out = build_image(program)
+        if (instrs.shape[0], n_regs, n_out) == \
+                (image.n_instr, image.n_regs, image.n_out):
+            image.write(instrs, imms, n_regs, n_out)
+            _count(writes=1)
+            return image
+    return load_image(program, device)
 
 
 def execute(program: OverlayProgram, inputs: Sequence, *, pad_to: int = 0,

@@ -11,9 +11,10 @@ greedy (argmax) decoding, or categorical sampling from a seeded
 (``--reduced`` for the tiny smoke config, ``--device cpu`` for the CPU.)
 
 The default path of the JAX package serves through the overlay Session
-(``serve_overlay``); the port has no Session yet, so it raises
-``NotImplementedError`` until the runtime slice of ``ROADMAP.md`` brings
-one.
+(``serve_overlay``).  The port has the Session now, but not the serving
+layer on it (the JAX package's ``repro.serve``), so it raises
+``NotImplementedError`` until the serving item that follows the runtime
+slice of ``ROADMAP.md`` brings it.
 """
 
 from __future__ import annotations
@@ -125,9 +126,9 @@ def serve_overlay(*_args, **_kwargs) -> dict:
     """Serving through the overlay Session (the JAX package's default
     path): not ported yet."""
     raise NotImplementedError(
-        "serving through the overlay Session needs the port's Session, "
-        "which comes with the runtime slice of ROADMAP.md; use --legacy "
-        "for the raw-torch loop")
+        "serving through the overlay Session needs the port's serving "
+        "layer (InferenceServer), the item that follows the runtime slice "
+        "of ROADMAP.md; use --legacy for the raw-torch loop")
 
 
 def main(argv=None) -> None:

@@ -197,9 +197,12 @@ def test_lower_to_dfg_matches_reference():
 
 
 def test_cache_and_verifier_are_not_silently_ignored():
+    from repro_torch.core.cache import JITCache
     src = BENCHMARKS["poly1"][0]
-    with pytest.raises(NotImplementedError, match="runtime slice"):
-        jit_compile(src, OverlaySpec(8, 8, 2), cache=object())
+    cache = JITCache()
+    first = jit_compile(src, OverlaySpec(8, 8, 2), cache=cache)
+    assert jit_compile(src, OverlaySpec(8, 8, 2), cache=cache) is first
+    assert (cache.stats.hits, cache.stats.misses) == (1, 1)
     for level in ("fused", "full"):
         with pytest.raises(NotImplementedError, match="analysis slice"):
             jit_compile(src, OverlaySpec(8, 8, 2),
