@@ -67,13 +67,31 @@ tensor-core kernel and the float32 SIMT kernel).  Phases:
       ``Session.enqueue``, ``run_overlay`` from numpy, and for each of the
       six kernels the device ms of a ``Session.enqueue`` at 2^24 beside
       the executor alone, the copy that stacks its inputs, and phase (c)'s
-      time of the cell.
+      time of the cell;
+  (i) continuous-batching serving (``repro_torch.serve``) on two 8x8
+      overlay devices, every iteration one executor launch per partition
+      on states that stay on the card: (i1) ``benchmarks/serving_perf.py``'s
+      trace (36 requests of three families under three SLO classes, max
+      batch 8), served warm batched and with ``serve_sequential``, bit for
+      bit against each other and against the same runs on the CPU port,
+      with the CPU run's modelled makespans and latencies; (i2) all five
+      families, 8 requests each; (i3) 256 transformer requests (the batch
+      class's admission cap) in one burst at max batch 256, 16,384
+      work-items a decode launch, with the (work-items a thread, block)
+      of each launch; (i4) the (i1) trace again with the tracer, metrics
+      and replay profiles attached, the Chrome trace written to
+      ``build/traces/serve_trace.json``; then, at max batch 8 and 256, a
+      profiled window of decode iterations that must hold no
+      device-to-host copy, the host µs per decode iteration and per served
+      token, each layer of an iteration called alone, the device ms per
+      iteration, launches per iteration, the tracer's cost on against
+      off, and the image loads of a resize.
 
 Exits non-zero, printing no result, without a card or when any check
 fails.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists each ported kernel with its launches on the main paths
-(phases (c) and (h) for the executor, phase (g) for RMSNorm and flash
-attention).
+(phases (c), (h) and (i) for the executor, phase (g) for RMSNorm and
+flash attention).
 """
 
 from __future__ import annotations
@@ -220,16 +238,16 @@ def max_abs_err(a, b) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
-def hide_host(evict=None):
+def hide_host(evict=None, cycles: int = HIDE_HOST_CYCLES):
     """A ``before`` hook for :func:`cuda_ms`: read ``evict`` (a scratch
-    tensor larger than the L2) if given, then keep the card busy while the
-    host enqueues the timed call."""
+    tensor larger than the L2) if given, then keep the card busy for
+    ``cycles`` while the host enqueues the timed call."""
     import torch
 
     def before():
         if evict is not None:
             evict.sum()
-        torch.cuda._sleep(HIDE_HOST_CYCLES)
+        torch.cuda._sleep(cycles)
     return before
 
 
@@ -877,16 +895,16 @@ def runtime_persistence(spec, bufs, refs, persist: Path):
         f"{warm['disk_hits']} disk hits, outputs bit-identical")
 
 
-def host_us(call, drain) -> float:
+def host_us(call, drain, reps: int = RUNTIME_REPS) -> float:
     """Median host µs of ``call`` (the host clock around the call, the
-    launch left queued) over RUNTIME_REPS calls.  A first pass of as many
+    launch left queued) over ``reps`` calls.  A first pass of as many
     calls leaves the allocator holding the outputs' memory, so the timed
     pass reads the runtime, not cudaMalloc; the card is synchronised and
     ``drain`` run after each pass."""
     import torch
     for timed in (False, True):
         times = []
-        for _ in range(RUNTIME_REPS):
+        for _ in range(reps):
             t0 = time.perf_counter()
             call()
             times.append((time.perf_counter() - t0) * 1e6)
@@ -1045,6 +1063,482 @@ def phase_runtime(card: str, cell_ms: dict):
     log(f"(h) runtime seam: {launches} executor launches, builds "
         f"{kernel.LIBRARY.builds}, {time.perf_counter() - t0:.1f} s")
     return launches, times
+
+
+# ------------------------------------------------- (i) serving on the card
+# benchmarks/serving_perf.py's trace: three families under mixed SLO
+# classes, 36 requests in three bursts of 12 (2 us apart within a burst, 40
+# us between bursts), decode steps 4-7 from seed 7, max batch 8, two 8x8
+# overlay devices
+SERVE_TENANTS = {"transformer": "realtime", "mamba2": "standard",
+                 "moe": "batch"}
+SERVE_REQUESTS, SERVE_BURST = 36, 12
+SERVE_MAX_BATCH = 8
+# (i2): every family, this many requests each
+SERVE_PER_FAMILY = 8
+# (i3): the batch class's admission cap, all in one burst, in one batch
+SERVE_CAP = 256
+# the readings: decode iterations timed per reading, and the window of
+# decode iterations profiled for device-to-host copies
+SERVE_REPS = 50
+SERVE_WINDOW = 6
+# phase (i4)'s persistent cache and trace (gitignored, emptied first)
+SERVE_PERSIST = ROOT / "build" / "chip_smoke_serve_jit"
+SERVE_TRACE = OUT / "serve_trace.json"
+# modelled times of the card's run against the CPU run's: equal but for the
+# rounding of the host-clock anchor both are offset from (as exec_us in
+# tests/torch_runtime_pair.py)
+MODEL_TOL_US = 1e-6
+
+
+def serve_trace(families, n, seed=7, burst=SERVE_BURST, gap_us=40.0,
+                spacing_us=2.0):
+    """Request kwargs (offsets from the Session's warm anchor): families in
+    turn, ``burst`` requests ``spacing_us`` apart, bursts ``gap_us``
+    apart."""
+    import numpy as np
+    from repro_torch.serve.models import PIPELINES
+    rng = np.random.default_rng(seed)
+    fams = sorted(families)
+    out = []
+    for i in range(n):
+        fam = fams[i % len(fams)]
+        out.append(dict(model=fam, prompt=rng.standard_normal(
+            PIPELINES[fam].state_dim).astype(np.float32),
+            decode_steps=int(rng.integers(4, 8)),
+            offset_us=(i // burst) * gap_us + (i % burst) * spacing_us))
+    return out
+
+
+def serving_session(device, **kw):
+    """Two 8x8 overlay devices, one build worker."""
+    from repro_torch.core.overlay import OverlaySpec
+    from repro_torch.core.runtime import Device
+    from repro_torch.core.session import Session
+    spec = OverlaySpec(*SPECS[0])
+    return Session([Device(f"ovl{i}", spec) for i in range(2)],
+                   max_workers=1, device=device, **kw)
+
+
+def warm(sess, build):
+    """``build()`` with every build it submits placed in submission order
+    and landed before it returns: the one build worker is held until all
+    are submitted (so each placement sees every booking, the same in every
+    run), then drained.  Returns what ``build`` returns."""
+    import threading
+    gate = threading.Event()
+    held = sess._pool.submit(gate.wait, 300)
+    try:
+        out = build()
+    finally:
+        gate.set()
+        held.result()
+    sess._pool.submit(lambda: None).result()
+    return out
+
+
+def serve_leg(device, families, trace, max_batch, sequential=False, **kw):
+    """Serve ``trace`` warm on a fresh Session: batched through
+    InferenceServer, or request at a time through serve_sequential.  → a
+    dict of the outputs by trace order, the modelled makespan and (batched)
+    latencies in us from the warm anchor, stats()["serving"] (batched) and
+    the seconds the serve took on the host clock."""
+    import torch
+    from repro_torch.serve import (InferenceServer, Request, build_zoo,
+                                   serve_sequential)
+    with serving_session(device, **kw) as sess:
+        if sequential:
+            zoo = warm(sess, lambda: build_zoo(sess, sorted(families)))
+        else:
+            srv = warm(sess, lambda: InferenceServer(
+                sess, families, max_batch=max_batch))
+        t0 = sess.now_us()
+        reqs = [Request(t["model"], t["prompt"], t["decode_steps"],
+                        t_arrival_us=t0 + t["offset_us"]) for t in trace]
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t_host = time.perf_counter()
+        if sequential:
+            outs, makespan = serve_sequential(sess, zoo, reqs)
+            outputs = [outs[r.rid] for r in reqs]
+            lat = None
+        else:
+            for r in reqs:
+                check(srv.submit(r), f"(i) request {r.rid} rejected")
+            makespan = srv.run()
+            outputs = [r.output for r in reqs]
+            lat = [r.latency_us for r in reqs]
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t_host
+        serving = sess.stats().get("serving")
+        if not sequential:
+            srv.close()
+    return dict(outputs=outputs, makespan=makespan - t0, latency=lat,
+                serving=serving, seconds=secs)
+
+
+def same_model_us(a, b) -> bool:
+    """Modelled us equal within MODEL_TOL_US, recursively."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_model_us(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_model_us(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, float) or isinstance(b, float):
+        return abs(a - b) <= MODEL_TOL_US
+    return a == b
+
+
+def same_outputs(a, b) -> bool:
+    import numpy as np
+    return len(a) == len(b) and all(
+        isinstance(x, np.ndarray) and isinstance(y, np.ndarray)
+        and x.dtype == y.dtype == np.float32
+        and np.array_equal(x.view(np.int32), y.view(np.int32))
+        for x, y in zip(a, b))
+
+
+class PlanLog:
+    """Records the (work-items a thread, block) of each executor launch by
+    N while installed over ``kernel.plan``."""
+
+    def __init__(self):
+        from repro_torch.kernels.overlay_exec import kernel
+        self.kernel, self.plan = kernel, kernel.plan
+        self.seen = {}
+
+    def __enter__(self):
+        def plan(image, x):
+            p = self.plan(image, x)
+            self.seen.setdefault(x.shape[1], set()).add((p.items, p.block))
+            return p
+        self.kernel.plan = plan
+        return self
+
+    def __exit__(self, *exc):
+        self.kernel.plan = self.plan
+
+
+def serving_checks(card: str, plans: "PlanLog"):
+    """(i1)-(i4): the main path of phase (i); returns its readings.
+    ``plans`` records each executor launch's plan by N."""
+    import shutil
+    from repro_torch.core.cache import JITCache
+    from repro_torch.obs import (MetricsRegistry, ProfileStore, Tracer,
+                                 write_chrome_trace)
+    from repro_torch.serve.models import PIPELINES
+
+    out = {}
+    # (i1) the reference benchmark's trace, batched and sequential
+    trace = serve_trace(SERVE_TENANTS, SERVE_REQUESTS)
+    legs = {(dev, seq): serve_leg(dev, SERVE_TENANTS, trace, SERVE_MAX_BATCH,
+                                  sequential=seq)
+            for dev in (DEVICE, "cpu") for seq in (False, True)}
+    card_b, card_s = legs[(DEVICE, False)], legs[(DEVICE, True)]
+    cpu_b, cpu_s = legs[("cpu", False)], legs[("cpu", True)]
+    check(same_outputs(card_b["outputs"], card_s["outputs"]),
+          "(i1) batched != serve_sequential on the card")
+    check(same_outputs(card_b["outputs"], cpu_b["outputs"]),
+          "(i1) the card's outputs != the CPU port's")
+    check(same_outputs(card_s["outputs"], cpu_s["outputs"]),
+          "(i1) serve_sequential: the card != the CPU port")
+    for what, a, b in (("batched", card_b, cpu_b),
+                       ("sequential", card_s, cpu_s)):
+        check(same_model_us([a["makespan"], a["latency"], a["serving"]],
+                            [b["makespan"], b["latency"], b["serving"]]),
+              f"(i1) {what}: modelled times on the card != the CPU run's: "
+              f"{a['makespan']} / {b['makespan']}")
+    check(card_b["serving"]["completed"] == SERVE_REQUESTS
+          and card_b["serving"]["rejected"] == 0
+          and card_b["serving"]["degraded_steps"] == 0,
+          f"(i1) {card_b['serving']}")
+    ratio = card_s["makespan"] / card_b["makespan"]
+    lat = card_b["serving"]["latency_us"]
+    log(f"(i1) serving_perf's trace, {SERVE_REQUESTS} requests of "
+        f"{sorted(SERVE_TENANTS)}: batched = serve_sequential = the CPU "
+        f"port, bit for bit; modelled makespan batched "
+        f"{card_b['makespan']:.3f} us, sequential {card_s['makespan']:.3f} "
+        f"us ({ratio:.2f}x), equal to the CPU run's; p50/p99 " + ", ".join(
+            f"{c} {v['p50']:.1f}/{v['p99']:.1f}" for c, v in lat.items())
+        + f" us; host s batched {card_b['seconds']:.3f}, sequential "
+        f"{card_s['seconds']:.3f} ({card})")
+    out["i1"] = dict(makespan_us=card_b["makespan"],
+                     sequential_makespan_us=card_s["makespan"],
+                     latency_us=lat, host_s=card_b["seconds"],
+                     sequential_host_s=card_s["seconds"])
+
+    # (i2) every family, batched against serve_sequential
+    fams = {f: "standard" for f in PIPELINES}
+    trace = serve_trace(fams, SERVE_PER_FAMILY * len(fams))
+    b = serve_leg(DEVICE, fams, trace, SERVE_MAX_BATCH)
+    s = serve_leg(DEVICE, fams, trace, SERVE_MAX_BATCH, sequential=True)
+    c = serve_leg("cpu", fams, trace, SERVE_MAX_BATCH)
+    check(same_outputs(b["outputs"], s["outputs"]),
+          "(i2) batched != serve_sequential on the card")
+    check(same_outputs(b["outputs"], c["outputs"]),
+          "(i2) the card's outputs != the CPU port's")
+    check(same_model_us([b["makespan"], b["latency"]],
+                        [c["makespan"], c["latency"]]),
+          "(i2) modelled times on the card != the CPU run's")
+    log(f"(i2) all five families, {len(trace)} requests: batched = "
+        f"serve_sequential = the CPU port, bit for bit; modelled makespan "
+        f"{b['makespan']:.3f} us (sequential {s['makespan']:.3f})")
+    out["i2"] = dict(makespan_us=b["makespan"],
+                     sequential_makespan_us=s["makespan"])
+
+    # (i3) the batch class at its admission cap, one burst, one batch
+    trace = serve_trace({"transformer": "batch"}, SERVE_CAP,
+                        burst=SERVE_CAP, spacing_us=0.0)
+    tenant = {"transformer": "batch"}
+    b = serve_leg(DEVICE, tenant, trace, SERVE_CAP)
+    s = serve_leg(DEVICE, tenant, trace, SERVE_CAP, sequential=True)
+    c = serve_leg("cpu", tenant, trace, SERVE_CAP)
+    check(same_outputs(b["outputs"], s["outputs"]),
+          "(i3) batched != serve_sequential on the card")
+    check(same_outputs(b["outputs"], c["outputs"]),
+          "(i3) the card's outputs != the CPU port's")
+    check(same_model_us([b["makespan"], b["latency"]],
+                        [c["makespan"], c["latency"]]),
+          "(i3) modelled times on the card != the CPU run's")
+    dim = PIPELINES["transformer"].state_dim
+    check(SERVE_CAP * dim in plans.seen,
+          f"(i3) no launch over {SERVE_CAP * dim} work-items: "
+          f"{sorted(plans.seen)}")
+    wide = sorted(plans.seen[SERVE_CAP * dim])
+    log(f"(i3) the batch class at its cap: {SERVE_CAP} transformer "
+        f"requests in one burst, max_batch {SERVE_CAP}: batched = "
+        f"serve_sequential = the CPU port, bit for bit; modelled makespan "
+        f"{b['makespan']:.3f} us (sequential {s['makespan']:.3f}); "
+        f"host s {b['seconds']:.3f} (sequential {s['seconds']:.3f})")
+    out["i3"] = dict(makespan_us=b["makespan"], host_s=b["seconds"],
+                     sequential_host_s=s["seconds"],
+                     plan_at_cap=wide)
+
+    # (i4) traced: the tracer, metrics and profiles attached, on a
+    # persistent cache; outputs equal the untraced run's
+    shutil.rmtree(SERVE_PERSIST, ignore_errors=True)
+    cache = JITCache(persist_dir=str(SERVE_PERSIST))
+    tracer, store = Tracer(), ProfileStore(cache=cache)
+    traced = serve_leg(DEVICE, SERVE_TENANTS,
+                       serve_trace(SERVE_TENANTS, SERVE_REQUESTS),
+                       SERVE_MAX_BATCH, tracer=tracer, cache=cache,
+                       metrics=MetricsRegistry(), profiles=store)["outputs"]
+    profiles = store.stats_dict()
+    check(same_outputs(traced, card_b["outputs"]),
+          "(i4) traced outputs != the untraced run's")
+    cats = tracer.counts_by_cat()
+    missing = [c for c in ("compile", "cache", "queue", "device", "serving")
+               if not cats.get(c)]
+    check(not missing, f"(i4) the trace has no {missing} spans: {cats}")
+    SERVE_TRACE.parent.mkdir(parents=True, exist_ok=True)
+    write_chrome_trace(tracer, str(SERVE_TRACE))
+    log(f"(i4) traced serve: outputs = the untraced run's; spans by "
+        f"category {cats}; {profiles['records']} replay profiles recorded; "
+        f"Chrome trace {SERVE_TRACE.relative_to(ROOT)}")
+    out["i4"] = dict(spans=cats, profiles=profiles)
+    return out
+
+
+def decode_server(sess, batch: int):
+    """A transformer server whose ``batch`` requests have all joined and
+    decode far longer than any reading: every step() from here is one
+    decode iteration of ``batch`` states, with no join and no retirement."""
+    import numpy as np
+    from repro_torch.serve import InferenceServer, Request
+    srv = warm(sess, lambda: InferenceServer(
+        sess, {"transformer": "batch"}, max_batch=batch, iter_quantum=1))
+    rng = np.random.default_rng(9)
+    t0 = sess.now_us()
+    for _ in range(batch):
+        check(srv.submit(Request("transformer", rng.standard_normal(
+            64).astype(np.float32), decode_steps=1 << 30,
+            t_arrival_us=t0)), "(i) reading request rejected")
+    srv.step()              # one batched prefill, then the first decode
+    b = srv.batch("transformer")
+    check(len(b.members) == batch, f"(i) {len(b.members)} of {batch} joined")
+    return srv, b
+
+
+def residency_window(srv, trace_path: Path):
+    """Profile SERVE_WINDOW decode iterations (:func:`profile_window`): →
+    (the device-to-host copies in the trace, kernels, host ms, device ms
+    in which kernels ran, the kernels with the most time as (name, ms))."""
+    wall_ms, busy_ms, n_kernels, top = profile_window(
+        lambda i: srv.step(), SERVE_WINDOW, trace_path)
+    events = json.loads(trace_path.read_text()).get("traceEvents", [])
+    d2h = [e["name"] for e in events if "dur" in e and any(
+        s in e.get("name", "") for s in ("DtoH", "Device -> Host",
+                                          "Device -> Pageable"))]
+    return d2h, n_kernels, wall_ms, busy_ms or 0.0, top
+
+
+def serving_readings(card: str):
+    """Where a served token's time goes, at max_batch 8 and 256: host us
+    per decode iteration and per token, each layer of one iteration alone
+    (with the server's per-request bookkeeping: the split into views and
+    the retirement scan), device ms per iteration, launches per iteration,
+    the tracer's cost, a profiled window with no device-to-host copy, and
+    image loads per resize."""
+    import torch
+    from repro_torch.kernels.overlay_exec import kernel, ops
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import server
+
+    out = {}
+    for batch in (SERVE_MAX_BATCH, SERVE_CAP):
+        with serving_session(DEVICE) as sess:
+            srv, b = decode_server(sess, batch)
+            model = b.model
+            gx = model.decode_exec
+            check(gx.n_partitions == 1, f"(i) decode graph in "
+                  f"{gx.n_partitions} partitions")
+
+            def drain():
+                for q in sess._queues.values():
+                    q.drain()
+
+            # launches per iteration
+            before = kernel.overlay_execute.launches
+            srv.step()
+            launches = kernel.overlay_execute.launches - before
+            check(launches == gx.n_partitions,
+                  f"(i) {launches} launches per iteration")
+            # residency: no device-to-host copy in a window of iterations
+            d2h, n_kernels, win_ms, win_busy, top = residency_window(
+                srv, OUT / f"serve_decode_b{batch}.json")
+            check(not d2h, f"(i) device-to-host copies while decoding: "
+                  f"{d2h[:4]}")
+            # each layer called alone, in turns (three rounds)
+            deps = (b.last_event,)
+            x = torch.cat(b.states)
+            sizes = [s.numel() for s in b.states]
+            fut = gx.futures[0]
+            prog = fut.result()
+            (_, image), = prog._images.values()
+            x2 = x.reshape(1, -1)
+            calls = {
+                "InferenceServer.step": srv.step,
+                "InferenceServer._step_model": lambda: srv._step_model(b),
+                "_launch_batched": lambda: srv._launch_batched(
+                    gx, b.states, deps),
+                "Session.launch": lambda: sess.launch(gx, x, wait_for=deps),
+                "Session.enqueue": lambda: sess.enqueue(fut, x,
+                                                        wait_for=deps),
+                "overlay_execute": lambda: kernel.overlay_execute(image, x2),
+                "torch.cat": lambda: torch.cat(b.states),
+                "_split (torch.split views)": lambda: server._split(x, sizes),
+                "ModelBatch.retire_finished": b.retire_finished,
+            }
+            with srv._lock:
+                rounds = [{k: host_us(c, drain, SERVE_REPS)
+                           for k, c in calls.items()} for _ in range(3)]
+            layers = {k: statistics.median(r[k] for r in rounds)
+                      for k in calls}
+            # the tracer on against off, in turns (three rounds of off,
+            # on, on, off)
+            turns = []
+            for on in (False, True, True, False) * 3:
+                sess.tracer = Tracer() if on else None
+                turns.append((on, host_us(srv.step, drain, SERVE_REPS)))
+            sess.tracer = None
+            off = statistics.median(t for on, t in turns if not on)
+            on_ = statistics.median(t for on, t in turns if on)
+            it_us = layers["InferenceServer.step"]
+            # before each timed iteration the card sleeps four times the
+            # slowest host reading of an iteration so far (at about 2
+            # cycles a ns; the host clock drifts within a run), so the
+            # window holds the iteration's device time and not its enqueue
+            slowest = max([it_us] + [us for _, us in turns])
+            dev_ms = cuda_ms(srv.step, reps=SERVE_REPS, before=hide_host(
+                cycles=max(HIDE_HOST_CYCLES, int(8000 * slowest))))[0]
+            drain()
+            out[batch] = dict(
+                work_items=x.numel(), launches_per_iteration=launches,
+                host_us_per_iteration=it_us,
+                host_us_per_token=it_us / batch, layers_host_us=layers,
+                device_ms_per_iteration=dev_ms,
+                device_busy_ms_per_iteration=win_busy / SERVE_WINDOW,
+                tracer_host_us=dict(off=off, on=on_, turns=turns),
+                window=dict(iterations=SERVE_WINDOW, host_ms=win_ms,
+                            device_busy_ms=win_busy, kernels=n_kernels,
+                            d2h_copies=len(d2h),
+                            kernel_ms_per_iteration={
+                                k: ms / SERVE_WINDOW for k, ms in top}))
+            log(f"(i) max_batch {batch} ({x.numel()} work-items a decode "
+                f"launch): {it_us:.1f} us host per iteration, "
+                f"{it_us / batch:.3f} us per served token; device "
+                f"{dev_ms:.4f} ms per iteration (CUDA events, the host's "
+                f"enqueue hidden); {launches} executor launch per "
+                f"iteration; {card}")
+            log(f"(i) max_batch {batch}, host us of each layer called alone"
+                f" (median of 3 rounds of {SERVE_REPS}): " + ", ".join(
+                    f"{k} {us:.1f}" for k, us in layers.items()))
+            log(f"(i) max_batch {batch}, tracer off/on: {off:.1f} / "
+                f"{on_:.1f} us host per iteration (medians; in turns off, "
+                f"on, on, off, three times: " + ", ".join(
+                    f"{t:.1f}" for _, t in turns) + ")")
+            log(f"(i) max_batch {batch}, profiled window of {SERVE_WINDOW} "
+                f"decode iterations: no device-to-host copy; {n_kernels} "
+                f"kernels, device busy {win_busy:.4f} of {win_ms:.3f} ms "
+                f"({win_busy / SERVE_WINDOW:.4f} ms an iteration; idle "
+                f"{1 - win_busy / win_ms:.3f}; profiler on); ms an "
+                f"iteration by kernel: " + "; ".join(
+                    f"{k} {ms / SERVE_WINDOW:.4f}" for k, ms in top))
+            if batch == SERVE_MAX_BATCH:
+                # image loads per resize: the old Programs release with
+                # their images, the new ones load at their first launch
+                loads = ops.image_loads
+                warm(sess, lambda: model.resize(model.max_replicas + 2))
+                probe = torch.zeros(64, device=DEVICE)
+                sess.launch(model.prefill_exec, probe)
+                sess.launch(model.decode_exec, probe)
+                n = ops.image_loads - loads
+                want = (model.prefill_exec.n_partitions
+                        + model.decode_exec.n_partitions)
+                check(n == want, f"(i) {n} image loads after a resize, "
+                      f"want {want}")
+                out["image_loads_per_resize"] = n
+                log(f"(i) resize to {model.max_replicas} replicas: {n} "
+                    f"image loads (one per partition of the two graphs)")
+            srv.close()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_serving(card: str):
+    """(i) continuous-batching serving on the card: the JAX package's
+    serving benchmark trace, every family, the batch class at its cap and
+    a traced run, on states that stay on the card; then the readings."""
+    import torch
+    from repro_torch.kernels.overlay_exec import kernel
+
+    t0 = time.perf_counter()
+    builds = kernel.LIBRARY.builds
+    # ---- the main path: counts set to 0 just before, read just after
+    kernel.overlay_execute.launches = 0
+    with PlanLog() as plans:
+        checks = serving_checks(card, plans)
+    launches = kernel.overlay_execute.launches
+    # ----
+    by_plan = {}
+    for n, ps in plans.seen.items():
+        for p in ps:
+            by_plan.setdefault(p, []).append(n)
+    log("(i) executor launches by (work-items a thread, block): " + "; ".join(
+        f"{p}: {len(ns)} sizes of N, {min(ns)}-{max(ns)}"
+        for p, ns in sorted(by_plan.items())))
+    checks["plans"] = {f"{p[0]}x{p[1]}": sorted(ns)
+                       for p, ns in by_plan.items()}
+    check(launches > 0, "(i) serving never launched the executor")
+    check(kernel.LIBRARY.builds == builds == 1,
+          f"(i) the executor was built {kernel.LIBRARY.builds} times")
+    readings = serving_readings(card)
+    torch.cuda.empty_cache()
+    log(f"(i) serving: {launches} executor launches, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches, dict(checks, readings=readings)
 
 
 def close_enough(got, want, tol: float, rtol: float = None):
@@ -1642,6 +2136,7 @@ def main() -> int:
     launches, totals, n_runs, cell_ms = phase_main_path(max_err)
     phase_reconfig(max_err)
     runtime_launches, runtime = phase_runtime(card, cell_ms)
+    serving_launches, serving = phase_serving(card)
     err = max(max_err)
     check(err == 0.0, f"max abs error {err}")
     rms, rms_errs = phase_rmsnorm()
@@ -1657,9 +2152,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/overlay_exec.cu",
         "replaces": "src/repro/kernels/overlay_exec/kernel.py:30",
-        "launches": launches + runtime_launches,
+        "launches": launches + runtime_launches + serving_launches,
         "launches_by_path": {"(c) run_overlay": launches,
-                             "(h) runtime seam": runtime_launches},
+                             "(h) runtime seam": runtime_launches,
+                             "(i) serving": serving_launches},
         "match": "bit-exact",
         "max_abs_err": err,
         "ms": totals["ms"],
@@ -1672,6 +2168,7 @@ def main() -> int:
         "main_path_programs": n_runs,
         "work_items_per_launch": N_MAIN,
         "runtime_seam": runtime,
+        "serving": serving,
     }, {
         "name": "rmsnorm",
         "route": "cuda",

@@ -284,11 +284,11 @@ class Session:
         # (worker-pool builds, hedge racers, every enqueue), so spans from
         # racing threads nest coherently; with no tracer every probe is a
         # single thread-local read — nothing on the warm hit path (gated
-        # in benchmarks/trace_overhead_perf.py).  ``profiles`` records
+        # in benchmarks/torch_trace_overhead_perf.py).  ``profiles`` records
         # per-partition replay measurements at the end of every launch().
-        # ``metrics`` and ``profiles`` are duck-typed (the JAX package's
-        # MetricsRegistry / ProfileStore surface); this package's own
-        # arrive with the observability slice
+        # ``metrics`` is a repro_torch.obs.metrics.MetricsRegistry and
+        # ``profiles`` a repro_torch.obs.profile.ProfileStore (both hold
+        # modelled µs, never device times)
         self.tracer = tracer
         self.metrics = metrics
         self.profiles = profiles

@@ -39,6 +39,7 @@ from typing import Optional
 import torch
 
 from repro_torch.cuda_build import CudaLibrary
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.flash_attention import ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -121,6 +122,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Launch one route's kernel on CUDA tensors that
     :func:`flash_attention` has validated.  Called with an explicit route
     only to time the SIMT kernel against the tensor-core one."""
+    refuse_grad("flash_attention", q, k, v)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     if route == "wgmma":

@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.cuda_build import CudaLibrary
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.rmsnorm import ref
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -204,6 +205,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
     if x.device.type != "cuda":
         raise ValueError(f"no RMSNorm kernel for device {x.device}: it runs "
                          f"on a CUDA device")
+    refuse_grad("rmsnorm", x, weight)
     d = x.shape[-1]
     if d > 1 and x.stride(-1) != 1:
         raise ValueError(f"x must have unit stride in its last dimension, "

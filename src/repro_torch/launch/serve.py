@@ -1,5 +1,19 @@
 """The serving entry point of the port.
 
+The default path drives :mod:`repro_torch.serve`: the requested arch's
+family is mapped onto its overlay serving pipeline
+(:data:`repro_torch.serve.models.FAMILY_PIPELINE`), an
+:class:`~repro_torch.serve.server.InferenceServer` is stood up on a
+modelled two-device Session whose launches run the overlay executor on
+the CUDA card, and a synthetic request trace is served with continuous
+batching — printing admission/completion counters, batch occupancy and
+per-SLO-class modelled latency from ``Session.stats()["serving"]``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --requests 24 --gen 8
+
+(``--device cpu`` runs the executor's plain version on the CPU.)
+
 ``--legacy`` drives the raw-torch serving loop: random prompts from a
 numpy seed, token-recurrent prefill through ``make_serve_step``, then
 greedy (argmax) decoding, or categorical sampling from a seeded
@@ -9,12 +23,6 @@ greedy (argmax) decoding, or categorical sampling from a seeded
       --legacy --batch 4 --prompt-len 128 --gen 32
 
 (``--reduced`` for the tiny smoke config, ``--device cpu`` for the CPU.)
-
-The default path of the JAX package serves through the overlay Session
-(``serve_overlay``).  The port has the Session now, but not the serving
-layer on it (the JAX package's ``repro.serve``), so it raises
-``NotImplementedError`` until the serving item that follows the runtime
-slice of ``ROADMAP.md`` brings it.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import ALL_ARCHS, get_arch, reduced_config
-from repro_torch.device import target_device
+from repro_torch.device import DeviceLike, target_device
 from repro_torch.models.registry import build_model
 from repro_torch.train.step import make_serve_step
 
@@ -122,32 +130,77 @@ def _legacy_main(args) -> ServeResult:
     return res
 
 
-def serve_overlay(*_args, **_kwargs) -> dict:
-    """Serving through the overlay Session (the JAX package's default
-    path): not ported yet."""
-    raise NotImplementedError(
-        "serving through the overlay Session needs the port's serving "
-        "layer (InferenceServer), the item that follows the runtime slice "
-        "of ROADMAP.md; use --legacy for the raw-torch loop")
+def serve_overlay(arch: str, n_requests: int, gen: int, slo: str,
+                  max_batch: int, devices: int = 2, seed: int = 0,
+                  device: DeviceLike = None) -> dict:
+    """Serve a synthetic trace for ``arch`` through repro_torch.serve;
+    returns the ``stats()["serving"]`` blob (drives both main() and the
+    parity test).  ``device`` is where the Session's launches run (default:
+    the CUDA card)."""
+    from repro_torch.core.runtime import Device, OverlaySpec
+    from repro_torch.core.session import Session
+    from repro_torch.serve import InferenceServer, Request
+    from repro_torch.serve.models import FAMILY_PIPELINE, PIPELINES
+
+    cfg = get_arch(arch)
+    family = FAMILY_PIPELINE[cfg.family]
+    dim = PIPELINES[family].state_dim
+    spec = OverlaySpec(width=8, height=8, dsp_per_fu=2)
+    rng = np.random.default_rng(seed)
+    with Session([Device(f"ovl{i}", spec) for i in range(devices)],
+                 device=device) as s:
+        srv = InferenceServer(s, {family: slo}, max_batch=max_batch)
+        reqs = [Request(family, rng.standard_normal(dim), decode_steps=gen,
+                        t_arrival_us=float(i) * 25.0)
+                for i in range(n_requests)]
+        for r in reqs:
+            srv.submit(r)
+        makespan = srv.run()
+        stats = s.stats()["serving"]
+        stats["makespan_us"] = makespan
+        stats["family"] = family
+        srv.close()
+    return stats
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=sorted(ALL_ARCHS), required=True)
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=4,
+                    help="legacy: batch size; default: max batch")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--legacy", action="store_true",
-                    help="the raw-torch loop (the only path ported yet)")
+                    help="the raw-torch loop (bypasses the Session)")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="overlay path: synthetic trace length")
+    ap.add_argument("--slo", choices=("realtime", "standard", "batch"),
+                    default="standard")
     ap.add_argument("--device", default=None,
                     help="where the loop runs (default: the CUDA card)")
     args = ap.parse_args(argv)
     if args.legacy:
         _legacy_main(args)
         return
-    serve_overlay(args.arch)
+
+    stats = serve_overlay(args.arch, args.requests, args.gen, args.slo,
+                          max_batch=args.batch, device=args.device)
+    fam = stats["family"]
+    m = stats["models"][fam]
+    print(f"arch={args.arch} -> pipeline={fam} slo={args.slo} "
+          f"max_batch={args.batch} "
+          f"device={target_device([], args.device)}")
+    print(f"admitted={stats['admitted']} completed={stats['completed']} "
+          f"rejected={stats['rejected']} "
+          f"degraded_steps={stats['degraded_steps']}")
+    print(f"iterations={m['iterations']} "
+          f"occupancy_ewma={m['occupancy_ewma']:.2f} "
+          f"makespan={stats['makespan_us']:.0f}us")
+    for cls, lat in stats["latency_us"].items():
+        print(f"  {cls}: n={lat['n']} p50={lat['p50']:.0f}us "
+              f"p99={lat['p99']:.0f}us")
 
 
 if __name__ == "__main__":

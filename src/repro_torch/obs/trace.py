@@ -26,7 +26,6 @@ tracer) so tests can produce byte-stable golden traces.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import threading
 import time
@@ -192,17 +191,51 @@ def active_tracer() -> Optional[Tracer]:
     return getattr(_TLS, "tracer", None)
 
 
-@contextlib.contextmanager
+class _Activation:
+    """Context manager of :func:`activate`: sets the thread's tracer on
+    entry and restores the previous one on exit."""
+
+    __slots__ = ("tracer", "_prev")
+
+    def __init__(self, tracer: Optional[Tracer]):
+        self.tracer = tracer
+
+    def __enter__(self) -> Optional[Tracer]:
+        self._prev = getattr(_TLS, "tracer", None)
+        _TLS.tracer = self.tracer
+        return self.tracer
+
+    def __exit__(self, *exc) -> bool:
+        _TLS.tracer = self._prev
+        return False
+
+
+class _NoActivation:
+    """Shared no-op for activating ``None`` where no tracer is active:
+    there is nothing to set or restore."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_ACTIVATION = _NoActivation()
+
+
 def activate(tracer: Optional[Tracer]):
     """Make ``tracer`` ambient on this thread for the duration.  Nesting
     restores the previous tracer on exit; activating ``None`` explicitly
-    disables tracing inside the block."""
-    prev = getattr(_TLS, "tracer", None)
-    _TLS.tracer = tracer
-    try:
-        yield tracer
-    finally:
-        _TLS.tracer = prev
+    disables tracing inside the block.  Activating ``None`` where no
+    tracer is active is one TLS read and a shared no-op (the Session
+    activates its tracer around every enqueue, so this is the warm hit
+    path with tracing off)."""
+    if tracer is None and getattr(_TLS, "tracer", None) is None:
+        return _NO_ACTIVATION
+    return _Activation(tracer)
 
 
 class _NullSpan:

@@ -122,9 +122,20 @@ def test_cli_without_a_card_or_device_raises():
         serve.main(["--arch", ARCH, "--reduced", "--legacy"])
 
 
-def test_overlay_serving_waits_for_the_runtime_slice():
-    with pytest.raises(NotImplementedError, match="runtime slice"):
+def test_overlay_serving_waits_for_the_runtime_slice(monkeypatch, capsys):
+    """The serving layer on the runtime slice is ported: the default path
+    serves through the Session, on the card unless asked for the CPU, and
+    raises with no card (``tests/test_torch_serving.py`` holds it against
+    the JAX package)."""
+    stats = serve.serve_overlay(ARCH, n_requests=2, gen=1, slo="standard",
+                                max_batch=2, device="cpu")
+    assert stats["family"] == "transformer" and stats["completed"] == 2
+    serve.main(["--arch", ARCH, "--device", "cpu", "--requests", "2",
+                "--gen", "1"])
+    assert "completed=2" in capsys.readouterr().out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", ARCH, "--reduced"])
-    with pytest.raises(NotImplementedError, match="runtime slice"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.serve_overlay(ARCH, n_requests=2, gen=1, slo="standard",
                             max_batch=2)

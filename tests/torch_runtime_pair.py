@@ -11,7 +11,9 @@ default): outputs must agree bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
+import threading
 
 import numpy as np
 import torch
@@ -19,7 +21,9 @@ import torch
 _MODULES = ("configs.paper_suite", "core.cache", "core.dfg", "core.faults",
             "core.fuse", "core.graph", "core.jit", "core.options",
             "core.overlay", "core.queue", "core.recovery", "core.remote",
-            "core.runtime", "core.session")
+            "core.runtime", "core.session", "obs.export", "obs.metrics",
+            "obs.profile", "obs.recut", "obs.trace", "parallel.pipeline",
+            "serve", "serve.stagepar")
 
 
 class Pkg:
@@ -57,6 +61,47 @@ class Pkg:
         if self.is_port:
             kw.setdefault("device", "cpu")
         return self.session.Session(devices, **kw)
+
+
+@contextlib.contextmanager
+def ordered_builds(sess):
+    """Hold a one-worker Session's build pool until the block has submitted
+    every build, release it, and wait until every build has landed.  Each
+    build is then placed after every booking is made, in submission order,
+    so placement is the same in every run and in both packages (the
+    Scheduler ranks devices by the compile time booked toward them, and a
+    build that starts while later ones are still being submitted sees a
+    partial booking).  Waiting for the last build keeps a launch from
+    racing a build that sheds a program the launch is about to enqueue."""
+    gate = threading.Event()
+    held = sess._pool.submit(gate.wait, 60)
+    try:
+        yield
+    finally:
+        gate.set()
+        held.result(timeout=60)
+        sess._pool.submit(lambda: None).result(timeout=600)
+
+
+def freeze_clock(sess) -> None:
+    """Pin a Session's host clock at 0 µs.  Compile events are stamped with
+    the host clock, and a launch chains on its compile event, so with the
+    host clock running the modelled timeline holds the wall time of each
+    build.  Frozen, every event time is the queues' model alone, and the
+    two packages must agree on it exactly."""
+    sess.now_us = lambda: 0.0
+
+
+@contextlib.contextmanager
+def modelled_session(pkg, devices, device="cpu", **kw):
+    """A one-worker Session with its host clock frozen (the port's on
+    ``device``): with :func:`ordered_builds` around what it builds, its
+    modelled timeline is the same in every run and in both packages."""
+    if pkg.is_port:
+        kw["device"] = device
+    with pkg.session.Session(devices, max_workers=1, **kw) as sess:
+        freeze_clock(sess)
+        yield sess
 
 
 R = Pkg("repro")
