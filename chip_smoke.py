@@ -85,13 +85,30 @@ tensor-core kernel and the float32 SIMT kernel).  Phases:
       device-to-host copy, the host µs per decode iteration and per served
       token, each layer of an iteration called alone, the device ms per
       iteration, launches per iteration, the tracer's cost on against
-      off, and the image loads of a resize.
+      off, and the image loads of a resize;
+  (j) the static verifier and the paper's benchmarks: (j1) the six paper
+      kernels on both overlays at ``verify_level`` off, "fused" and
+      "full", with zero findings, one bitstream and program hash at every
+      level and the verify stage's host ms, then each "full" artifact
+      through a Session at N = 2^24, bit for bit against
+      ``run_reference``; (j2) a "full" cache hit corrupted in memory is
+      quarantined, rebuilt and launched bit-exact on an image keyed on the
+      new artifact; (j3) phase (h3)'s pipeline with every node asking for
+      "fused", fused against nodewise bit for bit, and a planted alias
+      refused before any build or launch; (j4) ``python -m
+      repro_torch.analysis --verify`` and the lock lint, clean; (j5)
+      ``benchmarks/torch_graph_replay_perf.py`` (the reference's four
+      gates, then fused against nodewise replay in host µs, device ms and
+      launches at 200,000 and 2^24 work-items) and
+      ``benchmarks/torch_reconfig_time.py`` (a swap into the resident
+      image against a ``torch.compile`` of the program), without the cold
+      nvcc rebuild.
 
 Exits non-zero, printing no result, without a card or when any check
 fails.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists each ported kernel with its launches on the main paths
-(phases (c), (h) and (i) for the executor, phase (g) for RMSNorm and
-flash attention).
+(phases (c), (h), (i) and (j) for the executor, phase (g) for RMSNorm
+and flash attention).
 """
 
 from __future__ import annotations
@@ -1541,6 +1558,231 @@ def phase_serving(card: str):
     return launches, dict(checks, readings=readings)
 
 
+# ---------------------------- (j) the verifier and the paper's benchmarks
+VERIFY_LEVELS = ("off", "fused", "full")
+N_VERIFY = 1 << 24
+# the lock annotations of the port's lint targets: every one of the JAX
+# package's, plus the port's resident image lock (core/runtime.py)
+LOCK_ATTRS = 72
+
+
+def verified_builds(card: str, bufs, refs):
+    """(j1) the six paper kernels on both overlays at each verify level:
+    zero findings, the same bitstream and program at every level, the
+    verify stage's host ms; then each "full" artifact through a Session at
+    N_VERIFY work-items against run_reference."""
+    from repro_torch.analysis import verify_artifact
+    from repro_torch.configs.paper_suite import BENCHMARKS
+    from repro_torch.core.jit import jit_compile
+    from repro_torch.core.options import CompileOptions
+    from repro_torch.core.overlay import OverlaySpec
+    from repro_torch.core.runtime import Device
+    from repro_torch.core.session import Session
+
+    verify_ms = {}
+    for w, h, d in SPECS:
+        spec = OverlaySpec(w, h, d)
+        for name, (src, _, _) in BENCHMARKS.items():
+            cks = {lvl: jit_compile(src, spec, opts=CompileOptions(
+                verify_level=lvl)) for lvl in VERIFY_LEVELS}
+            off = cks["off"]
+            for lvl, ck in cks.items():
+                what = f"(j1) {name} {w}x{h} verify_level={lvl}"
+                check(verify_artifact(ck) == [], f"{what}: findings")
+                check(ck.bitstream.data == off.bitstream.data and
+                      ck.program.content_hash() == off.program.content_hash(),
+                      f"{what}: the artifact differs from the unverified one")
+                check(("verify" in ck.stage_times_ms) == (lvl != "off"),
+                      f"{what}: verify stage booked "
+                      f"{sorted(ck.stage_times_ms)}")
+            verify_ms[f"{name} {w}x{h}"] = dict(
+                fused=cks["fused"].stage_times_ms["verify"],
+                full=cks["full"].stage_times_ms["verify"],
+                compile_off=off.compile_time_ms)
+        with Session([Device("ovl0", spec)]) as sess:
+            for name, (src, _, _) in BENCHMARKS.items():
+                prog = sess.build(src, CompileOptions(verify_level="full"))
+                n_in = len(prog.compiled.dfg.inputs)
+                ev = sess.enqueue(prog, *bufs[:n_in])
+                check_resident(ev.outputs[0], refs(prog.compiled, n_in),
+                               f"(j1) {name} {w}x{h} full, Session")
+                prog.release()
+    for key, ms in verify_ms.items():
+        log(f"(j1) {key:15s} verify fused {ms['fused']:.3f} ms, full "
+            f"{ms['full']:.3f} ms host (unverified compile "
+            f"{ms['compile_off']:.1f} ms); {card}")
+    full = [ms["full"] for ms in verify_ms.values()]
+    log(f"(j1) {len(verify_ms)} kernel x overlay cells at "
+        f"{len(VERIFY_LEVELS)} levels: zero findings, one artifact per cell "
+        f"at every level, \"full\" runs through a Session bit-exact at "
+        f"N={N_VERIFY}; full re-proof {min(full):.3f}-{max(full):.3f} ms")
+    return verify_ms
+
+
+def verified_quarantine(bufs, refs):
+    """(j2) a "full" cache hit corrupted in memory is quarantined and
+    rebuilt; the rebuilt artifact launches bit-exact on an image of its
+    own."""
+    from repro_torch.analysis import verify_artifact
+    from repro_torch.configs.paper_suite import BENCHMARKS
+    from repro_torch.core.options import CompileOptions
+    from repro_torch.core.overlay import OverlaySpec
+    from repro_torch.core.runtime import Device
+    from repro_torch.core.session import Session
+
+    opts = CompileOptions(max_replicas=4, verify_level="full")
+    src = BENCHMARKS["poly1"][0]
+    with Session([Device("ovl0", OverlaySpec(*SPECS[0]))]) as sess:
+        first = sess.build(src, opts)
+        sess.enqueue(first, bufs[0]).wait()
+        bad = first.compiled
+        bad.routing.nets[0].path.insert(1, (99, 99))
+        first.release()
+        prog = sess.build(src, opts)
+        stats = sess.cache.stats.as_dict()
+        check(stats["verify_quarantined"] == 1 and prog.compiled is not bad,
+              f"(j2) the corrupted hit was not quarantined: {stats}")
+        check(verify_artifact(prog.compiled) == [],
+              "(j2) the rebuilt artifact has findings")
+        ev = sess.enqueue(prog, bufs[0])
+        check_resident(ev.outputs[0], refs(prog.compiled, 1),
+                       "(j2) rebuilt poly1")
+        (img_ck, _), = prog._images.values()
+        check(img_ck is prog.compiled,
+              "(j2) the resident image is not the rebuilt artifact's")
+    log(f"(j2) a corrupted \"full\" hit: quarantined "
+        f"{stats['verify_quarantined']}, rebuilt (misses {stats['misses']}, "
+        f"hits {stats['hits']}), launched bit-exact at N={N_VERIFY} on an "
+        f"image keyed on the new artifact")
+    return stats
+
+
+def verified_graph(xs):
+    """(j3) phase (h3)'s pipeline with every node asking for "fused": it
+    instantiates and launches bit-exact against the nodewise replay; a
+    planted alias raises before any build is submitted or launch made."""
+    import copy
+    from repro_torch.analysis import VerificationError
+    from repro_torch.core.options import CompileOptions
+    from repro_torch.core.overlay import OverlaySpec
+    from repro_torch.core.runtime import Device
+    from repro_torch.core.session import Session
+    from repro_torch.kernels.overlay_exec import kernel
+
+    opts = CompileOptions(max_replicas=4, verify_level="fused")
+    with Session([Device("ovl0", OverlaySpec(*SPECS[0]))]) as sess:
+        g = record_pipeline(sess, opts)
+        gx = sess.instantiate(g).result()
+        for x in xs:
+            fused = sess.launch(gx, x).outputs[0]
+            node = sess.launch_nodewise(g, x).outputs[0]
+            check(same_bits(fused.data, node.data),
+                  "(j3) verified graph: fused != nodewise")
+        bad = copy.deepcopy(sess.graph_plan(g))
+        bad[0].ext = bad[0].ext * 2               # one buffer, two slots
+        submitted, launches = [], kernel.overlay_execute.launches
+        build = sess.compile
+        sess.compile = lambda *a, **kw: submitted.append(a) or build(*a, **kw)
+        try:
+            sess.instantiate(g, plan=bad)
+            codes = None
+        except VerificationError as e:
+            codes = sorted({d.code for d in e.diagnostics})
+        check(codes is not None and "A108" in codes,
+              f"(j3) a planted alias was not refused: {codes}")
+        check(not submitted and kernel.overlay_execute.launches == launches,
+              f"(j3) the refused plan submitted {len(submitted)} builds")
+    log(f"(j3) verifying graph: {gx.n_partitions} partition(s), fused = "
+        f"nodewise bit-exact on {len(xs)} requests; planted alias refused "
+        f"with {codes} before any build or launch")
+    return codes
+
+
+def verified_cli():
+    """(j4) the analysis CLI's sweep and the lock lint."""
+    import ast
+    from repro_torch.analysis.cli import main as analysis_main
+    from repro_torch.analysis.locklint import (DEFAULT_TARGETS,
+                                               _scan_declarations,
+                                               lint_files)
+    t0 = time.perf_counter()
+    rc = analysis_main(["--verify"])
+    cli_s = time.perf_counter() - t0
+    check(rc == 0, f"(j4) python -m repro_torch.analysis --verify: {rc}")
+    diags = lint_files(DEFAULT_TARGETS, root=str(ROOT))
+    check(diags == [], f"(j4) lock lint: {[str(d) for d in diags]}")
+    attrs = 0
+    for rel in DEFAULT_TARGETS:
+        text = (ROOT / rel).read_text()
+        attrs += len(_scan_declarations(rel, ast.parse(text),
+                                        text.splitlines()).attrs)
+    check(attrs >= LOCK_ATTRS, f"(j4) only {attrs} lock-annotated "
+          f"attributes")
+    log(f"(j4) analysis CLI --verify: exit {rc} in {cli_s:.1f} s; lock "
+        f"lint clean over {len(DEFAULT_TARGETS)} files, {attrs} annotated "
+        f"attributes")
+    return dict(cli_exit=rc, cli_s=cli_s, lock_attrs=attrs)
+
+
+def load_benchmark(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "benchmarks" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def verified_benchmarks():
+    """(j5) the paper's graph replay and reconfiguration benchmarks (no
+    executor rebuild: a cold nvcc build would eat the time limit)."""
+    out = {}
+    for name in ("torch_graph_replay_perf", "torch_reconfig_time"):
+        bench = load_benchmark(name)
+        res = out[name] = bench.run(DEVICE)
+        log(f"(j5) benchmarks/{name}.py:")
+        bench.report(res)
+        check(res["gate_failures"] == [],
+              f"(j5) {name} gates: {res['gate_failures']}")
+    return out
+
+
+def phase_verified(card: str):
+    """(j) the static verifier on the card's main path, the analysis CLI
+    and the paper's reconfiguration and graph replay benchmarks."""
+    import numpy as np
+    import torch
+    from repro_torch.core.runtime import Buffer
+    from repro_torch.kernels.overlay_exec import kernel
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(9)
+    pool = [rng.uniform(-1, 1, N_VERIFY).astype(np.float32)
+            for _ in range(4)]
+    refs = Refs(pool)
+    bufs = [Buffer(x) for x in pool]
+    requests = [Buffer(rng.uniform(0, 2, N_VERIFY).astype(np.float32))
+                for _ in range(2)]
+    builds = kernel.LIBRARY.builds
+    # ---- the main path: counts set to 0 just before, read just after
+    kernel.overlay_execute.launches = 0
+    out = dict(verify_ms=verified_builds(card, bufs, refs),
+               quarantine=verified_quarantine(bufs, refs),
+               refused_alias=verified_graph(requests),
+               analysis=verified_cli(),
+               benchmarks=verified_benchmarks())
+    launches = kernel.overlay_execute.launches
+    # ----
+    check(launches > 0, "(j) the verified path never launched the executor")
+    check(kernel.LIBRARY.builds == builds == 1,
+          f"(j) the executor was built {kernel.LIBRARY.builds} times")
+    del bufs, requests
+    torch.cuda.empty_cache()
+    log(f"(j) verifier and paper benchmarks: {launches} executor launches, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches, out
+
+
 def close_enough(got, want, tol: float, rtol: float = None):
     """→ (within ``tol`` as torch.testing.assert_close counts it, with
     atol = tol and rtol = ``rtol`` or tol; the max abs error), compared in
@@ -2137,6 +2379,7 @@ def main() -> int:
     phase_reconfig(max_err)
     runtime_launches, runtime = phase_runtime(card, cell_ms)
     serving_launches, serving = phase_serving(card)
+    verified_launches, verified = phase_verified(card)
     err = max(max_err)
     check(err == 0.0, f"max abs error {err}")
     rms, rms_errs = phase_rmsnorm()
@@ -2152,10 +2395,12 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/overlay_exec.cu",
         "replaces": "src/repro/kernels/overlay_exec/kernel.py:30",
-        "launches": launches + runtime_launches + serving_launches,
+        "launches": (launches + runtime_launches + serving_launches
+                     + verified_launches),
         "launches_by_path": {"(c) run_overlay": launches,
                              "(h) runtime seam": runtime_launches,
-                             "(i) serving": serving_launches},
+                             "(i) serving": serving_launches,
+                             "(j) verified": verified_launches},
         "match": "bit-exact",
         "max_abs_err": err,
         "ms": totals["ms"],
@@ -2169,6 +2414,7 @@ def main() -> int:
         "work_items_per_launch": N_MAIN,
         "runtime_seam": runtime,
         "serving": serving,
+        "verified": verified,
     }, {
         "name": "rmsnorm",
         "route": "cuda",

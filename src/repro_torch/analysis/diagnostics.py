@@ -1,4 +1,4 @@
-"""Structured diagnostics for the static verifier (ISSUE 6 tentpole).
+"""Structured diagnostics for the static verifier.
 
 Every pass in :mod:`repro_torch.analysis` reports findings as
 :class:`Diagnostic` values — ``(code, severity, span, message, fixit)`` —

@@ -48,9 +48,11 @@ with ``persist_dir`` additionally writes every artifact through to a
 content-addressed on-disk store, so a restarted process warm-loads compiled
 kernels in milliseconds instead of recompiling.
 
-The static verifier (``CompileOptions.verify_level``) is not part of this
-package yet: it arrives with the analysis slice, and asking for it raises
-``NotImplementedError``.
+``CompileOptions.verify_level`` gates a build through the static verifier
+(:mod:`repro_torch.analysis`): "fused" checks the DFG's semantics before any
+mapping stage, "full" also re-proves every artifact it hands out, a cache
+hit included.  Verification is host work over the artifact, which holds no
+tensor.
 """
 
 from __future__ import annotations
@@ -225,9 +227,9 @@ def jit_compile(kernel: Union[str, Callable, DFG],
     With ``cache``, the build is keyed on a content hash of (kernel, spec,
     effective replica cap implied by the free-resource snapshot,
     ``opts.key_tail()``); a hit returns the previously built CompiledKernel
-    without running any compiler stage.  ``opts.verify_level != "off"``
-    raises NotImplementedError: the verifier comes with the analysis
-    slice.  ``opts.pr_mode`` selects the P&R
+    without running any compiler stage (under ``verify_level="full"`` the
+    hit is re-proved first, and quarantined and rebuilt if the re-proof
+    fails).  ``opts.pr_mode`` selects the P&R
     strategy (see module docstring): ``"auto"`` (default), ``"template"``,
     or ``"joint"``; ``opts.min_template_fill`` is the fraction of the
     planned replica count the template path must reach for ``auto`` to skip
@@ -249,10 +251,6 @@ def jit_compile(kernel: Union[str, Callable, DFG],
                               max_replicas=max_replicas, seed=seed,
                               place_effort=place_effort, pr_mode=pr_mode,
                               min_template_fill=min_template_fill)
-    if opts.verify_level != "off":
-        raise NotImplementedError(
-            f"verify_level={opts.verify_level!r}: the static verifier is not "
-            f"ported yet; it arrives with the analysis slice")
     n_inputs, name = opts.n_inputs, opts.name
     times: Dict[str, float] = {}
 
@@ -268,6 +266,19 @@ def jit_compile(kernel: Union[str, Callable, DFG],
         fault_point("frontend", g.name)
         _sp["kernel"] = g.name
     times["frontend"] = (time.perf_counter() - t0) * 1e3
+
+    if opts.verify_level != "off":
+        # semantic gate BEFORE any mapping stage: a malformed DFG (undefined
+        # producer, broken IO perimeter, cycle) fails here with structured
+        # diagnostics instead of an obscure KeyError deep inside clustering
+        # or placement.  VerificationError propagates like any mapping error.
+        from repro_torch.analysis.dfg_checks import assert_clean
+        t0 = time.perf_counter()
+        try:
+            with obs_trace.span("jit:verify", "compile", kernel=g.name):
+                assert_clean(g, origin="jit")
+        finally:
+            times["verify"] = (time.perf_counter() - t0) * 1e3
 
     t0 = time.perf_counter()
     with obs_trace.span("jit:fuse", "compile", kernel=g.name):
@@ -296,7 +307,21 @@ def jit_compile(kernel: Union[str, Callable, DFG],
             hit = cache.get(key)
             _sp["hit"] = hit is not None
         if hit is not None:
-            return hit
+            if opts.verify_level != "full":
+                return hit
+            # "full" re-proves every artifact it is about to hand out; a
+            # hit that fails the re-proof is quarantined exactly like a
+            # corrupt DiskCache pickle and the build falls through to a
+            # fresh compile below
+            from repro_torch.analysis.artifact import verify_artifact
+            from repro_torch.analysis.diagnostics import ERROR as _A_ERROR
+            t0 = time.perf_counter()
+            bad = [d for d in verify_artifact(hit)
+                   if d.severity == _A_ERROR]
+            times["verify"] = (time.perf_counter() - t0) * 1e3
+            if not bad:
+                return hit
+            cache.quarantine(key)
 
     # ---- template path: P&R one replica, stamp R copies, gap-fill ---------
     tpl_out = None
@@ -390,6 +415,18 @@ def jit_compile(kernel: Union[str, Callable, DFG],
 
     ck = CompiledKernel(g.name, fug.dfg, fug, spec, plan, placement,
                         routing, lat, bs, prog, times, pr_path=pr_path)
+    if opts.verify_level == "full":
+        # the artifact re-proof runs BEFORE cache.put: an artifact that
+        # fails its own legality re-proof must never become someone else's
+        # cache hit.  VerificationError propagates to the caller like any
+        # other mapping failure.
+        from repro_torch.analysis.artifact import assert_valid
+        t0 = time.perf_counter()
+        try:
+            assert_valid(ck)
+        finally:
+            times["verify"] = times.get("verify", 0.0) + \
+                (time.perf_counter() - t0) * 1e3
     if cache is not None and key is not None:
         cache.put(key, ck)
     return ck

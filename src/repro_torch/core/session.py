@@ -772,15 +772,22 @@ class Session:
         return GraphExec(self, graph, partitions, futures, tenant)
 
     def _verified_plan(self, graph: KernelGraph, partitions):
-        """Gate for a partition plan (shared by the greedy cut and
-        caller-supplied plans); returns the plan unchanged.  A node that
-        opts into verification raises: the A1xx race/alias analysis is not
-        part of this package yet (it arrives with the analysis slice)."""
+        """Gate a partition plan through the A1xx race/alias analysis
+        when any node opted into verification (shared by the greedy cut
+        and caller-supplied plans); returns the plan unchanged."""
         if any(n.opts.verify_level != "off" for n in graph.nodes):
-            raise NotImplementedError(
-                f"{graph.name}: verify_level != 'off': the partition-plan "
-                f"verifier is not ported yet; it arrives with the analysis "
-                f"slice")
+            # any node opting into verification gates the whole cut:
+            # run the A1xx race/alias analysis on the fresh plan before
+            # it is memoized or a single partition build is submitted
+            from repro_torch.analysis import (ERROR, VerificationError,
+                                              check_graph, check_partitions)
+            diags = check_graph(graph) + check_partitions(graph,
+                                                          partitions)
+            bad = [d for d in diags if d.severity == ERROR]
+            if bad:
+                raise VerificationError(
+                    f"{graph.name}: partition plan failed verification",
+                    bad)
         return partitions
 
     def graph_plan(self, graph: KernelGraph,

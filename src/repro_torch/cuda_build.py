@@ -62,10 +62,11 @@ class CudaLibrary:
             raise RuntimeError(f"{what} failed: CUDA error {err} "
                                f"({msg.decode()})")
 
-    def _load(self) -> ctypes.CDLL:
+    def build(self, out_dir: Path) -> Path:
+        """The library's path in ``out_dir``, compiled there by ``nvcc``
+        unless a build of this source and these flags is already there."""
         src = self.source.read_bytes()
         digest = hashlib.sha256(src + " ".join(self.flags).encode())
-        out_dir = _REPO_ROOT / "build"
         so = out_dir / f"{self.name}_{digest.hexdigest()[:16]}.so"
         if not so.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
@@ -77,7 +78,10 @@ class CudaLibrary:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                    f"{' '.join(cmd)}\n{self.build_log}")
             os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+        return so
+
+    def _load(self) -> ctypes.CDLL:
+        lib = ctypes.CDLL(str(self.build(_REPO_ROOT / "build")))
         for fn, (argtypes, restype) in self._functions.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype

@@ -24,9 +24,8 @@ concatenation of several requests' states is bit-identical to running it
 over each state alone, so continuous batching (concat → one launch) can
 never change a tenant's numerics.  ``STAGE_KERNELS`` registers every
 stage (name → (callable, arity)) so the static analyzer sweeps exactly
-the kernels the server executes (``python -m repro.analysis`` in the JAX
-package; the port's analyzer arrives with the analysis item of ROADMAP.md
-§1), mirroring ``overlay_ops.KERNELS``.
+the kernels the server executes (``python -m repro_torch.analysis``),
+mirroring ``overlay_ops.KERNELS``.
 
 In the port every launch runs the CUDA overlay executor on the resident
 image of each fused partition, on the Session's device.

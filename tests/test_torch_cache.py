@@ -173,9 +173,14 @@ def test_jit_compile_with_cache_returns_the_cached_artifact():
                           opts=T.CompileOptions())
     assert b is a
     assert (cache.stats.hits, cache.stats.misses) == (1, 1)
-    with pytest.raises(NotImplementedError, match="analysis slice"):
-        T.jit.jit_compile(src, T.spec(), cache=cache,
-                          opts=T.CompileOptions(verify_level="fused"))
+    # verified and unverified builds share one entry; "full" re-proves the
+    # hit, which is clean, so nothing is quarantined
+    for level in ("fused", "full"):
+        assert T.jit.jit_compile(src, T.spec(), cache=cache,
+                                 opts=T.CompileOptions(
+                                     verify_level=level)) is a
+    assert (cache.stats.hits, cache.stats.misses) == (3, 1)
+    assert cache.stats.verify_quarantined == 0
 
 
 # ------------------------------------------------------------ disk tier

@@ -203,10 +203,12 @@ def test_cache_and_verifier_are_not_silently_ignored():
     first = jit_compile(src, OverlaySpec(8, 8, 2), cache=cache)
     assert jit_compile(src, OverlaySpec(8, 8, 2), cache=cache) is first
     assert (cache.stats.hits, cache.stats.misses) == (1, 1)
+    assert "verify" not in first.stage_times_ms
     for level in ("fused", "full"):
-        with pytest.raises(NotImplementedError, match="analysis slice"):
-            jit_compile(src, OverlaySpec(8, 8, 2),
-                        opts=CompileOptions(verify_level=level))
+        ck = jit_compile(src, OverlaySpec(8, 8, 2),
+                         opts=CompileOptions(verify_level=level))
+        assert ck.stage_times_ms["verify"] >= 0.0
+        assert ck.bitstream.data == first.bitstream.data
 
 
 def test_deprecated_knobs_warn_and_build_the_same():

@@ -14,6 +14,7 @@ The cases are those of ``tests/test_session.py``, the Session cases of
 and the threaded ledger cases of ``tests/test_threaded_ledger.py``.
 """
 
+import copy
 import random
 import threading
 import time
@@ -622,10 +623,30 @@ def test_session_without_a_card_or_cpu_raises():
 
 
 def test_partition_verification_is_left_to_the_analysis_slice():
-    with T.new_session(_devices(T, "a")) as sess:
-        with sess.capture(name="v") as g:
-            g.call(lambda x: x + 1.0,
-                   T.CompileOptions(n_inputs=1, verify_level="fused"),
-                   g.input())
-        with pytest.raises(NotImplementedError, match="analysis slice"):
-            sess.instantiate(g)
+    """A graph whose nodes ask for verification is gated by the analysis
+    package's A1xx race/alias checks: the clean cut instantiates and
+    launches bit for bit as the nodewise replay, and a cut with a planted
+    alias raises VerificationError before any partition build is submitted,
+    with the same findings in both packages."""
+    def scenario(pkg):
+        opts = pkg.CompileOptions(n_inputs=1, verify_level="fused")
+        with pkg.new_session(_devices(pkg, "a")) as sess:
+            with sess.capture(name="v") as g:
+                t = g.call(lambda x: x + 1.0, opts, g.input())
+                g.call(lambda x: x * x - 0.5, opts, t)
+            gx = sess.instantiate(g)
+            fused = host(sess.launch(gx, X).wait()[0])
+            nodewise = host(sess.launch_nodewise(g, X).wait()[0])
+            bad = copy.deepcopy(sess.graph_plan(g))
+            bad[0].ext = bad[0].ext * 2           # one buffer, two slots
+            submitted = []
+            sess.compile = lambda *a, **kw: submitted.append(a)
+            with pytest.raises(pkg.analysis.VerificationError) as ei:
+                sess.instantiate(g, plan=bad)
+            assert submitted == []
+            return (gx.n_partitions, fused.tobytes(), nodewise.tobytes(),
+                    [(d.code, d.message) for d in ei.value.diagnostics])
+    r, t = both(scenario)
+    assert t == r
+    assert t[1] == t[2] and t[0] == 1
+    assert {"A108", "A109"} <= {code for code, _ in t[3]}

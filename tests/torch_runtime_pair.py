@@ -18,7 +18,8 @@ import threading
 import numpy as np
 import torch
 
-_MODULES = ("configs.paper_suite", "core.cache", "core.dfg", "core.faults",
+_MODULES = ("analysis", "analysis.cli", "analysis.locklint",
+            "configs.paper_suite", "core.cache", "core.dfg", "core.faults",
             "core.fuse", "core.graph", "core.jit", "core.options",
             "core.overlay", "core.queue", "core.recovery", "core.remote",
             "core.runtime", "core.session", "obs.export", "obs.metrics",
