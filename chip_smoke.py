@@ -28,6 +28,7 @@ tensor-core kernel and the float32 SIMT kernel).  Phases:
       CUDA graph;
   (e) the RMSNorm kernel against its plain version on the card (1e-4 in
       float32, 3e-2 in bfloat16) at the shapes of a qwen3-14b prefill step
+      and of phase (k)'s two models
       (rows of 5120, and rows of 128 read through the transposed heads
       view), at decode shapes, ragged row counts and the shapes of
       ``tests/test_kernels.py``; timed beside ``torch.nn.functional.rms_norm``
@@ -36,11 +37,13 @@ tensor-core kernel and the float32 SIMT kernel).  Phases:
   (f) the flash-attention kernels against their plain version on the
       card: bfloat16 on the tensor-core route within
       1e-4 + 2^-7 |plain| + 2^-7 plain(|v|), float32 on the SIMT route
-      within 2e-3; GQA groups 1, 4, 5 and 8, causal and not, windows 32,
-      64 and 128, Sq < Skv, Sq > Skv, ragged lengths, head dims 64 and
-      128; then at the prefill shape q (4, 40, 4096, 128) through the
-      path's heads views, and timed there in turns with the SIMT kernel
-      and ``scaled_dot_product_attention`` against the operations bound;
+      within 2e-3; GQA groups 1, 4, 5, 6, 8 and 16, causal and not,
+      windows 32, 64, 128 and 256, Sq < Skv, Sq > Skv, ragged lengths,
+      head dims 64 and 128; then at the prefill shape q (4, 40, 4096, 128)
+      through the path's heads views, and timed there in turns with the
+      SIMT kernel and ``scaled_dot_product_attention`` against the
+      operations bound, and at phase (k)'s q (4, 64, 4096, 128) with k/v
+      of 4 heads, timed in turns with ``scaled_dot_product_attention``;
   (g) the dense serving path: qwen3-14b at full width and depth in
       bfloat16 with random weights from a seeded generator, one
       ``make_prefill_step`` on 4 prompts of 4096 tokens, then the
@@ -102,13 +105,28 @@ tensor-core kernel and the float32 SIMT kernel).  Phases:
       launches at 200,000 and 2^24 work-items) and
       ``benchmarks/torch_reconfig_time.py`` (a swap into the resident
       image against a ``torch.compile`` of the program), without the cold
-      nvcc rebuild.
+      nvcc rebuild;
+  (k) the moe and ssm families, after (g) and in its manner, in bfloat16
+      with random weights from a seeded generator: qwen3-moe-235b-a22b at
+      full width (128 experts of d_ff 1536, top 8, heads 64/4 x 128,
+      ``qk_norm``) cut to ``MOE_LAYERS`` of its 94 layers, the deepest cut
+      that leaves ``FREE_GB`` of the card free at the peak, and
+      mamba2-370m whole; for each one ``make_prefill_step`` on 4 x 4096
+      tokens and the serve loop (4 x (128 + 32)), launches counted per
+      kernel and per flash-attention route, times, one decode step under
+      torch's sync debug mode, a profiled prefill and decode, the peak
+      memory, and three logits checks at two bfloat16 weight seeds and in
+      float32 (qwen3-moe cut to ``MOE_F32_LAYERS`` there), each limit also
+      held against planted faults (attention and the expert map for the
+      moe family, the SSD decay and the conv taps for the ssm family).
+      Phase (e) adds those models' RMSNorm rows (1024, 2048, 4096 and the
+      64- and 4-head views) and phase (f) GQA groups 6 and 16 at D 128.
 
 Exits non-zero, printing no result, without a card or when any check
 fails.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists each ported kernel with its launches on the main paths
-(phases (c), (h), (i) and (j) for the executor, phase (g) for RMSNorm
-and flash attention).
+(phases (c), (h), (i) and (j) for the executor, phases (g) and (k) for
+RMSNorm and flash attention).
 """
 
 from __future__ import annotations
@@ -182,6 +200,9 @@ FA_CASES = (
     (1, 40, 8, 300, 100, 128, True, None),       # Sq > Skv
     (1, 8, 8, 129, 257, 64, False, 100),         # window, not causal
     (1, 16, 16, 200, 200, 64, True, 64),         # window 64, D 64
+    (2, 64, 4, 1000, 1000, 128, True, None),     # group 16 (qwen3-moe)
+    (1, 48, 8, 1024, 1024, 128, True, 256),      # group 6 (mixtral), window
+    (1, 48, 8, 300, 300, 128, False, None),      # group 6, not causal
 )
 # bfloat16 on the tensor-core route against the plain version (phase (f)),
 # |kernel - plain| <= 1e-4 + 2^-7 |plain| + 2^-7 plain(|v|), where plain(|v|)
@@ -1810,6 +1831,7 @@ def phase_rmsnorm():
     """(e) the RMSNorm kernel against its plain version on the card."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.rmsnorm import kernel, ref
 
     bf, f32 = torch.bfloat16, torch.float32
@@ -1824,6 +1846,24 @@ def phase_rmsnorm():
         ("k_norm, heads view (B, 8, S, 128)",
          randn(gen, (b, s, hkv, hd), bf).transpose(1, 2), n_layers),
         ("final (B, 1, 5120)", randn(gen, (b, 1, d), bf), 1),
+    ]
+    # phase (k)'s shapes, with their calls per prefill step of each model
+    moe, ssm = get_arch(MOE_ARCH), get_arch(MAMBA_ARCH)
+    moe_heads = (moe.n_heads, moe.n_kv_heads)
+    family_cases = [
+        (f"{moe.arch_id} ln1/ln2 (B*S, {moe.d_model})",
+         randn(gen, (b * s, moe.d_model), bf), 2 * MOE_LAYERS, "moe"),
+        (f"{moe.arch_id} q_norm, heads view (B, {moe_heads[0]}, S, "
+         f"{moe.hd})", randn(gen, (b, s, moe_heads[0], moe.hd),
+                             bf).transpose(1, 2), MOE_LAYERS, "moe"),
+        (f"{moe.arch_id} k_norm, heads view (B, {moe_heads[1]}, S, "
+         f"{moe.hd})", randn(gen, (b, s, moe_heads[1], moe.hd),
+                             bf).transpose(1, 2), MOE_LAYERS, "moe"),
+        (f"{ssm.arch_id} ln (B*S, {ssm.d_model})",
+         randn(gen, (b * s, ssm.d_model), bf), ssm.n_layers, "ssm"),
+        (f"{ssm.arch_id} gated norm (B*S, {ssm.ssm_expand * ssm.d_model})",
+         randn(gen, (b * s, ssm.ssm_expand * ssm.d_model), bf),
+         ssm.n_layers, "ssm"),
     ]
     other_cases = [
         ("decode ln (4, 1, 5120)", randn(gen, (4, 1, d), bf)),
@@ -1840,12 +1880,16 @@ def phase_rmsnorm():
          for shape in ((4, 64), (2, 3, 128), (1, 257, 512))
          for dt in (f32, bf)]
     errs = {f32: 0.0, bf: 0.0}
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                  byte_ms=0.0, op_ms=0.0)
+
+    def zeros():
+        return dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                    byte_ms=0.0, op_ms=0.0)
+    totals = zeros()
+    by_model = {"moe": zeros(), "ssm": zeros()}
     shares = {}
     scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     evict_l2 = hide_host(evict=scratch)
-    for name, x, *per_step in main_cases + other_cases:
+    for name, x, *per_step in main_cases + family_cases + other_cases:
         w = (randn(gen, (x.shape[-1],), f32) * 0.1 + 1.0).to(x.dtype)
         got = kernel.rmsnorm(x, w)
         want = ref.rmsnorm(x, w)
@@ -1859,6 +1903,7 @@ def phase_rmsnorm():
         if not per_step:
             continue
         n = per_step[0]
+        into = by_model[per_step[1]] if len(per_step) > 1 else totals
         k_ms = cuda_ms(lambda: kernel.rmsnorm(x, w), before=evict_l2)[0]
         p_ms = cuda_ms(lambda: ref.rmsnorm(x, w), reps=3,
                        before=evict_l2)[0]
@@ -1878,17 +1923,25 @@ def phase_rmsnorm():
                          ("library_ms", l_ms), ("byte_ms", byte_ms),
                          ("op_ms", op_ms),
                          ("bound_ms", max(byte_ms, op_ms))):
-            totals[key] += n * val
-    del main_cases, other_cases, scratch
-    log(f"(e) per prefill step (161 calls): kernel {totals['ms']:.3f} ms, "
-        f"plain {totals['plain_ms']:.3f} ms, torch rms_norm "
-        f"{totals['library_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms "
-        f"(share {totals['bound_ms'] / totals['ms']:.3f})")
+            into[key] += n * val
+    del main_cases, family_cases, other_cases, scratch
+    for label, t in (("qwen3-14b (161 calls)", totals),
+                     (f"{moe.arch_id} at {MOE_LAYERS} layers "
+                      f"({4 * MOE_LAYERS} calls; the final norm untimed)",
+                      by_model["moe"]),
+                     (f"{ssm.arch_id} ({2 * ssm.n_layers} calls; the final "
+                      f"norm untimed)", by_model["ssm"])):
+        log(f"(e) per prefill step of {label}: kernel {t['ms']:.3f} ms, "
+            f"plain {t['plain_ms']:.3f} ms, torch rms_norm "
+            f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+            f"(share {t['bound_ms'] / t['ms']:.3f})")
     totals["shares"] = shares
+    totals["per_prefill_step_of"] = by_model
     return totals, errs
 
 
-def attention_bound_ms(b, hq, sq, skv, d, causal, window, itemsize):
+def attention_bound_ms(b, hq, sq, skv, d, causal, window, itemsize,
+                       hkv=QWEN["hkv"]):
     """→ (ms to move q, k, v and out once, ms for 4*D operations per
     visible (query, key) pair at the bfloat16 tensor-core rate)."""
     import numpy as np
@@ -1900,7 +1953,6 @@ def attention_bound_ms(b, hq, sq, skv, d, causal, window, itemsize):
     if window is not None:
         mask &= k_pos > q_pos - window
     pairs = int(mask.sum()) * b * hq
-    hkv = QWEN["hkv"]
     n_bytes = (2 * b * hq * sq * d + 2 * b * hkv * skv * d) * itemsize
     return (n_bytes / MEM_BYTES_PER_S * 1e3,
             4 * d * pairs / BF16_OPS_PER_S * 1e3)
@@ -1930,6 +1982,7 @@ def phase_flash_attention():
     SIMT kernel and scaled_dot_product_attention."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.flash_attention import kernel, ref
 
     gen = torch.Generator(device=DEVICE).manual_seed(4)
@@ -1969,8 +2022,8 @@ def phase_flash_attention():
                  if dt == torch.bfloat16 else
                  f"{FA_TOL_F32:g} + {FA_TOL_F32:g} |plain|")
         log(f"(f) {len(FA_CASES)} cases in {str(dt)[6:]} on the "
-            f"{routes.pop()} route (GQA groups 1/4/5/8, causal and not, "
-            f"windows 32/64/128, Sq < Skv, Sq > Skv, ragged, D 64/128): max "
+            f"{routes.pop()} route (GQA groups 1/4/5/6/8/16, causal and not, "
+            f"windows 32/64/128/256, Sq < Skv, Sq > Skv, ragged, D 64/128): max "
             f"abs err {errs[dt]:.3g}, largest share of the limit {limit} "
             f"{shares[dt]:.3g}")
 
@@ -2046,10 +2099,42 @@ def phase_flash_attention():
         f"({flop / l_ms / 1e9:.1f} TFLOP/s); plain {p_ms:.3f} ms ({b} calls "
         f"at B=1); bound {b_ms:.4f} ms (operations; bytes {byte_ms:.4f} ms)")
     del q, k, v, got
+
+    # phase (k)'s qwen3-moe prefill shape, GQA group 16: held against the
+    # plain version on one sequence, then timed in turns with SDPA
+    moe = get_arch(MOE_ARCH)
+    hq, hkv = moe.n_heads, moe.n_kv_heads
+    q, k, v = (heads(h, torch.bfloat16) for h in (hq, hkv, hkv))
+    got = kernel.flash_attention(q, k, v)
+    want = ref.attention(q[:1], k[:1], v[:1])
+    share = limit_share(got[:1], want, fa_bf16_limit(q[:1], k[:1], v[:1],
+                                                     want))
+    check(share <= 1.0, f"flash attention != plain at q ({b},{hq},{s},{d}): "
+                        f"share of the limit {share}")
+    del want
+    moe_times = {"wgmma": [], "sdpa": []}
+    for turn in range(2):
+        moe_times["wgmma"].append(cuda_ms(
+            lambda: kernel.flash_attention(q, k, v), reps=FA_REPS)[0])
+        moe_times["sdpa"].append(cuda_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), reps=FA_REPS)[0])
+    mk_ms, ml_ms = (statistics.mean(moe_times[n]) for n in ("wgmma", "sdpa"))
+    m_bound = max(attention_bound_ms(b, hq, s, s, d, True, None, 2, hkv))
+    log(f"(f) {moe.arch_id}'s prefill shape q ({b},{hq},{s},{d}), k/v "
+        f"({b},{hkv},{s},{d}) bf16 causal (group {hq // hkv}): largest "
+        f"share of the limit on sequence 0 {share:.3g}; tensor-core kernel "
+        f"{mk_ms:.4f} ms (turns {moe_times['wgmma']}), share of the bound "
+        f"{m_bound / mk_ms:.3f}, {mk_ms / ml_ms:.3f} x SDPA "
+        f"({ml_ms:.4f} ms, turns {moe_times['sdpa']}); bound {m_bound:.4f} "
+        f"ms (operations)")
+    del q, k, v, got
     return dict(ms=k_ms, simt_ms=simt_ms, plain_ms=p_ms, library_ms=l_ms,
                 bound_ms=b_ms, ratio_to_library=k_ms / l_ms,
                 bound_by="operations" if op_ms >= byte_ms else "bytes",
-                ms_turns=times), errs, shares
+                ms_turns=times, moe_shape=dict(
+                    ms=mk_ms, library_ms=ml_ms, bound_ms=m_bound,
+                    share_of_limit=share)), errs, shares
 
 
 def profile_window(fn, n: int, trace_path: Path):
@@ -2136,7 +2221,6 @@ def agreement_readings(model, params, prompt, res, one, run: str,
     second side of each comparison runs flash attention (the kernel, or
     the plain version), so with ``faults`` each is read again with every
     planted fault patched into that side."""
-    from unittest import mock
     import torch
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.serve import serve_loop
@@ -2168,27 +2252,35 @@ def agreement_readings(model, params, prompt, res, one, run: str,
                 model.forward_train(params, one, last_only=True),
                 lambda: plain.forward_train(params, one, last_only=True)),
         }
-        out = []
-        for key, (label, got, want_fn) in checks.items():
-            variants = {None: None}
-            if faults:
-                variants.update(planted_faults())
-            for fault, fn in variants.items():
-                if fn is None:
+        patches = {name: (fa_ops, "attention", fn)
+                   for name, fn in planted_faults().items()} if faults else {}
+        return read_checks(checks, patches, run, f"(g) {run}")
+
+
+def read_checks(checks, faults, run: str, prefix: str):
+    """Read each check, ``key → (label, got, want_fn)``, as it is and with
+    every fault, ``name → (object, attribute, stand-in)``, patched in while
+    ``want_fn`` runs → [(key, run, fault or None, max abs err)], each
+    printed with the logit scale and the share of positions whose top-1
+    token agrees."""
+    from unittest import mock
+    out = []
+    for key, (label, got, want_fn) in checks.items():
+        for fault, patch in {None: None, **faults}.items():
+            if patch is None:
+                want = want_fn()
+            else:
+                with mock.patch.object(*patch):
                     want = want_fn()
-                else:
-                    with mock.patch.object(fa_ops, "attention", fn):
-                        want = want_fn()
-                g, w = got.float(), want.float()
-                err = float((g - w).abs().max())
-                top1 = float((g.argmax(-1) == w.argmax(-1)).float().mean())
-                log(f"(g) {run}: {label}"
-                    + (f", fault '{fault}'" if fault else "")
-                    + f": max abs err {err:.4g}, logit scale (max |ref|) "
-                    f"{float(w.abs().max()):.3g}, same top-1 token at "
-                    f"{top1:.3f} of positions")
-                out.append((key, run, fault, err))
-                del want, g, w
+            g, w = got.float(), want.float()
+            err = float((g - w).abs().max())
+            top1 = float((g.argmax(-1) == w.argmax(-1)).float().mean())
+            log(f"{prefix}: {label}" + (f", fault '{fault}'" if fault else "")
+                + f": max abs err {err:.4g}, logit scale (max |ref|) "
+                f"{float(w.abs().max()):.3g}, same top-1 token at "
+                f"{top1:.3f} of positions")
+            out.append((key, run, fault, err))
+            del want, g, w
     return out
 
 
@@ -2331,31 +2423,406 @@ def phase_model():
     readings += agreement_readings(m32, p32, prompt, None, one,
                                    "float32 seed 2", faults=True)
     del p32
-    failures = []
     errors = {}
     for f32 in (False, True):
-        table = AGREE_TOL_F32 if f32 else AGREE_TOL
-        for key, limit in table.items():
-            clean, faulty = [], []
-            for k, run, fault, err in readings:
-                if k != key or run.startswith("float32") != f32:
-                    continue
-                (faulty if fault else clean).append(err)
-                if fault is None:
-                    errors[f"{key} ({run})"] = err
-            log(f"(g) {key} in {'float32' if f32 else 'bf16'}: limit "
-                f"{limit:g}; clean readings {clean}, with a planted fault "
-                f"{faulty}")
-            if not max(clean) <= limit:
-                failures.append(f"{key}: {max(clean)} > {limit}")
-            if not min(faulty) > limit:
-                failures.append(f"{key}: a planted fault reads "
-                                f"{min(faulty)} <= {limit}")
-    check(not failures, "; ".join(failures))
+        errors.update(check_limits(
+            AGREE_TOL_F32 if f32 else AGREE_TOL,
+            [r for r in readings if r[1].startswith("float32") == f32],
+            f"(g) {'float32' if f32 else 'bf16'}"))
     log(f"(g) peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f}"
         f" GB")
     torch.cuda.empty_cache()
     return launches, errors
+
+
+# ------------------------------------------------------ (k) moe and ssm
+# qwen3-moe-235b-a22b at full width, cut in depth to MOE_LAYERS of its 94
+# layers: the deepest cut that leaves FREE_GB of the card free at the
+# phase's peak (one layer is 4.97 GB of bf16 weights, 2.42 B of them in
+# its 128 experts; embed and unembed 2.49 GB)
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 13
+MAMBA_ARCH = "mamba2-370m"
+FREE_GB = 8.0
+# the capacity factor at which no token drops: E/k = 128/8, so a group's
+# capacity is its size.  Capacity is per dispatch group (B*S tokens in a
+# forward pass, B in a decode step), so at the config's 1.25 the two modes
+# rightly differ; decode against forward is read at this factor
+MOE_NO_DROP = 16.0
+# the moe family's kernel-vs-plain check reads one sequence of this many
+# tokens, not AGREE_S: a bfloat16 rounding that reorders an expert at the
+# top-k edge moves a token's output by a whole expert's share, and over
+# 1024 tokens such flips read as much as the planted 64-key fault (at 14
+# layers, 0.215 clean against 0.159 faulty on an H100); over 256 the fault
+# drops a quarter of the last row's keys, not a sixteenth
+MOE_AGREE_S = 256
+# mamba2's agreement run: a prompt of 480 and 32 generated tokens make 512,
+# two SSD chunks of 256, so the forward side crosses a chunk boundary
+MAMBA_AGREE_PROMPT = 480
+# qwen3-moe's float32 agreement run, cut further to fit (9.95 GB a layer)
+MOE_F32_LAYERS = 4
+# limits of phase (k)'s agreement checks, each set between the clean
+# readings at two bfloat16 weight seeds and the smallest planted fault's
+# (PERF.md, section 6).  On an H100 the moe family read 0.17 and 0.37
+# (decode vs prefill), 0.50 and 0.51 (decode vs forward), 0.063 and 0.098
+# (kernel vs plain attention, over MOE_AGREE_S tokens), against faults of
+# at least 1.85, 1.68 and 0.63; the ssm family read 0.64 and 0.73, 1.24
+# and 1.48, 0.28 and 0.48 against at least 6.0, 7.8 and 5.5.  Routing is
+# discontinuous (see MOE_AGREE_S), so the moe readings have a heavier tail
+# than phase (g)'s; a random-weight mamba2 magnifies a bfloat16 rounding
+# over its 48 layers (its float32 readings are 100 times the moe
+# model's).  Each limit is about twice the larger clean reading
+AGREE_TOL_K = {
+    "moe": {"decode_vs_prefill": 0.75, "decode_vs_forward": 1.0,
+            "kernel_vs_plain_attention": 0.2},
+    "ssm": {"decode_vs_prefill": 1.5, "decode_vs_forward": 3.0,
+            "kernel_vs_plain_norm": 1.0},
+}
+# the same checks in float32, where only the order of sums differs: the
+# moe family at MOE_F32_LAYERS read 8.6e-06, 1.04e-05 and 6.7e-06 on an
+# H100 (phase (g)'s 1e-3 holds), mamba2 at its 48 layers 4.7e-04, 1.1e-03
+# and 3.7e-04, so 1e-2 there; every planted fault read 1.09 or more
+AGREE_TOL_K_F32 = {
+    "moe": {"decode_vs_prefill": 1e-3, "decode_vs_forward": 1e-3,
+            "kernel_vs_plain_attention": 1e-3},
+    "ssm": {"decode_vs_prefill": 1e-2, "decode_vs_forward": 1e-2,
+            "kernel_vs_plain_norm": 1e-2},
+}
+
+
+def family_faults(kind: str):
+    """name → (module, attribute, faulty stand-in) planted into the side
+    of a comparison that runs ``forward_train``: for the moe family the
+    attention faults of phase (g) and the expert map shifted by one expert
+    (expert e's products end with e - 1's down projection); for the ssm
+    family the SSD's decay rates dropped (``A_log`` read as A, a slip that
+    keeps every state forever), and the causal conv's taps reversed.  (The
+    state carried between chunks is no use as a fault here: with the
+    initial ``A_log`` of 0 a state decays by about exp(-0.7) a token, so
+    nothing of it is left after a 256-token chunk.)"""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import mamba2, moe
+    if kind == "moe":
+        real_moe = moe.moe_mlp
+
+        def experts_shifted(p, x, cfg, grouped=False):
+            return real_moe(dict(p, w_down=p["w_down"].roll(1, 0)), x, cfg,
+                            grouped)
+        out = {name: (fa_ops, "attention", fn)
+               for name, fn in planted_faults().items()}
+        out["expert map shifted by one expert"] = (moe, "moe_mlp",
+                                                   experts_shifted)
+        return out
+    real_ssd, real_conv = mamba2.ssd_chunked, mamba2._causal_conv
+
+    def no_decay(xh, dt, A, Bm, Cm, chunk, compute_dtype=torch.float32):
+        return real_ssd(xh, dt, torch.zeros_like(A), Bm, Cm, chunk,
+                        compute_dtype)
+
+    def taps_reversed(x, w):
+        return real_conv(x, w.flip(0))
+    return {"decay rates dropped (A = 0)": (mamba2, "ssd_chunked", no_decay),
+            "conv taps reversed": (mamba2, "_causal_conv", taps_reversed)}
+
+
+def family_readings(kind: str, model, params, one, run: str,
+                    faults: bool = False):
+    """Phase (k)'s three logits comparisons for one set of weights →
+    [(check, run, fault or None, max abs err)], each printed.  moe: the
+    serve loop at the no-drop capacity factor against the prefill step and
+    ``forward_train``, and the flash kernel against ``attn_impl="ref"``;
+    ssm: the serve loop over 512 tokens against the prefill step and
+    ``forward_train`` over them, and the RMSNorm kernel against its plain
+    version."""
+    from functools import partial
+    from unittest import mock
+    import numpy as np
+    import torch
+    from repro_torch.kernels.rmsnorm import kernel as rn
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models import layers
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.step import make_prefill_step
+
+    cfg, dev = model.cfg, one.device
+    rng = np.random.default_rng(5)
+    with torch.inference_mode():
+        if kind == "moe":
+            nd = build_model(dataclasses.replace(
+                cfg, capacity_factor=MOE_NO_DROP))
+            prompt = rng.integers(0, cfg.vocab, (SERVE_B, SERVE_PROMPT))
+            res = serve_loop(nd, params, prompt, SERVE_GEN)
+            p = torch.from_numpy(prompt).to(dev)
+            full = torch.cat([p, res.tokens], dim=1)
+            n = SERVE_PROMPT
+            plain = build_model(cfg, attn_impl="ref")
+            checks = {
+                "decode_vs_prefill": (
+                    f"decode vs make_prefill_step at position {n - 1}, "
+                    f"capacity factor {MOE_NO_DROP:g}", res.logits[n - 1],
+                    lambda: make_prefill_step(nd)(params, {"tokens": p})),
+                "decode_vs_forward": (
+                    f"decode vs forward_train over {full.shape[1]} tokens "
+                    f"at positions {n - 1}..{full.shape[1] - 1}, capacity "
+                    f"factor {MOE_NO_DROP:g}",
+                    res.logits[n - 1:].transpose(0, 1),
+                    lambda: nd.forward_train(params, full)[:, n - 1:]),
+                "kernel_vs_plain_attention": (
+                    f"forward_train(last_only) B=1 S={one.shape[1]}, flash "
+                    f"kernel vs attn_impl='ref'",
+                    model.forward_train(params, one, last_only=True),
+                    lambda: plain.forward_train(params, one,
+                                                last_only=True)),
+            }
+        else:
+            prompt = rng.integers(0, cfg.vocab,
+                                  (SERVE_B, MAMBA_AGREE_PROMPT))
+            res = serve_loop(model, params, prompt, SERVE_GEN)
+            full = torch.cat([torch.from_numpy(prompt).to(dev), res.tokens],
+                             dim=1)
+            s = full.shape[1]
+            plain_norm = partial(rn.rmsnorm, impl="ref")
+
+            def plain_forward():
+                with mock.patch.object(layers, "rmsnorm", plain_norm):
+                    return model.forward_train(params, one, last_only=True)
+            checks = {
+                "decode_vs_prefill": (
+                    f"decode vs make_prefill_step over {s} tokens at "
+                    f"position {s - 1}", res.logits[s - 1],
+                    lambda: make_prefill_step(model)(params,
+                                                     {"tokens": full})),
+                "decode_vs_forward": (
+                    f"decode vs forward_train over {s} tokens at every "
+                    f"position", res.logits[:s].transpose(0, 1),
+                    lambda: model.forward_train(params, full)),
+                "kernel_vs_plain_norm": (
+                    f"forward_train(last_only) B=1 S={one.shape[1]}, "
+                    f"RMSNorm kernel vs its plain version",
+                    model.forward_train(params, one, last_only=True),
+                    plain_forward),
+            }
+        return read_checks(checks, family_faults(kind) if faults else {},
+                           run, f"(k) {cfg.arch_id} {run}")
+
+
+def check_limits(table, readings, what: str):
+    """Each limit must pass every clean reading and fail every planted
+    fault → {check (run): clean error}."""
+    failures, errors = [], {}
+    for key, limit in table.items():
+        clean = [e for k, _, f, e in readings if k == key and f is None]
+        faulty = [e for k, _, f, e in readings if k == key and f]
+        errors.update({f"{key} ({run})": e for k, run, f, e in readings
+                       if k == key and f is None})
+        log(f"{what} {key}: limit {limit:g}; clean readings {clean}, with a "
+            f"planted fault {faulty}")
+        if not max(clean) <= limit:
+            failures.append(f"{key}: {max(clean)} > {limit}")
+        if not faulty:
+            failures.append(f"{key}: no planted fault was read")
+        elif not min(faulty) > limit:
+            failures.append(f"{key}: a planted fault reads {min(faulty)} <= "
+                            f"{limit}")
+    check(not failures, "; ".join(failures))
+    return errors
+
+
+def decode_syncs(serve_step, params, cache, tok, pos: int) -> str:
+    """Run one decode step with torch's sync debug mode at "error" → ""
+    when no operation synchronised with the host, else the error."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        serve_step(params, cache, tok, pos)
+        return ""
+    except RuntimeError as e:
+        return str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+def phase_family(kind: str, card: str):
+    """(k) one family at full width on the card: a prefill step and the
+    serve loop (the main path, launches counted), times, a profile, the
+    peak memory and the agreement checks at two weight seeds."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+
+    dev = torch.device(DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if kind == "moe":
+        full_cfg = get_arch(MOE_ARCH)
+        cfg = dataclasses.replace(full_cfg, n_layers=MOE_LAYERS)
+        cut = (f"{MOE_LAYERS} of its {full_cfg.n_layers} layers, every "
+               f"width as published")
+    else:
+        cfg = get_arch(MAMBA_ARCH)
+        cut = "whole: every layer and width"
+    check(cfg.family == kind and cfg.dtype == torch.bfloat16,
+          f"{cfg.arch_id} config changed")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def leaves(node):
+        for val in node.values():
+            yield from leaves(val) if isinstance(val, dict) else (val,)
+    n_params = sum(t.numel() for t in leaves(params))
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    log(f"(k) {cfg.arch_id}, {cut}: d {cfg.d_model}, vocab "
+        f"{cfg.vocab_padded}, "
+        + (f"heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}, {cfg.n_experts} "
+           f"experts of d_ff {cfg.moe_d_ff}, top {cfg.top_k}, capacity "
+           f"factor {cfg.capacity_factor:g}" if kind == "moe" else
+           f"d_inner {cfg.ssm_expand * cfg.d_model}, state {cfg.ssm_state}, "
+           f"head dim {cfg.ssm_head_dim}, chunk {cfg.ssm_chunk}")
+        + f": {n_params / 1e9:.3f} B parameters, {w_bytes / 1e9:.2f} GB, "
+        f"drawn in {init_s:.1f} s")
+
+    rng = np.random.default_rng(0)
+    b, s = PREFILL_B, PREFILL_S
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (b, s)).astype(np.int64)).to(dev)
+    prompt = rng.integers(0, cfg.vocab, (SERVE_B, SERVE_PROMPT)
+                          ).astype(np.int64)
+    prefill_step = make_prefill_step(model)
+
+    # ---- the main path: counts set to 0 just before, read just after
+    reset_counts()
+    logits = prefill_step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    per_prefill = counts()
+    res = serve_loop(model, params, prompt, SERVE_GEN)
+    launches = counts()
+    # ----
+    n_steps = SERVE_PROMPT + SERVE_GEN
+    serve_counts = {k: launches[k] - per_prefill[k] for k in LAUNCHER}
+    log(f"(k) {cfg.arch_id} launches in one prefill step: {per_prefill}; in "
+        f"the serve loop ({n_steps} decode steps): {serve_counts}")
+    n_attn = cfg.n_layers if kind == "moe" else 0
+    n_norm = (4 * cfg.n_layers + 1) if kind == "moe" else \
+        (2 * cfg.n_layers + 1)
+    check(per_prefill["flash_attention_by_route"]
+          == {"wgmma": n_attn, "simt": 0}
+          and per_prefill["flash_attention"] == n_attn,
+          f"{cfg.arch_id} prefill's flash-attention launches "
+          f"{per_prefill['flash_attention_by_route']}, not {n_attn} on the "
+          f"tensor-core route")
+    check(per_prefill["rmsnorm"] == n_norm,
+          f"{cfg.arch_id} prefill launched RMSNorm {per_prefill['rmsnorm']} "
+          f"times, not {n_norm}")
+    check(serve_counts["rmsnorm"] == n_norm * n_steps
+          and serve_counts["flash_attention"] == 0,
+          f"{cfg.arch_id} serve loop launches {serve_counts}")
+    check(tuple(logits.shape) == (b, cfg.vocab_padded)
+          and logits.dtype == torch.bfloat16
+          and bool(torch.isfinite(logits).all()),
+          f"{cfg.arch_id} prefill logits {tuple(logits.shape)} "
+          f"{logits.dtype}")
+    check(tuple(res.logits.shape) == (n_steps, SERVE_B, cfg.vocab_padded)
+          and bool(torch.isfinite(res.logits).all())
+          and tuple(res.tokens.shape) == (SERVE_B, SERVE_GEN)
+          and int(res.tokens.min()) >= 0
+          and int(res.tokens.max()) < cfg.vocab_padded,
+          f"{cfg.arch_id} serve loop gave bad logits or tokens")
+
+    pre_ms, pre_lo, pre_hi = cuda_ms(
+        lambda: prefill_step(params, {"tokens": tokens}), reps=3, warm=1)
+    decode_ms = res.decode_s / SERVE_GEN * 1e3
+    embed_bytes = params["lm"]["embed"].numel() * 2
+    log(f"(k) {cfg.arch_id} prefill step B={b} S={s}: {pre_ms:.1f} ms median "
+        f"of 3 ({pre_lo:.1f}-{pre_hi:.1f}), {b * s / pre_ms * 1e3:.0f} "
+        f"tokens/s; {card}")
+    log(f"(k) {cfg.arch_id} serve B={SERVE_B} prompt {SERVE_PROMPT} gen "
+        f"{SERVE_GEN} greedy: token-recurrent prefill "
+        f"{res.prefill_s * 1e3:.1f} ms ({res.prefill_s / SERVE_PROMPT * 1e3:.2f}"
+        f" ms/step); decode {decode_ms:.2f} ms/step, "
+        f"{SERVE_B * SERVE_GEN / res.decode_s:.1f} tokens/s; reading every "
+        f"weight but the embedding once takes "
+        f"{(w_bytes - embed_bytes) / MEM_BYTES_PER_S * 1e3:.2f} ms; {card}")
+
+    serve_step = make_serve_step(model)
+    cache = model.init_cache(SERVE_B, n_steps, device=dev)
+    step_tok = torch.from_numpy(prompt[:, :1]).to(dev)
+    synced = decode_syncs(serve_step, params, cache, step_tok, 0)
+    log(f"(k) {cfg.arch_id} one decode step under torch's sync debug mode: "
+        + (f"a host sync: {synced}" if synced else "no host sync"))
+    check(not synced, f"{cfg.arch_id} decode synchronised with the host")
+    windows = (
+        ("prefill step", 1, lambda i: prefill_step(params,
+                                                   {"tokens": tokens})),
+        ("decode step", 3, lambda i: serve_step(params, cache, step_tok,
+                                                i + 1)))
+    breakdown = {}
+    for name, n, fn in windows:
+        wall, busy, n_kernels, top = profile_window(
+            fn, n, OUT / f"{kind}_{name.replace(' ', '_')}_trace.json")
+        if busy is None:
+            log(f"(k) {cfg.arch_id} {name}: the profiler's trace holds no "
+                f"kernel; device time not measured")
+            continue
+        breakdown[name] = dict(host_ms=wall / n, busy_ms=busy / n,
+                               idle=1 - busy / wall)
+        log(f"(k) {cfg.arch_id} {name}, profiled: host {wall / n:.1f} ms, "
+            f"device busy {busy / n:.1f} ms per step, idle share "
+            f"{1 - busy / wall:.2f}, {n_kernels / n:.0f} kernels per step; "
+            f"largest kernels per step: " + "; ".join(
+                f"{k} {ms / n:.2f} ms" for k, ms in top))
+    del cache
+
+    # ---- agreement at two bfloat16 weight seeds and in float32, planted
+    # faults at the first and in float32; every reading is printed before
+    # any is checked
+    one = tokens[:1, :MOE_AGREE_S if kind == "moe" else AGREE_S]
+    readings = family_readings(kind, model, params, one, "bf16 seed 0",
+                               faults=True)
+    del params, res, logits
+    torch.cuda.empty_cache()
+    p1 = model.init(torch.Generator(device=dev).manual_seed(1))
+    readings += family_readings(kind, model, p1, one, "bf16 seed 1")
+    del p1
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    free_gb = (total - reserved) / 1e9
+    log(f"(k) {cfg.arch_id} peak device memory {peak / 1e9:.2f} GB allocated, "
+        f"{reserved / 1e9:.2f} GB reserved of {total / 1e9:.2f} GB: "
+        f"{free_gb:.2f} GB free at the peak; {card}")
+    check(free_gb >= FREE_GB, f"{cfg.arch_id} leaves {free_gb:.2f} GB free, "
+                              f"under {FREE_GB:g}")
+
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    if kind == "moe":
+        cfg32 = dataclasses.replace(cfg32, n_layers=MOE_F32_LAYERS)
+    m32 = build_model(cfg32)
+    p32 = m32.init(torch.Generator(device=dev).manual_seed(2))
+    readings += family_readings(kind, m32, p32, one, "float32 seed 2",
+                                faults=True)
+    del p32
+    errors = {}
+    for f32 in (False, True):
+        errors.update(check_limits(
+            (AGREE_TOL_K_F32 if f32 else AGREE_TOL_K)[kind],
+            [r for r in readings if r[1].startswith("float32") == f32],
+            f"(k) {cfg.arch_id} {'float32' if f32 else 'bf16'}"))
+    torch.cuda.empty_cache()
+    return launches, dict(
+        prefill_ms=pre_ms, prefill_tokens_per_s=b * s / pre_ms * 1e3,
+        decode_ms=decode_ms, peak_gb=peak / 1e9, free_gb=free_gb,
+        host_sync=synced or None, profile=breakdown,
+        agreement_max_abs_err=errors)
 
 
 def main() -> int:
@@ -2388,6 +2855,18 @@ def main() -> int:
     for name in ("rmsnorm", "flash_attention"):
         check(model_launches[name] > 0,
               f"the serving path never launched {name}")
+    moe_launches, moe = phase_family("moe", card)
+    ssm_launches, ssm = phase_family("ssm", card)
+    by_path = {name: {"(g) qwen3-14b": model_launches[name],
+                      f"(k) {MOE_ARCH} ({MOE_LAYERS} layers)":
+                          moe_launches[name],
+                      f"(k) {MAMBA_ARCH}": ssm_launches[name]}
+               for name in ("rmsnorm", "flash_attention")}
+    fa_by_route = {route: model_launches["flash_attention_by_route"][route]
+                   + moe_launches["flash_attention_by_route"][route]
+                   + ssm_launches["flash_attention_by_route"][route]
+                   for route in model_launches["flash_attention_by_route"]}
+    log("(k) readings " + json.dumps({MOE_ARCH: moe, MAMBA_ARCH: ssm}))
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
@@ -2420,7 +2899,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:17",
-        "launches": model_launches["rmsnorm"],
+        "launches": sum(by_path["rmsnorm"].values()),
+        "launches_by_path": by_path["rmsnorm"],
         "match": "within 1e-4 (float32) and 3e-2 (bfloat16) of the plain "
                  "version",
         "max_abs_err": rms_errs[torch.bfloat16],
@@ -2434,14 +2914,16 @@ def main() -> int:
         "shares_of_bound": rms["shares"],
         "per": "one qwen3-14b prefill step at B=4, S=4096: 161 calls, "
                "each timed with the L2 evicted",
+        "per_prefill_step_of": rms["per_prefill_step_of"],
     }, {
         "name": "flash_attention",
         "route": "cuda (wgmma + TMA)",
         "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
         "source_simt": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:25",
-        "launches": model_launches["flash_attention"],
-        "launches_by_route": model_launches["flash_attention_by_route"],
+        "launches": sum(by_path["flash_attention"].values()),
+        "launches_by_path": by_path["flash_attention"],
+        "launches_by_route": fa_by_route,
         "match": "bfloat16 (tensor-core route) within 1e-4 + 2^-7 |plain| + "
                  "2^-7 plain(|v|) of the plain version; float32 (SIMT "
                  "route) within 2e-3",
@@ -2459,6 +2941,7 @@ def main() -> int:
         "library_ms": fa["library_ms"],
         "per": "one call at q (4, 40, 4096, 128) bfloat16 causal; 40 calls "
                "per prefill step",
+        "at_qwen3_moe_prefill_shape": fa["moe_shape"],
         "model_agreement_max_abs_err": agree_errs,
     }]}))
     log(json.dumps({"ok": True, "device": {

@@ -9,12 +9,13 @@ Every assigned architecture is an ``ArchConfig``; families:
   audio   — whisper encoder-decoder (conv frontend stubbed)
   vlm     — internvl (ViT frontend stubbed; backbone = dense)
 
-The port builds the dense and vlm families; the others wait for their
-slices (``ROADMAP.md``).  Parameters are nested dictionaries of tensors in
-the JAX package's layout: per-layer tensors stacked along a leading layer
-axis, weights ``(in, out)`` as in ``x @ W``, so
+The port builds the dense, vlm, moe and ssm families; hybrid and audio
+wait for their slice (``ROADMAP.md``).  Parameters are nested dictionaries
+of tensors in the JAX package's layout: per-layer tensors stacked along a
+leading layer axis, weights ``(in, out)`` as in ``x @ W``, so
 :func:`params_from_numpy` carries the JAX package's parameters across as a
-plain copy.
+plain copy.  Every floating leaf is in the config's dtype except those
+named in :data:`FLOAT32_LEAVES`, which stay float32 whatever it is.
 """
 
 from __future__ import annotations
@@ -124,24 +125,34 @@ class ArchConfig:
 
 def dense_init(gen: torch.Generator, shape: Sequence[int],
                dtype: torch.dtype = torch.bfloat16, device=None,
-               n_stack: int = 0) -> torch.Tensor:
-    """Normal(0, 1) · shape[0]^-0.5, drawn in float32 from ``gen``
-    (which must live on ``device``) and cast to ``dtype``.
+               n_stack: int = 0, scale_axis: int = 0) -> torch.Tensor:
+    """Normal(0, 1) · shape[scale_axis]^-0.5, drawn in float32 from
+    ``gen`` (which must live on ``device``) and cast to ``dtype``.
 
     ``n_stack`` > 0 stacks that many independent draws along a new leading
-    layer axis, drawn one layer at a time so the float32 draw never holds
-    more than one layer."""
-    scale = shape[0] ** -0.5
+    layer axis, drawn one layer at a time and scaled in place, so the
+    float32 draw never holds more than one layer once (at qwen3-moe's
+    experts, 3.2 GB a layer, a second float32 copy set a card's peak)."""
+    scale = shape[scale_axis] ** -0.5
+
+    def draw():
+        return torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                           device=device).mul_(scale)
     if not n_stack:
-        return (torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                            device=device) * scale).to(dtype)
+        return draw().to(dtype)
     out = torch.empty((n_stack, *shape), dtype=dtype, device=device)
     for i in range(n_stack):
-        out[i] = dense_init(gen, shape, dtype, device)
+        out[i].copy_(draw())
     return out
 
 
 # ------------------------------------------------------- weight carry-over
+
+# leaves the JAX package keeps in float32 whatever the model's dtype: the
+# MoE router (repro/models/moe.py) and Mamba2's decay, skip and step bias
+# (repro/models/mamba2.py)
+FLOAT32_LEAVES = frozenset({"router", "A_log", "D", "dt_bias"})
+
 
 def array_to_tensor(a: np.ndarray, device=None) -> torch.Tensor:
     """A numpy array as a tensor on ``device``, bit for bit.  A JAX
@@ -163,13 +174,20 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
     same nested dictionaries with every leaf a tensor on ``device``.
 
     A plain copy: layouts agree (see the module docstring).  Every floating
-    leaf must already be ``cfg.dtype``; a mismatch raises rather than
-    rounding silently."""
-    def conv(node, path):
+    leaf must already be ``cfg.dtype``, or float32 where its name is in
+    :data:`FLOAT32_LEAVES`; a mismatch raises rather than rounding
+    silently."""
+    def conv(node, path, name):
         if isinstance(node, dict):
-            return {k: conv(v, f"{path}/{k}") for k, v in node.items()}
+            return {k: conv(v, f"{path}/{k}", k) for k, v in node.items()}
         t = array_to_tensor(np.asarray(node), device)
-        if t.is_floating_point() and t.dtype != cfg.dtype:
+        if not t.is_floating_point():
+            return t
+        if name in FLOAT32_LEAVES:
+            if t.dtype != torch.float32:
+                raise ValueError(f"{path}: {t.dtype}, must be float32 "
+                                 f"whatever the config's dtype")
+        elif t.dtype != cfg.dtype:
             raise ValueError(f"{path}: {t.dtype}, config says {cfg.dtype}")
         return t
-    return conv(tree, "")
+    return conv(tree, "", "")

@@ -106,12 +106,16 @@ class DenseLM:
         cfg = self.cfg
         x = params["lm"]["embed"][tokens]                  # (B, 1, d)
         for i in range(cfg.n_layers):
-            lp = layer_params(params["layers"], i)
-            h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-            a, _, _ = L.attention_decode(lp["attn"], h, cache["k"][i],
-                                         cache["v"][i], cur_pos, cfg)
-            x = x + a
-            h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-            x = x + L.mlp(lp["mlp"], h, cfg)
+            x = self._layer_decode(x, layer_params(params["layers"], i),
+                                   cache["k"][i], cache["v"][i], cur_pos)
         x = L.rmsnorm(x, params["lm"]["final_norm"], cfg.norm_eps)
         return x @ params["lm"]["unembed"], cache
+
+    def _layer_decode(self, x, lp, cache_k, cache_v, cur_pos: int):
+        cfg = self.cfg
+        h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        a, _, _ = L.attention_decode(lp["attn"], h, cache_k, cache_v,
+                                     cur_pos, cfg)
+        x = x + a
+        h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+        return x + L.mlp(lp["mlp"], h, cfg)

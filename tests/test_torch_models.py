@@ -188,8 +188,7 @@ def test_carry_over_takes_a_jax_bfloat16_array_exactly():
         params_from_numpy({"w": np.zeros(3, np.float32)}, cfg)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "mamba2-370m",
-                                  "zamba2-7b", "whisper-large-v3"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-large-v3"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="model-families slice"):
         build_model(configs.get_arch(arch))

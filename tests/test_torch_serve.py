@@ -81,6 +81,30 @@ def test_serve_loop_matches_the_jax_loop(models):
     assert np.array_equal(greedy.tokens.numpy(), want_tokens)
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-235b-a22b",
+                                  "mamba2-370m"])
+def test_serve_loop_matches_the_jax_loop_for_moe_and_ssm(arch):
+    """The same loop for the moe family (decode dispatches the batch as one
+    group at the config's capacity factor, so tokens may drop, in both
+    packages alike) and the ssm family (a conv window and a state in the
+    cache, no KV)."""
+    r_cfg = dataclasses.replace(
+        r_configs.reduced_config(r_configs.get_arch(arch)), dtype=jnp.float32)
+    cfg = dataclasses.replace(configs.reduced_config(configs.get_arch(arch)),
+                              dtype=torch.float32)
+    r_model = r_build_model(r_cfg, remat_policy="none")
+    r_params = jax.jit(r_model.init)(jax.random.PRNGKey(1))
+    model = build_model(cfg)
+    params = params_from_numpy(jax.tree.map(np.asarray, r_params), cfg, "cpu")
+    prompt = np.random.default_rng(1).integers(0, 256, (3, 5), np.int32)
+    want_tokens, want_logits = _jax_loop(r_model, r_params, prompt, 4)
+    res = serve.serve_loop(model, params, prompt, 4)
+    assert res.logits.shape == want_logits.shape == (9, 3, 256)
+    np.testing.assert_allclose(res.logits.numpy(), want_logits, rtol=TOL,
+                               atol=TOL)
+    assert np.array_equal(res.tokens.numpy(), want_tokens)
+
+
 def test_sampling_is_seeded_and_in_range(models):
     _, _, model, params = models
     prompt = np.zeros((2, 3), np.int32)
