@@ -39,8 +39,8 @@ tensor-core kernel and the float32 SIMT kernel).  Phases:
       1e-4 + 2^-7 |plain| + 2^-7 plain(|v|), float32 on the SIMT route
       within 2e-3; GQA groups 1, 4, 5, 6, 8 and 16, causal and not,
       windows 32, 64, 128 and 256, Sq < Skv, Sq > Skv, ragged lengths,
-      head dims 64 and 128; then at the prefill shape q (4, 40, 4096, 128)
-      through the path's heads views, and timed there in turns with the
+      head dims 64, 112 and 128; then at the prefill shape q (4, 40,
+      4096, 128) through the path's heads views, and timed there in turns with the
       SIMT kernel and ``scaled_dot_product_attention`` against the
       operations bound, and at phase (k)'s q (4, 64, 4096, 128) with k/v
       of 4 heads, timed in turns with ``scaled_dot_product_attention``;
@@ -120,17 +120,44 @@ tensor-core kernel and the float32 SIMT kernel).  Phases:
       held against planted faults (attention and the expert map for the
       moe family, the SSD decay and the conv taps for the ssm family).
       Phase (e) adds those models' RMSNorm rows (1024, 2048, 4096 and the
-      64- and 4-head views) and phase (f) GQA groups 6 and 16 at D 128.
+      64- and 4-head views) and phase (f) GQA groups 6 and 16 at D 128;
+  (l) the hybrid and audio families, after (k) and in its manner, whole:
+      zamba2-7b (81 Mamba2 layers, d 3584, d_inner 7168, 112 SSM heads of
+      64, state 64, chunk 256, and one shared attention block, 32/32
+      heads of 112, after every sixth layer: 14 sites, each with its own
+      KV cache) and whisper-large-v3 (32 encoder and 32 decoder layers, d
+      1280, 20 heads of 64, vocab 51,866); ``make_prefill_step`` on 4 x
+      4096 tokens (zamba2) and on 4 x 1500 float32 frames with 448
+      decoder tokens (whisper), the serve loop (4 x (128 + 32); whisper's
+      decoder against its zero cross-attention KV, as in the JAX package,
+      with flash attention launched for the cross-attention of every
+      decode step), launches per kernel and route, times, a decode step
+      under torch's sync debug mode, profiles, the peak memory, and three
+      logits checks at two bfloat16 weight seeds and in float32 (zamba2
+      cut to ``ZAMBA_F32_LAYERS`` there): zamba2 over 256 tokens, decode
+      against the prefill step and ``forward_train`` and the flash kernel
+      against ``attn_impl="ref"``, with faults planted (the shared block
+      after the wrong layers, the last keys dropped, and in the decode
+      side each site reading the neighbouring site's KV); whisper with
+      the cross-attention KV filled from the encoder's memory by harness
+      code (``cross_kv_filled``), with a causal encoder and, in the decode
+      side, layer l's cross-KV from layer l + 1's projections.  Phase (e)
+      adds their RMSNorm rows (3584, 7168, 1280) and phase (f) head dim
+      112 in bfloat16 (the tensor-core kernel on its 128-column tile) and
+      float32 (SIMT), whisper's non-causal Sq != Skv shapes, and times the
+      kernel at zamba2's prefill shape q (4, 32, 4096, 112) and at
+      whisper's four shapes in turns with ``scaled_dot_product_attention``.
 
 Exits non-zero, printing no result, without a card or when any check
 fails.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists each ported kernel with its launches on the main paths
-(phases (c), (h), (i) and (j) for the executor, phases (g) and (k) for
-RMSNorm and flash attention).
+(phases (c), (h), (i) and (j) for the executor, phases (g), (k) and (l)
+for RMSNorm and flash attention).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -203,7 +230,22 @@ FA_CASES = (
     (2, 64, 4, 1000, 1000, 128, True, None),     # group 16 (qwen3-moe)
     (1, 48, 8, 1024, 1024, 128, True, 256),      # group 6 (mixtral), window
     (1, 48, 8, 300, 300, 128, False, None),      # group 6, not causal
+    (2, 32, 32, 1000, 1000, 112, True, None),    # D 112 (zamba2), ragged
+    (1, 32, 32, 300, 700, 112, False, None),     # D 112, not causal, Sq < Skv
+    (1, 32, 32, 200, 130, 112, True, None),      # D 112, Sq > Skv
+    (4, 20, 20, 1500, 1500, 64, False, None),    # whisper's encoder
+    (4, 20, 20, 448, 448, 64, True, None),       # whisper's decoder
+    (4, 20, 20, 448, 1500, 64, False, None),     # whisper's cross-attention
+    (4, 20, 20, 1, 1500, 64, False, None),       # ... in a decode step
 )
+# phase (f) times the kernel at these shapes of phase (l)'s whisper-large-v3
+# in turns with scaled_dot_product_attention: (b, hq, sq, skv, d, causal)
+FA_WHISPER = {
+    "encoder self-attention": (4, 20, 1500, 1500, 64, False),
+    "decoder self-attention": (4, 20, 448, 448, 64, True),
+    "cross-attention": (4, 20, 448, 1500, 64, False),
+    "cross-attention in a decode step": (4, 20, 1, 1500, 64, False),
+}
 # bfloat16 on the tensor-core route against the plain version (phase (f)),
 # |kernel - plain| <= 1e-4 + 2^-7 |plain| + 2^-7 plain(|v|), where plain(|v|)
 # is the plain attention of |v|.  Both sum in float32 and round the output
@@ -471,8 +513,9 @@ def phase_setup():
     from repro_torch.kernels.flash_attention import kernel as fa
     smem = fa.LIBRARY_WGMMA.get().flash_attention_wgmma_smem_bytes
     log(f"    flash_attention (wgmma): dynamic shared memory per block "
-        f"{smem(64)} bytes at D 64, {smem(128)} at D 128 (ptxas counts it "
-        f"nowhere: it is set at launch)")
+        f"{smem(64)} bytes at D 64, {smem(112)} at D 112 (the D 128 tile), "
+        f"{smem(128)} at D 128 (ptxas counts it nowhere: it is set at "
+        f"launch)")
     return card
 
 
@@ -1865,6 +1908,25 @@ def phase_rmsnorm():
          randn(gen, (b * s, ssm.ssm_expand * ssm.d_model), bf),
          ssm.n_layers, "ssm"),
     ]
+    # phase (l)'s shapes: zamba2's layer norms and the shared block's
+    # ln1/ln2 at its 14 sites, its gated norms; whisper's encoder norms over
+    # 1500 frames and its decoder's over 448 tokens
+    zam, wh = get_arch(ZAMBA_ARCH), get_arch(WHISPER_ARCH)
+    sites = -(-zam.n_layers // zam.attn_every)
+    family_cases += [
+        (f"{zam.arch_id} ln, shared ln1/ln2 (B*S, {zam.d_model})",
+         randn(gen, (b * s, zam.d_model), bf), zam.n_layers + 2 * sites,
+         "hybrid"),
+        (f"{zam.arch_id} gated norm (B*S, {zam.ssm_expand * zam.d_model})",
+         randn(gen, (b * s, zam.ssm_expand * zam.d_model), bf),
+         zam.n_layers, "hybrid"),
+        (f"{wh.arch_id} encoder ln1/ln2 (B*{WHISPER_FRAMES}, {wh.d_model})",
+         randn(gen, (b * WHISPER_FRAMES, wh.d_model), bf),
+         2 * wh.enc_layers, "audio"),
+        (f"{wh.arch_id} decoder ln1/ln2/ln3 (B*{WHISPER_TOKENS}, "
+         f"{wh.d_model})", randn(gen, (b * WHISPER_TOKENS, wh.d_model), bf),
+         3 * wh.n_layers, "audio"),
+    ]
     other_cases = [
         ("decode ln (4, 1, 5120)", randn(gen, (4, 1, d), bf)),
         ("decode q_norm view (4, 40, 1, 128)",
@@ -1885,7 +1947,7 @@ def phase_rmsnorm():
         return dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                     byte_ms=0.0, op_ms=0.0)
     totals = zeros()
-    by_model = {"moe": zeros(), "ssm": zeros()}
+    by_model = {kind: zeros() for kind in ("moe", "ssm", "hybrid", "audio")}
     shares = {}
     scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     evict_l2 = hide_host(evict=scratch)
@@ -1930,7 +1992,11 @@ def phase_rmsnorm():
                       f"({4 * MOE_LAYERS} calls; the final norm untimed)",
                       by_model["moe"]),
                      (f"{ssm.arch_id} ({2 * ssm.n_layers} calls; the final "
-                      f"norm untimed)", by_model["ssm"])):
+                      f"norm untimed)", by_model["ssm"]),
+                     (f"{zam.arch_id} ({2 * zam.n_layers + 2 * sites} calls;"
+                      f" the final norm untimed)", by_model["hybrid"]),
+                     (f"{wh.arch_id} ({2 * wh.enc_layers + 3 * wh.n_layers} "
+                      f"calls; the final norm untimed)", by_model["audio"])):
         log(f"(e) per prefill step of {label}: kernel {t['ms']:.3f} ms, "
             f"plain {t['plain_ms']:.3f} ms, torch rms_norm "
             f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
@@ -2023,14 +2089,15 @@ def phase_flash_attention():
                  f"{FA_TOL_F32:g} + {FA_TOL_F32:g} |plain|")
         log(f"(f) {len(FA_CASES)} cases in {str(dt)[6:]} on the "
             f"{routes.pop()} route (GQA groups 1/4/5/6/8/16, causal and not, "
-            f"windows 32/64/128/256, Sq < Skv, Sq > Skv, ragged, D 64/128): max "
-            f"abs err {errs[dt]:.3g}, largest share of the limit {limit} "
+            f"windows 32/64/128/256, Sq < Skv, Sq > Skv, ragged, D "
+            f"64/112/128, whisper's non-causal shapes): max abs err "
+            f"{errs[dt]:.3g}, largest share of the limit {limit} "
             f"{shares[dt]:.3g}")
 
     b, s = PREFILL_B, PREFILL_S
     hq, hkv, d = QWEN["hq"], QWEN["hkv"], QWEN["hd"]
 
-    def heads(h, dt):
+    def heads(h, dt, d=d):
         """The path's heads view (B, H, S, D) of a (B, S, H*D) projection."""
         return randn(gen, (b, s, h * d), dt).view(b, s, h, d).transpose(1, 2)
     # float32 then bfloat16, at the prefill shape, through the heads views
@@ -2129,12 +2196,100 @@ def phase_flash_attention():
         f"({ml_ms:.4f} ms, turns {moe_times['sdpa']}); bound {m_bound:.4f} "
         f"ms (operations)")
     del q, k, v, got
+
+    # phase (l)'s zamba2-7b prefill shape, head dim 112 on the padded tile:
+    # held against the plain version on one sequence, then timed in turns
+    # with SDPA and beside the plain version
+    zam = get_arch(ZAMBA_ARCH)
+    hq, hkv, dz = zam.n_heads, zam.n_kv_heads, zam.hd
+    q, k, v = (heads(h, torch.bfloat16, dz) for h in (hq, hkv, hkv))
+    before = by_route["wgmma"]
+    got = kernel.flash_attention(q, k, v)
+    check(by_route["wgmma"] == before + 1,
+          "zamba2's prefill shape did not take the tensor-core route")
+    want = ref.attention(q[:1], k[:1], v[:1])
+    z_share = limit_share(got[:1], want, fa_bf16_limit(q[:1], k[:1], v[:1],
+                                                       want))
+    check(z_share <= 1.0, f"flash attention != plain at q ({b},{hq},{s},"
+                          f"{dz}): share of the limit {z_share}")
+    del want
+    # yardsticks in the same turns: the same call on contiguous
+    # (B, H, S, 112) copies, and D 128 at zamba2's heads (the padded tile's
+    # work with every column real)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    q8, k8, v8 = (heads(h, torch.bfloat16, 128) for h in (hq, hkv, hkv))
+    z_runs = {
+        "wgmma": lambda: kernel.flash_attention(q, k, v),
+        "wgmma_contiguous": lambda: kernel.flash_attention(qc, kc, vc),
+        "wgmma_d128": lambda: kernel.flash_attention(q8, k8, v8),
+        "sdpa": lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True),
+    }
+    z_times = {name: [] for name in z_runs}
+    for turn in range(2):
+        for name, fn in z_runs.items():
+            z_times[name].append(cuda_ms(fn, reps=FA_REPS)[0])
+    zk_ms, zc_ms, z8_ms, zl_ms = (statistics.mean(z_times[n])
+                                  for n in z_runs)
+    del qc, kc, vc, q8, k8, v8
+
+    def z_plain():
+        for i in range(b):
+            ref.attention(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+    zp_ms = cuda_ms(z_plain, reps=3, warm=1)[0]
+    z_bytes, z_ops = attention_bound_ms(b, hq, s, s, dz, True, None, 2, hkv)
+    z_bound = max(z_bytes, z_ops)
+    log(f"(f) {zam.arch_id}'s prefill shape q ({b},{hq},{s},{dz}) bf16 "
+        f"causal, D {dz} on the 128-column tile: largest share of the limit "
+        f"on sequence 0 {z_share:.3g}; tensor-core kernel {zk_ms:.4f} ms "
+        f"(turns {z_times['wgmma']}), share of the bound "
+        f"{z_bound / zk_ms:.3f}, {zk_ms / zl_ms:.3f} x SDPA ({zl_ms:.4f} ms, "
+        f"turns {z_times['sdpa']}); on contiguous (B, H, S, {dz}) copies "
+        f"{zc_ms:.4f} ms; at D 128 with the same heads {z8_ms:.4f} ms "
+        f"(D {dz} / D 128 {zk_ms / z8_ms:.3f}); plain {zp_ms:.3f} ms ({b} "
+        f"calls at B=1); bound {z_bound:.4f} ms (operations at the true D "
+        f"{dz}; bytes {z_bytes:.4f} ms)")
+    del q, k, v, got
+
+    # phase (l)'s whisper-large-v3 shapes, in turns with SDPA
+    whisper = {}
+    for name, (wb, wh, sq, skv, wd, causal) in FA_WHISPER.items():
+        q = randn(gen, (wb, wh, sq, wd), torch.bfloat16)
+        k, v = (randn(gen, (wb, wh, skv, wd), torch.bfloat16) for _ in "kv")
+        w_times = {"wgmma": [], "sdpa": []}
+        for turn in range(2):
+            w_times["wgmma"].append(cuda_ms(lambda: kernel.flash_attention(
+                q, k, v, causal=causal), reps=FA_REPS)[0])
+            w_times["sdpa"].append(cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal), reps=FA_REPS)[0])
+        wk_ms, wl_ms = (statistics.mean(w_times[n])
+                        for n in ("wgmma", "sdpa"))
+        w_bytes, w_ops = attention_bound_ms(wb, wh, sq, skv, wd, causal,
+                                            None, 2, wh)
+        whisper[name] = dict(
+            shape=f"q ({wb},{wh},{sq},{wd}), k/v ({wb},{wh},{skv},{wd})"
+                  + (" causal" if causal else ""),
+            ms=wk_ms, library_ms=wl_ms, bound_ms=max(w_bytes, w_ops),
+            bound_by="operations" if w_ops >= w_bytes else "bytes")
+        log(f"(f) {WHISPER_ARCH}'s {name}, {whisper[name]['shape']} bf16: "
+            f"tensor-core kernel {wk_ms:.4f} ms (turns {w_times['wgmma']}), "
+            f"{wk_ms / wl_ms:.3f} x SDPA ({wl_ms:.4f} ms, turns "
+            f"{w_times['sdpa']}); bound {max(w_bytes, w_ops):.4f} ms "
+            f"({whisper[name]['bound_by']}), share "
+            f"{max(w_bytes, w_ops) / wk_ms:.3f}")
+        del q, k, v
     return dict(ms=k_ms, simt_ms=simt_ms, plain_ms=p_ms, library_ms=l_ms,
                 bound_ms=b_ms, ratio_to_library=k_ms / l_ms,
                 bound_by="operations" if op_ms >= byte_ms else "bytes",
                 ms_turns=times, moe_shape=dict(
                     ms=mk_ms, library_ms=ml_ms, bound_ms=m_bound,
-                    share_of_limit=share)), errs, shares
+                    share_of_limit=share), zamba2_shape=dict(
+                    ms=zk_ms, library_ms=zl_ms, plain_ms=zp_ms,
+                    bound_ms=z_bound, share_of_limit=z_share,
+                    ms_contiguous=zc_ms, ms_d128_same_heads=z8_ms,
+                    ms_turns=z_times),
+                whisper_shapes=whisper), errs, shares
 
 
 def profile_window(fn, n: int, trace_path: Path):
@@ -2272,16 +2427,21 @@ def read_checks(checks, faults, run: str, prefix: str):
             else:
                 with mock.patch.object(*patch):
                     want = want_fn()
-            g, w = got.float(), want.float()
-            err = float((g - w).abs().max())
-            top1 = float((g.argmax(-1) == w.argmax(-1)).float().mean())
-            log(f"{prefix}: {label}" + (f", fault '{fault}'" if fault else "")
-                + f": max abs err {err:.4g}, logit scale (max |ref|) "
-                f"{float(w.abs().max()):.3g}, same top-1 token at "
-                f"{top1:.3f} of positions")
-            out.append((key, run, fault, err))
-            del want, g, w
+            out.append(reading(key, label, got, want, run, prefix, fault))
+            del want
     return out
+
+
+def reading(key, label, got, want, run: str, prefix: str, fault=None):
+    """One logits comparison, printed → (key, run, fault, max abs err)."""
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    top1 = float((g.argmax(-1) == w.argmax(-1)).float().mean())
+    log(f"{prefix}: {label}" + (f", fault '{fault}'" if fault else "")
+        + f": max abs err {err:.4g}, logit scale (max |ref|) "
+        f"{float(w.abs().max()):.3g}, same top-1 token at "
+        f"{top1:.3f} of positions")
+    return key, run, fault, err
 
 
 def phase_model():
@@ -2488,6 +2648,48 @@ AGREE_TOL_K_F32 = {
             "kernel_vs_plain_norm": 1e-2},
 }
 
+# ----------------------------------------------- (l) hybrid and audio
+# zamba2-7b and whisper-large-v3 whole, in phase (k)'s manner
+ZAMBA_ARCH, WHISPER_ARCH = "zamba2-7b", "whisper-large-v3"
+# whisper's prefill: the encoder's 30-second window of 1500 frames (the
+# reference's enc_len) and the decoder's published text context of 448
+WHISPER_FRAMES, WHISPER_TOKENS = 1500, 448
+# zamba2's agreement run: a prompt of 224 and 32 generated tokens make 256,
+# one SSD chunk (the forward side needs S a multiple of 256)
+ZAMBA_AGREE_PROMPT = 224
+# zamba2's float32 agreement model: full width, 12 of its 81 layers, so two
+# attention sites (after layers 0 and 6)
+ZAMBA_F32_LAYERS = 12
+# zamba2's kernel-vs-plain check reads one sequence of this many tokens: at
+# 1024 the planted 64-key fault read 2.73 against clean readings of 1.66
+# and 1.02 on an H100; over 256 it drops a quarter of the last row's keys
+ZAMBA_AGREE_S = 256
+# limits of phase (l)'s agreement checks, each between the clean readings
+# at two bfloat16 weight seeds and the smallest planted fault's (PERF.md,
+# section 6).  On an H100 zamba2 read 1.41 and 1.54 (decode vs prefill),
+# 2.14 and 1.97 (decode vs forward), 1.53 and 1.37 (kernel vs plain
+# attention over ZAMBA_AGREE_S tokens) against faults of at least 4.84,
+# 5.47 and 4.53; whisper 0.70 and 0.91, 1.04 and 1.07, and 1.95 and 2.10
+# (kernel vs plain attention over 448 tokens and 1500 frames) against at
+# least 6.44, 7.94 and 5.59.  These random-weight stacks are deep (81 Mamba2 layers;
+# 32 + 32 layers over 1500 random frames) and magnify a bfloat16 rounding
+# as mamba2 does: their float32 readings, 1e-4 to 5e-4, are 10 to 30
+# times qwen3-14b's.  Each limit sits near the geometric mean of the
+# larger clean reading and the smallest fault's
+AGREE_TOL_K["hybrid"] = {"decode_vs_prefill": 2.75, "decode_vs_forward": 3.5,
+                         "kernel_vs_plain_attention": 2.5}
+AGREE_TOL_K["audio"] = {"decode_vs_prefill": 2.0, "decode_vs_forward": 2.5,
+                        "kernel_vs_plain_attention": 3.5}
+# in float32 zamba2 at 12 layers read 1.8e-04, 3.3e-04 and 6.5e-05 and
+# whisper 1.2e-04, 1.7e-04 and 4.5e-04 on an H100, against faults of 0.29
+# and more
+AGREE_TOL_K_F32["hybrid"] = {"decode_vs_prefill": 1e-2,
+                             "decode_vs_forward": 1e-2,
+                             "kernel_vs_plain_attention": 1e-2}
+AGREE_TOL_K_F32["audio"] = {"decode_vs_prefill": 1e-2,
+                            "decode_vs_forward": 1e-2,
+                            "kernel_vs_plain_attention": 1e-2}
+
 
 def family_faults(kind: str):
     """name → (module, attribute, faulty stand-in) planted into the side
@@ -2498,10 +2700,30 @@ def family_faults(kind: str):
     keeps every state forever), and the causal conv's taps reversed.  (The
     state carried between chunks is no use as a fault here: with the
     initial ``A_log`` of 0 a state decays by about exp(-0.7) a token, so
-    nothing of it is left after a 256-token chunk.)"""
+    nothing of it is left after a 256-token chunk.)  For the hybrid family
+    the shared block run after the wrong layers (``i % attn_every == 1``)
+    and the last keys dropped from its attention; for the audio family a
+    causal encoder."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.models import mamba2, moe
+    from repro_torch.models import layers, mamba2, moe, zamba2
+    if kind == "hybrid":
+        def wrong_sites(self, i):
+            every = self.cfg.attn_every
+            return i // every if i % every == 1 else None
+        dropped = f"last {FAULT_KEYS} keys dropped"
+        return {"shared block after the wrong layers (i % attn_every == 1)":
+                (zamba2.HybridLM, "attn_site", wrong_sites),
+                dropped: (fa_ops, "attention", planted_faults()[dropped])}
+    if kind == "audio":
+        real_attention = layers.attention
+
+        def causal_encoder(p, x, cfg, *, pos, causal=True, attn_impl=None,
+                           memory=None):
+            return real_attention(p, x, cfg, pos=pos,
+                                  causal=causal or memory is None,
+                                  attn_impl=attn_impl, memory=memory)
+        return {"causal encoder": (layers, "attention", causal_encoder)}
     if kind == "moe":
         real_moe = moe.moe_mlp
 
@@ -2525,6 +2747,53 @@ def family_faults(kind: str):
             "conv taps reversed": (mamba2, "_causal_conv", taps_reversed)}
 
 
+def decode_faults(kind: str, model, params, frames):
+    """name → a context in which the serve loop runs with a fault planted in
+    the decode side: for the hybrid family each site but the first reading
+    and writing the KV of the site before it; for the audio family the
+    cross-attention KV of decoder layer l computed with layer l + 1's
+    projections."""
+    from unittest import mock
+    from repro_torch.models import zamba2
+    if kind == "hybrid":
+        def neighbour_kv(self, i):
+            every = self.cfg.attn_every
+            return max(i // every - 1, 0) if i % every == 0 else None
+        return {"decode reads the neighbouring site's KV":
+                lambda: mock.patch.object(zamba2.HybridLM, "attn_site",
+                                          neighbour_kv)}
+    return {"cross-KV of layer l from layer l + 1":
+            lambda: cross_kv_filled(model, params, frames, shift=1)}
+
+
+def cross_kv_filled(model, params, frames, shift: int = 0):
+    """A context in which ``model.init_cache`` (whisper's) fills the
+    cross-attention KV from the encoder's memory of ``frames``, through each
+    decoder layer's own ``xattn.wk``/``wv``: the keys and values
+    ``layers.attention(memory=)`` computes.  Harness code, not a model
+    feature: the model's cache starts as zeros, as in the JAX package.
+    ``shift`` 1 plants a fault: layer l takes layer l + 1's projections."""
+    from unittest import mock
+    import torch
+    from repro_torch.models.transformer import layer_params
+    cfg = model.cfg
+    real = model.init_cache
+    with torch.inference_mode():
+        memory = model.encode(params, frames)
+    b, e, _ = memory.shape
+
+    def init_cache(batch, seq, dtype=None, device=None):
+        cache = real(batch, seq, dtype, enc_len=e, device=device)
+        for i in range(cfg.n_layers):
+            xp = layer_params(params["dec"],
+                              (i + shift) % cfg.n_layers)["xattn"]
+            for name, w in (("xk", xp["wk"]), ("xv", xp["wv"])):
+                cache[name][i] = (memory @ w).view(
+                    b, e, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
+        return cache
+    return mock.patch.object(model, "init_cache", init_cache)
+
+
 def family_readings(kind: str, model, params, one, run: str,
                     faults: bool = False):
     """Phase (k)'s three logits comparisons for one set of weights →
@@ -2533,7 +2802,15 @@ def family_readings(kind: str, model, params, one, run: str,
     ``forward_train``, and the flash kernel against ``attn_impl="ref"``;
     ssm: the serve loop over 512 tokens against the prefill step and
     ``forward_train`` over them, and the RMSNorm kernel against its plain
-    version."""
+    version; hybrid: the serve loop over 256 tokens against the prefill
+    step and ``forward_train`` over them, and the flash kernel against
+    ``attn_impl="ref"``; audio: the serve loop with the cross-attention KV
+    filled from the encoder (``cross_kv_filled``) against the prefill step
+    and ``forward_train`` on the same frames, and the flash kernel against
+    ``attn_impl="ref"``.  ``one`` is the batch (``tokens``, and
+    ``input_embeds`` for audio) of the kernel check.  With ``faults`` the
+    decode side of the first two checks is also read again under each of
+    :func:`decode_faults`, fed the clean run's tokens."""
     from functools import partial
     from unittest import mock
     import numpy as np
@@ -2544,8 +2821,13 @@ def family_readings(kind: str, model, params, one, run: str,
     from repro_torch.models.registry import build_model
     from repro_torch.train.step import make_prefill_step
 
-    cfg, dev = model.cfg, one.device
+    cfg, dev = model.cfg, one["tokens"].device
     rng = np.random.default_rng(5)
+
+    def kernel_forward(m):
+        return m.forward_train(params, one["tokens"], one.get("input_embeds"),
+                               last_only=True)
+    decode_runs, prefix = {}, f"(k) {cfg.arch_id} {run}"
     with torch.inference_mode():
         if kind == "moe":
             nd = build_model(dataclasses.replace(
@@ -2568,13 +2850,11 @@ def family_readings(kind: str, model, params, one, run: str,
                     res.logits[n - 1:].transpose(0, 1),
                     lambda: nd.forward_train(params, full)[:, n - 1:]),
                 "kernel_vs_plain_attention": (
-                    f"forward_train(last_only) B=1 S={one.shape[1]}, flash "
-                    f"kernel vs attn_impl='ref'",
-                    model.forward_train(params, one, last_only=True),
-                    lambda: plain.forward_train(params, one,
-                                                last_only=True)),
+                    f"forward_train(last_only) B=1 S={one['tokens'].shape[1]},"
+                    f" flash kernel vs attn_impl='ref'",
+                    kernel_forward(model), lambda: kernel_forward(plain)),
             }
-        else:
+        elif kind == "ssm":
             prompt = rng.integers(0, cfg.vocab,
                                   (SERVE_B, MAMBA_AGREE_PROMPT))
             res = serve_loop(model, params, prompt, SERVE_GEN)
@@ -2585,7 +2865,7 @@ def family_readings(kind: str, model, params, one, run: str,
 
             def plain_forward():
                 with mock.patch.object(layers, "rmsnorm", plain_norm):
-                    return model.forward_train(params, one, last_only=True)
+                    return kernel_forward(model)
             checks = {
                 "decode_vs_prefill": (
                     f"decode vs make_prefill_step over {s} tokens at "
@@ -2597,13 +2877,73 @@ def family_readings(kind: str, model, params, one, run: str,
                     f"position", res.logits[:s].transpose(0, 1),
                     lambda: model.forward_train(params, full)),
                 "kernel_vs_plain_norm": (
-                    f"forward_train(last_only) B=1 S={one.shape[1]}, "
-                    f"RMSNorm kernel vs its plain version",
-                    model.forward_train(params, one, last_only=True),
-                    plain_forward),
+                    f"forward_train(last_only) B=1 S={one['tokens'].shape[1]},"
+                    f" RMSNorm kernel vs its plain version",
+                    kernel_forward(model), plain_forward),
             }
-        return read_checks(checks, family_faults(kind) if faults else {},
-                           run, f"(k) {cfg.arch_id} {run}")
+        else:
+            prefix = f"(l) {cfg.arch_id} {run}"
+            plain = build_model(cfg, attn_impl="ref")
+            n = ZAMBA_AGREE_PROMPT if kind == "hybrid" else SERVE_PROMPT
+            prompt = rng.integers(0, cfg.vocab, (SERVE_B, n))
+            p = torch.from_numpy(prompt).to(dev)
+            if kind == "hybrid":
+                def decoded(ctx=None, pick=None):
+                    with ctx or contextlib.nullcontext():
+                        return serve_loop(model, params, prompt, SERVE_GEN,
+                                          **({"pick": pick} if pick else {}))
+                extra, at = {}, n + SERVE_GEN - 1
+            else:
+                frames = torch.from_numpy(rng.standard_normal(
+                    (SERVE_B, WHISPER_FRAMES, cfg.d_model)).astype(
+                        np.float32)).to(dev)
+
+                def decoded(ctx=None, pick=None):
+                    with ctx or cross_kv_filled(model, params, frames):
+                        return serve_loop(model, params, prompt, SERVE_GEN,
+                                          **({"pick": pick} if pick else {}))
+                extra, at = {"input_embeds": frames}, n - 1
+            res = decoded()
+            full = torch.cat([p, res.tokens], dim=1)
+            s = full.shape[1]
+            # the decode side as a function of a serve loop's result, and
+            # the side it is held against
+            sides = {
+                "decode_vs_prefill": (
+                    f"decode vs make_prefill_step over {at + 1} tokens at "
+                    f"position {at}", lambda r: r.logits[at],
+                    lambda: make_prefill_step(model)(
+                        params, {"tokens": full[:, :at + 1], **extra})),
+                "decode_vs_forward": (
+                    f"decode vs forward_train over {s} tokens at positions "
+                    f"{n - 1}..{s - 1}",
+                    lambda r: r.logits[n - 1:s].transpose(0, 1),
+                    lambda: model.forward_train(params, full,
+                                                extra.get("input_embeds")
+                                                )[:, n - 1:]),
+            }
+            checks = {key: (label, got(res), want)
+                      for key, (label, got, want) in sides.items()}
+            checks["kernel_vs_plain_attention"] = (
+                f"forward_train(last_only) B=1 S={one['tokens'].shape[1]}"
+                + (f" with {one['input_embeds'].shape[1]} frames"
+                   if "input_embeds" in one else "")
+                + ", flash kernel vs attn_impl='ref'",
+                kernel_forward(model), lambda: kernel_forward(plain))
+            if faults:
+                forced = res.tokens
+                for fault, ctx in decode_faults(
+                        kind, model, params,
+                        extra.get("input_embeds")).items():
+                    decode_runs[fault] = (decoded(
+                        ctx(), pick=lambda logits, i: forced[:, i]), sides)
+        out = read_checks(checks, family_faults(kind) if faults else {},
+                          run, prefix)
+        for fault, (r, sides) in decode_runs.items():
+            for key, (label, got, want) in sides.items():
+                out.append(reading(key, label, got(r), want(), run, prefix,
+                                   fault))
+        return out
 
 
 def check_limits(table, readings, what: str):
@@ -2644,28 +2984,69 @@ def decode_syncs(serve_step, params, cache, tok, pos: int) -> str:
         torch.cuda.synchronize()
 
 
+def family_config(kind: str):
+    """→ (config, how it was cut) of the model phase (k) or (l) runs for
+    ``kind``."""
+    from repro_torch.configs.registry import get_arch
+    if kind == "moe":
+        full = get_arch(MOE_ARCH)
+        return (dataclasses.replace(full, n_layers=MOE_LAYERS),
+                f"{MOE_LAYERS} of its {full.n_layers} layers, every width as "
+                f"published")
+    arch = {"ssm": MAMBA_ARCH, "hybrid": ZAMBA_ARCH,
+            "audio": WHISPER_ARCH}[kind]
+    return get_arch(arch), "whole: every layer and width"
+
+
+def family_launches(kind: str, cfg):
+    """→ (flash-attention launches of a prefill step, of a decode step,
+    RMSNorm launches of a prefill step, of a decode step)."""
+    n = cfg.n_layers
+    if kind == "moe":
+        return n, 0, 4 * n + 1, 4 * n + 1
+    if kind == "ssm":
+        return 0, 0, 2 * n + 1, 2 * n + 1
+    if kind == "hybrid":
+        # Mamba's layer norm and gated norm, and ln1/ln2 at every site
+        sites = -(-n // cfg.attn_every)
+        return sites, 0, 2 * n + 2 * sites + 1, 2 * n + 2 * sites + 1
+    # audio: the encoder's self-attention, the decoder's self- and
+    # cross-attention; a decode step's cross-attention is the kernel
+    e = cfg.enc_layers
+    return e + 2 * n, n, 2 * e + 3 * n + 1, 3 * n + 1
+
+
+def family_shape(kind: str, cfg) -> str:
+    if kind == "moe":
+        return (f"heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}, "
+                f"{cfg.n_experts} experts of d_ff {cfg.moe_d_ff}, top "
+                f"{cfg.top_k}, capacity factor {cfg.capacity_factor:g}")
+    ssm = (f"d_inner {cfg.ssm_expand * cfg.d_model}, state {cfg.ssm_state}, "
+           f"head dim {cfg.ssm_head_dim}, chunk {cfg.ssm_chunk}")
+    if kind == "ssm":
+        return ssm
+    attn = f"heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}, d_ff {cfg.d_ff}"
+    if kind == "hybrid":
+        return (f"{cfg.n_layers} layers, {ssm}, a shared block ({attn}) "
+                f"after layer i when i % {cfg.attn_every} == 0")
+    return f"{cfg.enc_layers} + {cfg.n_layers} layers, {attn}"
+
+
 def phase_family(kind: str, card: str):
-    """(k) one family at full width on the card: a prefill step and the
-    serve loop (the main path, launches counted), times, a profile, the
+    """(k) and (l) one family at full width on the card: a prefill step and
+    the serve loop (the main path, launches counted), times, a profile, the
     peak memory and the agreement checks at two weight seeds."""
     import numpy as np
     import torch
-    from repro_torch.configs.registry import get_arch
     from repro_torch.launch.serve import serve_loop
     from repro_torch.models.registry import build_model
     from repro_torch.train.step import make_prefill_step, make_serve_step
 
     dev = torch.device(DEVICE)
+    phase = "(k)" if kind in ("moe", "ssm") else "(l)"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    if kind == "moe":
-        full_cfg = get_arch(MOE_ARCH)
-        cfg = dataclasses.replace(full_cfg, n_layers=MOE_LAYERS)
-        cut = (f"{MOE_LAYERS} of its {full_cfg.n_layers} layers, every "
-               f"width as published")
-    else:
-        cfg = get_arch(MAMBA_ARCH)
-        cut = "whole: every layer and width"
+    cfg, cut = family_config(kind)
     check(cfg.family == kind and cfg.dtype == torch.bfloat16,
           f"{cfg.arch_id} config changed")
     model = build_model(cfg)
@@ -2677,29 +3058,31 @@ def phase_family(kind: str, card: str):
     def leaves(node):
         for val in node.values():
             yield from leaves(val) if isinstance(val, dict) else (val,)
+
+    def n_bytes(tree):
+        return sum(t.numel() * t.element_size() for t in leaves(tree))
     n_params = sum(t.numel() for t in leaves(params))
-    w_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
-    log(f"(k) {cfg.arch_id}, {cut}: d {cfg.d_model}, vocab "
-        f"{cfg.vocab_padded}, "
-        + (f"heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}, {cfg.n_experts} "
-           f"experts of d_ff {cfg.moe_d_ff}, top {cfg.top_k}, capacity "
-           f"factor {cfg.capacity_factor:g}" if kind == "moe" else
-           f"d_inner {cfg.ssm_expand * cfg.d_model}, state {cfg.ssm_state}, "
-           f"head dim {cfg.ssm_head_dim}, chunk {cfg.ssm_chunk}")
-        + f": {n_params / 1e9:.3f} B parameters, {w_bytes / 1e9:.2f} GB, "
-        f"drawn in {init_s:.1f} s")
+    w_bytes = n_bytes(params)
+    tag = f"{phase} {cfg.arch_id}"
+    log(f"{tag}, {cut}: d {cfg.d_model}, vocab {cfg.vocab_padded}, "
+        f"{family_shape(kind, cfg)}: {n_params / 1e9:.3f} B parameters, "
+        f"{w_bytes / 1e9:.2f} GB, drawn in {init_s:.1f} s")
 
     rng = np.random.default_rng(0)
-    b, s = PREFILL_B, PREFILL_S
+    b, s = PREFILL_B, WHISPER_TOKENS if kind == "audio" else PREFILL_S
     tokens = torch.from_numpy(
         rng.integers(0, cfg.vocab, (b, s)).astype(np.int64)).to(dev)
+    batch = {"tokens": tokens}
+    if kind == "audio":
+        batch["input_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, WHISPER_FRAMES, cfg.d_model)).astype(np.float32)).to(dev)
     prompt = rng.integers(0, cfg.vocab, (SERVE_B, SERVE_PROMPT)
                           ).astype(np.int64)
     prefill_step = make_prefill_step(model)
 
     # ---- the main path: counts set to 0 just before, read just after
     reset_counts()
-    logits = prefill_step(params, {"tokens": tokens})
+    logits = prefill_step(params, batch)
     torch.cuda.synchronize()
     per_prefill = counts()
     res = serve_loop(model, params, prompt, SERVE_GEN)
@@ -2707,11 +3090,13 @@ def phase_family(kind: str, card: str):
     # ----
     n_steps = SERVE_PROMPT + SERVE_GEN
     serve_counts = {k: launches[k] - per_prefill[k] for k in LAUNCHER}
-    log(f"(k) {cfg.arch_id} launches in one prefill step: {per_prefill}; in "
-        f"the serve loop ({n_steps} decode steps): {serve_counts}")
-    n_attn = cfg.n_layers if kind == "moe" else 0
-    n_norm = (4 * cfg.n_layers + 1) if kind == "moe" else \
-        (2 * cfg.n_layers + 1)
+    serve_routes = {r: launches["flash_attention_by_route"][r]
+                    - per_prefill["flash_attention_by_route"][r]
+                    for r in per_prefill["flash_attention_by_route"]}
+    log(f"{tag} launches in one prefill step: {per_prefill}; in the serve "
+        f"loop ({n_steps} decode steps): {serve_counts}, flash attention by "
+        f"route {serve_routes}")
+    n_attn, n_attn_decode, n_norm, n_norm_decode = family_launches(kind, cfg)
     check(per_prefill["flash_attention_by_route"]
           == {"wgmma": n_attn, "simt": 0}
           and per_prefill["flash_attention"] == n_attn,
@@ -2721,9 +3106,11 @@ def phase_family(kind: str, card: str):
     check(per_prefill["rmsnorm"] == n_norm,
           f"{cfg.arch_id} prefill launched RMSNorm {per_prefill['rmsnorm']} "
           f"times, not {n_norm}")
-    check(serve_counts["rmsnorm"] == n_norm * n_steps
-          and serve_counts["flash_attention"] == 0,
-          f"{cfg.arch_id} serve loop launches {serve_counts}")
+    check(serve_counts["rmsnorm"] == n_norm_decode * n_steps
+          and serve_counts["flash_attention"] == n_attn_decode * n_steps
+          and serve_routes["simt"] == 0,
+          f"{cfg.arch_id} serve loop launches {serve_counts}, by route "
+          f"{serve_routes}")
     check(tuple(logits.shape) == (b, cfg.vocab_padded)
           and logits.dtype == torch.bfloat16
           and bool(torch.isfinite(logits).all()),
@@ -2736,31 +3123,39 @@ def phase_family(kind: str, card: str):
           and int(res.tokens.max()) < cfg.vocab_padded,
           f"{cfg.arch_id} serve loop gave bad logits or tokens")
 
-    pre_ms, pre_lo, pre_hi = cuda_ms(
-        lambda: prefill_step(params, {"tokens": tokens}), reps=3, warm=1)
+    pre_ms, pre_lo, pre_hi = cuda_ms(lambda: prefill_step(params, batch),
+                                     reps=3, warm=1)
     decode_ms = res.decode_s / SERVE_GEN * 1e3
-    embed_bytes = params["lm"]["embed"].numel() * 2
-    log(f"(k) {cfg.arch_id} prefill step B={b} S={s}: {pre_ms:.1f} ms median "
+    # a decode step reads every weight but the embedding table (and, for
+    # the audio family, the encoder's), and its cache
+    step_bytes = w_bytes - params["lm"]["embed"].numel() * 2 \
+        - (n_bytes(params["enc"]) if kind == "audio" else 0)
+    cache_bytes = n_bytes(model.init_cache(SERVE_B, n_steps, device="meta"))
+    read_ms = step_bytes / MEM_BYTES_PER_S * 1e3
+    cache_ms = cache_bytes / MEM_BYTES_PER_S * 1e3
+    frames = (f" and {b * WHISPER_FRAMES} frames" if kind == "audio"
+              else "")
+    log(f"{tag} prefill step B={b} S={s}{frames}: {pre_ms:.1f} ms median "
         f"of 3 ({pre_lo:.1f}-{pre_hi:.1f}), {b * s / pre_ms * 1e3:.0f} "
         f"tokens/s; {card}")
-    log(f"(k) {cfg.arch_id} serve B={SERVE_B} prompt {SERVE_PROMPT} gen "
+    log(f"{tag} serve B={SERVE_B} prompt {SERVE_PROMPT} gen "
         f"{SERVE_GEN} greedy: token-recurrent prefill "
         f"{res.prefill_s * 1e3:.1f} ms ({res.prefill_s / SERVE_PROMPT * 1e3:.2f}"
         f" ms/step); decode {decode_ms:.2f} ms/step, "
         f"{SERVE_B * SERVE_GEN / res.decode_s:.1f} tokens/s; reading every "
-        f"weight but the embedding once takes "
-        f"{(w_bytes - embed_bytes) / MEM_BYTES_PER_S * 1e3:.2f} ms; {card}")
+        f"weight a decode step uses once takes {read_ms:.2f} ms and its "
+        f"cache {cache_ms:.2f} ms (share of the bound "
+        f"{(read_ms + cache_ms) / decode_ms:.3f}); {card}")
 
     serve_step = make_serve_step(model)
     cache = model.init_cache(SERVE_B, n_steps, device=dev)
     step_tok = torch.from_numpy(prompt[:, :1]).to(dev)
     synced = decode_syncs(serve_step, params, cache, step_tok, 0)
-    log(f"(k) {cfg.arch_id} one decode step under torch's sync debug mode: "
+    log(f"{tag} one decode step under torch's sync debug mode: "
         + (f"a host sync: {synced}" if synced else "no host sync"))
     check(not synced, f"{cfg.arch_id} decode synchronised with the host")
     windows = (
-        ("prefill step", 1, lambda i: prefill_step(params,
-                                                   {"tokens": tokens})),
+        ("prefill step", 1, lambda i: prefill_step(params, batch)),
         ("decode step", 3, lambda i: serve_step(params, cache, step_tok,
                                                 i + 1)))
     breakdown = {}
@@ -2768,12 +3163,12 @@ def phase_family(kind: str, card: str):
         wall, busy, n_kernels, top = profile_window(
             fn, n, OUT / f"{kind}_{name.replace(' ', '_')}_trace.json")
         if busy is None:
-            log(f"(k) {cfg.arch_id} {name}: the profiler's trace holds no "
-                f"kernel; device time not measured")
+            log(f"{tag} {name}: the profiler's trace holds no kernel; "
+                f"device time not measured")
             continue
         breakdown[name] = dict(host_ms=wall / n, busy_ms=busy / n,
                                idle=1 - busy / wall)
-        log(f"(k) {cfg.arch_id} {name}, profiled: host {wall / n:.1f} ms, "
+        log(f"{tag} {name}, profiled: host {wall / n:.1f} ms, "
             f"device busy {busy / n:.1f} ms per step, idle share "
             f"{1 - busy / wall:.2f}, {n_kernels / n:.0f} kernels per step; "
             f"largest kernels per step: " + "; ".join(
@@ -2783,7 +3178,10 @@ def phase_family(kind: str, card: str):
     # ---- agreement at two bfloat16 weight seeds and in float32, planted
     # faults at the first and in float32; every reading is printed before
     # any is checked
-    one = tokens[:1, :MOE_AGREE_S if kind == "moe" else AGREE_S]
+    n_one = {"moe": MOE_AGREE_S, "hybrid": ZAMBA_AGREE_S,
+             "audio": WHISPER_TOKENS}.get(kind, AGREE_S)
+    one = {key: val[:1, :n_one] if key == "tokens" else val[:1]
+           for key, val in batch.items()}
     readings = family_readings(kind, model, params, one, "bf16 seed 0",
                                faults=True)
     del params, res, logits
@@ -2796,7 +3194,7 @@ def phase_family(kind: str, card: str):
     peak = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.max_memory_reserved()
     free_gb = (total - reserved) / 1e9
-    log(f"(k) {cfg.arch_id} peak device memory {peak / 1e9:.2f} GB allocated, "
+    log(f"{tag} peak device memory {peak / 1e9:.2f} GB allocated, "
         f"{reserved / 1e9:.2f} GB reserved of {total / 1e9:.2f} GB: "
         f"{free_gb:.2f} GB free at the peak; {card}")
     check(free_gb >= FREE_GB, f"{cfg.arch_id} leaves {free_gb:.2f} GB free, "
@@ -2804,8 +3202,9 @@ def phase_family(kind: str, card: str):
 
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    if kind == "moe":
-        cfg32 = dataclasses.replace(cfg32, n_layers=MOE_F32_LAYERS)
+    f32_layers = {"moe": MOE_F32_LAYERS, "hybrid": ZAMBA_F32_LAYERS}
+    if kind in f32_layers:
+        cfg32 = dataclasses.replace(cfg32, n_layers=f32_layers[kind])
     m32 = build_model(cfg32)
     p32 = m32.init(torch.Generator(device=dev).manual_seed(2))
     readings += family_readings(kind, m32, p32, one, "float32 seed 2",
@@ -2816,13 +3215,13 @@ def phase_family(kind: str, card: str):
         errors.update(check_limits(
             (AGREE_TOL_K_F32 if f32 else AGREE_TOL_K)[kind],
             [r for r in readings if r[1].startswith("float32") == f32],
-            f"(k) {cfg.arch_id} {'float32' if f32 else 'bf16'}"))
+            f"{tag} {'float32' if f32 else 'bf16'}"))
     torch.cuda.empty_cache()
     return launches, dict(
         prefill_ms=pre_ms, prefill_tokens_per_s=b * s / pre_ms * 1e3,
-        decode_ms=decode_ms, peak_gb=peak / 1e9, free_gb=free_gb,
-        host_sync=synced or None, profile=breakdown,
-        agreement_max_abs_err=errors)
+        decode_ms=decode_ms, decode_bound_ms=read_ms + cache_ms,
+        peak_gb=peak / 1e9, free_gb=free_gb, host_sync=synced or None,
+        profile=breakdown, agreement_max_abs_err=errors)
 
 
 def main() -> int:
@@ -2855,18 +3254,19 @@ def main() -> int:
     for name in ("rmsnorm", "flash_attention"):
         check(model_launches[name] > 0,
               f"the serving path never launched {name}")
-    moe_launches, moe = phase_family("moe", card)
-    ssm_launches, ssm = phase_family("ssm", card)
-    by_path = {name: {"(g) qwen3-14b": model_launches[name],
-                      f"(k) {MOE_ARCH} ({MOE_LAYERS} layers)":
-                          moe_launches[name],
-                      f"(k) {MAMBA_ARCH}": ssm_launches[name]}
+    paths = {"(g) qwen3-14b": model_launches}
+    families = {}
+    for kind, label in (("moe", f"(k) {MOE_ARCH} ({MOE_LAYERS} layers)"),
+                        ("ssm", f"(k) {MAMBA_ARCH}"),
+                        ("hybrid", f"(l) {ZAMBA_ARCH}"),
+                        ("audio", f"(l) {WHISPER_ARCH}")):
+        paths[label], families[label] = phase_family(kind, card)
+    by_path = {name: {label: n[name] for label, n in paths.items()}
                for name in ("rmsnorm", "flash_attention")}
-    fa_by_route = {route: model_launches["flash_attention_by_route"][route]
-                   + moe_launches["flash_attention_by_route"][route]
-                   + ssm_launches["flash_attention_by_route"][route]
+    fa_by_route = {route: sum(n["flash_attention_by_route"][route]
+                              for n in paths.values())
                    for route in model_launches["flash_attention_by_route"]}
-    log("(k) readings " + json.dumps({MOE_ARCH: moe, MAMBA_ARCH: ssm}))
+    log("(k) and (l) readings " + json.dumps(families))
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
@@ -2942,6 +3342,8 @@ def main() -> int:
         "per": "one call at q (4, 40, 4096, 128) bfloat16 causal; 40 calls "
                "per prefill step",
         "at_qwen3_moe_prefill_shape": fa["moe_shape"],
+        "at_zamba2_prefill_shape": fa["zamba2_shape"],
+        "at_whisper_shapes": fa["whisper_shapes"],
         "model_agreement_max_abs_err": agree_errs,
     }]}))
     log(json.dumps({"ok": True, "device": {

@@ -24,8 +24,9 @@
 // does them as float32 FMAs outside the tensor cores (67 TFLOP/s at most),
 // as the TPU kernel's float32 dot_general does, so it cannot come near the
 // bfloat16 tensor-core bound (989 TFLOP/s).  The binding therefore sends
-// bfloat16 at D 64 and 128, the main path, to the tensor-core kernel of
-// csrc/flash_attention_wgmma.cu; this one serves float32 and D 16 and 32.
+// bfloat16 at D 64, 112 and 128, the main path, to the tensor-core kernel of
+// csrc/flash_attention_wgmma.cu; this one serves float32 (D 16, 32, 64, 112
+// and 128) and bfloat16 at D 16 and 32.
 //
 // Design.  One block of 256 threads per (batch * query head, 64-row query
 // tile); the heaviest causal tiles launch first.  A loop inside the block over
@@ -34,9 +35,10 @@
 // Shared memory holds, in float32, the scaled query tile transposed
 // (Qt[d][row]), the key tile transposed (Kt[d][key]), the value tile
 // (Vs[key][d]) and the probabilities transposed (Pt[key][row]): 112 KB at
-// D = 128.  Thread (ty, tx) of a 16 x 16 grid owns score rows 4ty..4ty+3 and
-// columns 4tx..4tx+3, and output rows 4ty..4ty+3 and columns
-// tx*D/16..(tx+1)*D/16-1, so a row's running max, denominator and
+// D = 128, 100 KB at D = 112.  Thread (ty, tx) of a 16 x 16 grid owns score
+// rows 4ty..4ty+3 and columns 4tx..4tx+3, and output rows 4ty..4ty+3 and
+// columns tx*D/16..(tx+1)*D/16-1 (7 columns at D = 112, read from Vs one at
+// a time), so a row's running max, denominator and
 // accumulator stay in the registers of the 16 threads that share ty; row
 // reductions are 16-lane shuffles.  Loads are 16 bytes a thread; the ragged
 // ends of Sq and Skv are masked in the kernel (keys past Skv count as absent,
@@ -291,6 +293,8 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* out,
                                   causal, window, scale, stream);
     case 64: return launch<T, 64>(q, k, v, out, b, hq, hkv, sq, skv, st,
                                   causal, window, scale, stream);
+    case 112: return launch<T, 112>(q, k, v, out, b, hq, hkv, sq, skv, st,
+                                    causal, window, scale, stream);
     case 128: return launch<T, 128>(q, k, v, out, b, hq, hkv, sq, skv, st,
                                     causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
@@ -301,7 +305,7 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* out,
 
 // Launches on `stream` and returns cudaGetLastError(); never synchronises
 // and allocates nothing.  dtype 0 is float32, 1 bfloat16 (q, k, v and out
-// all of it); d is 16, 32, 64 or 128.  `strides` holds the element strides
+// all of it); d is 16, 32, 64, 112 or 128.  `strides` holds the element strides
 // of q, k and v over (batch, head, position), in that order, nine in all;
 // the last dimension is contiguous and every row 16-byte aligned.  `out` is
 // (b, hq, sq, d) contiguous.  window <= 0 means no window.

@@ -1,11 +1,11 @@
 // Flash attention for Hopper's tensor cores (sm_90a), bfloat16 at head dims
-// 64 and 128: blockwise online-softmax attention with grouped-query heads, a
+// 64, 112 and 128: blockwise online-softmax attention with grouped-query heads, a
 // causal mask aligned at the sequence ends and an optional sliding window.
 //
 // Replaces the Pallas TPU kernel `_fa_kernel` (src/repro/kernels/
 // flash_attention/kernel.py:25), launched by `flash_attention` (:77), on the
-// port's main path: every bfloat16 call at D 64 or 128.  Float32 and D 16 or
-// 32 stay on the SIMT kernel of csrc/flash_attention.cu.  Plain version:
+// port's main path: every bfloat16 call at D 64, 112 or 128.  Float32 and D
+// 16 or 32 stay on the SIMT kernel of csrc/flash_attention.cu.  Plain version:
 // src/repro_torch/kernels/flash_attention/ref.py.  Binding:
 // src/repro_torch/kernels/flash_attention/kernel.py (ctypes); the route is
 // chosen there, by dtype and head dim only.
@@ -73,6 +73,15 @@
 // warpgroups are not scheduled against each other.  ptxas: 168 registers
 // at launch (the __launch_bounds__ cap for 384 threads, redistributed as
 // 40 / 232 by setmaxnreg), no spills, at D 64 and 128.
+//
+// Head dim 112 (zamba2-7b) runs on the D 128 tile, padded.  The tensor maps
+// keep the true inner extent, 112 columns (224-byte rows), so TMA fills
+// columns 112-127 of the second 64-column box with zeros; the transaction
+// count is the whole box either way.  S = Q K^T stops after 7 k-slices of
+// 16 (the zero columns would add nothing), O += P V runs at N 128, and the
+// epilogue stores 14 of the 16 column groups of 8.  The padding costs 1/8
+// of the P V products and of the shared-memory traffic: at most 112/128 of
+// the D 128 kernel's rate, which is fine for a first kernel at this D.
 
 #include <cuda.h>           // CUtensorMap and its enums; the driver is reached
                             // through cudaGetDriverEntryPoint, not -lcuda
@@ -94,7 +103,13 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // Byte offsets in the block's shared memory, whose base is 1024-aligned (the
 // 128-byte swizzle's atom is 8 rows of 128 bytes).  A tile of R rows is
-// D / 64 boxes of R x 128 bytes, one after the other.
+// D / 64 boxes of R x 128 bytes, one after the other; D is the padded head
+// dim (Padded<112> = 128).
+template <int D>
+struct Padded {
+  static constexpr int value = (D + COLS - 1) / COLS * COLS;
+};
+
 template <int D>
 struct Layout {
   static constexpr int Q_BYTES = BQ * D * 2;
@@ -311,8 +326,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              __nv_bfloat16* __restrict__ out, int hq,
                              int group, int sq, int skv, int causal,
                              int window, float scale_log2) {
-  using L = Layout<D>;
-  constexpr int CH = D / COLS;                  // 64-column boxes in a row
+  constexpr int DP = Padded<D>::value;         // the tile's columns
+  using L = Layout<DP>;
+  constexpr int CH = DP / COLS;                 // 64-column boxes in a row
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -380,11 +396,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int wg_first = q0 + 64 * wg + off;                 // first q_pos
 
   float s_acc[BK / 2];     // S: 64 x BK
-  float o[D / 2];          // O: 64 x D
+  float o[DP / 2];         // O: 64 x DP (columns >= D stay 0)
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) s_acc[i] = 0.0f;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
   float m0 = MASKED, m1 = MASKED;   // running max of rows row0, row0 + 8
   float l0 = 0.0f, l1 = 0.0f;       // this thread's share of the denominator
 
@@ -395,7 +411,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t ks = k_s + s * L::KV_BYTES, vs = v_s + s * L::KV_BYTES;
     mbar_wait(kv_full + 8 * s, (i / NS) & 1);
 
-    // S = Q K^T over D in k-slices of 16
+    // S = Q K^T over the true D in k-slices of 16 (D is a multiple of 16)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
@@ -466,7 +482,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     l0 = l0 * a0 + sum0;
     l1 = l1 * a1 + sum1;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DP / 8; ++j) {
       o[4 * j] *= a0;
       o[4 * j + 1] *= a0;
       o[4 * j + 2] *= a1;
@@ -479,7 +495,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                              p[4 * kk + 3]};
-      wgmma_pv<D>(o, a,
+      wgmma_pv<DP>(o, a,
                   smem_desc(vs + kk * 16 * ROW_BYTES, BK * ROW_BYTES, 1024));
     }
     wgmma_commit();
@@ -494,7 +510,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __nv_bfloat16* out0 = out + ((long long)bh * sq + row0) * D + t2;
   __nv_bfloat16* out1 = out0 + 8 * D;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < D / 8; ++j) {       // padded columns are not stored
     if (row0 < sq)
       *reinterpret_cast<__nv_bfloat162*>(out0 + 8 * j) =
           __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
@@ -540,8 +556,8 @@ int encoder(EncodeTiled* fn) {
 
 // The 4-d map (D, S, H, B) of a (B, H, S, D) bfloat16 view with element
 // strides st[0..2] over (batch, head, position), loaded in boxes of 64
-// columns x `rows` positions under the 128-byte swizzle; rows past S read as
-// zeros.  A dimension of extent 1 gets the stride it would have if
+// columns x `rows` positions under the 128-byte swizzle; rows past S, and
+// columns past d in the last box (d 112), read as zeros.  A dimension of extent 1 gets the stride it would have if
 // contiguous, since TMA wants every stride a nonzero multiple of 16 bytes.
 int make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d,
              int s, int h, int b, const long long* st, int rows) {
@@ -573,7 +589,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
       (err = make_map(encode, &mk, k, D, skv, hkv, b, st + 3, BK)) ||
       (err = make_map(encode, &mv, v, D, skv, hkv, b, st + 6, BK)))
     return err;
-  constexpr int smem = Layout<D>::ALLOC;
+  constexpr int smem = Layout<Padded<D>::value>::ALLOC;
   // per device and cheap, so set on every launch
   const cudaError_t e = cudaFuncSetAttribute(
       flash_attention_wgmma_kernel<D>,
@@ -589,7 +605,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 }  // namespace
 
 // Launches on `stream` and returns 0 or an error code; never synchronises
-// and allocates nothing.  q, k, v and out are bfloat16; d is 64 or 128.
+// and allocates nothing.  q, k, v and out are bfloat16; d is 64, 112 or
+// 128.
 // `strides` holds the element strides of q, k and v over (batch, head,
 // position), in that order, nine in all; the last dimension is contiguous,
 // every base address 16-byte aligned and every stride of an extent above 1
@@ -605,6 +622,9 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
   if (d == 64)
     return launch<64>(q, k, v, out, b, hq, hkv, sq, skv, strides, causal,
                       window, scale, stream);
+  if (d == 112)
+    return launch<112>(q, k, v, out, b, hq, hkv, sq, skv, strides, causal,
+                       window, scale, stream);
   if (d == 128)
     return launch<128>(q, k, v, out, b, hq, hkv, sq, skv, strides, causal,
                        window, scale, stream);
@@ -613,7 +633,8 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
 
 // Dynamic shared memory a block of the kernel for head dim d asks for.
 extern "C" int flash_attention_wgmma_smem_bytes(int d) {
-  return d == 64 ? Layout<64>::ALLOC : d == 128 ? Layout<128>::ALLOC : 0;
+  return d == 64 ? Layout<64>::ALLOC
+                 : (d == 112 || d == 128) ? Layout<128>::ALLOC : 0;
 }
 
 // Text of an error code, for the wrapper's exception.

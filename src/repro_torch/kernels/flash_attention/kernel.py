@@ -5,8 +5,9 @@ package (``repro/kernels/flash_attention/kernel.py``) with two hand-written
 kernels, one function between them:
 
 - ``csrc/flash_attention_wgmma.cu``, the tensor-core route: bfloat16 at head
-  dims 64 and 128 (every model on the port's main path), with TMA loads, a
-  ring of K/V stages and ``wgmma`` products;
+  dims 64, 112 and 128 (every model on the port's main path; 112 runs on the
+  128-column tile with TMA's zero-filled columns), with TMA loads, a ring of
+  K/V stages and ``wgmma`` products;
 - ``csrc/flash_attention.cu``, the SIMT route: float32 FMAs, for float32 and
   for head dims 16 and 32.
 
@@ -58,15 +59,15 @@ LIBRARIES = {"simt": LIBRARY, "wgmma": LIBRARY_WGMMA}
 
 # dtype codes of the SIMT kernel's C interface; head dims each route takes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
-WGMMA_HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
+WGMMA_HEAD_DIMS = (64, 112, 128)
 WGMMA_BLOCK_ROWS = 128            # query rows per block of the wgmma kernel
 _MAX_GRID_Y = 65535
 
 
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel a CUDA call of this dtype and head dim takes: "wgmma"
-    (bfloat16 at D 64 or 128) or "simt" (float32, or D 16 or 32)."""
+    (bfloat16 at D 64, 112 or 128) or "simt" (float32, or D 16 or 32)."""
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if dtype not in DTYPES:

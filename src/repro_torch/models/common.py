@@ -9,8 +9,7 @@ Every assigned architecture is an ``ArchConfig``; families:
   audio   — whisper encoder-decoder (conv frontend stubbed)
   vlm     — internvl (ViT frontend stubbed; backbone = dense)
 
-The port builds the dense, vlm, moe and ssm families; hybrid and audio
-wait for their slice (``ROADMAP.md``).  Parameters are nested dictionaries
+The port builds all six families.  Parameters are nested dictionaries
 of tensors in the JAX package's layout: per-layer tensors stacked along a
 leading layer axis, weights ``(in, out)`` as in ``x @ W``, so
 :func:`params_from_numpy` carries the JAX package's parameters across as a

@@ -87,21 +87,27 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
               *, pos: torch.Tensor, causal: bool = True,
-              attn_impl: Optional[str] = None) -> torch.Tensor:
-    """Full-sequence self-attention (training / prefill).  ``attn_impl``:
-    None lets the device pick (the flash kernel on a card), ``"ref"`` the
-    plain version, ``"kernel"`` the flash kernel."""
+              attn_impl: Optional[str] = None,
+              memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention (training / prefill).  ``attn_impl``: None
+    lets the device pick (the flash kernel on a card), ``"ref"`` the plain
+    version, ``"kernel"`` the flash kernel.
+
+    memory: if given (B, Sm, d), cross-attention: keys and values come from
+    it, neither side is rotated (no RoPE) and no causal mask applies."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    src = x if memory is None else memory
     q = _split_heads(x @ p["wq"], hq, hd)
-    k = _split_heads(x @ p["wk"], hkv, hd)
-    v = _split_heads(x @ p["wv"], hkv, hd)
+    k = _split_heads(src @ p["wk"], hkv, hd)
+    v = _split_heads(src @ p["wv"], hkv, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
-    out = fa_ops.attention(q, k, v, causal=causal, window=cfg.window,
-                           impl=attn_impl)
+    if memory is None:                                     # self-attn: RoPE
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    out = fa_ops.attention(q, k, v, causal=causal and memory is None,
+                           window=cfg.window, impl=attn_impl)
     return _merge_heads(out) @ p["wo"]
 
 

@@ -268,13 +268,18 @@ class MambaLM:
         cfg = self.cfg
         x = params["lm"]["embed"][tokens]                  # (B, 1, d)
         for i in range(cfg.n_layers):
-            lp = layer_params(params["layers"], i)
-            h = L.rmsnorm(x, lp["ln"], cfg.norm_eps)
-            o, conv, state = mamba_block(
-                lp["mamba"], h, cfg, conv_state=cache["conv"][i],
-                ssm_state=cache["state"][i], decode=True)
-            cache["conv"][i] = conv
-            cache["state"][i] = state
-            x = x + o
+            x = self._layer_decode(x, layer_params(params["layers"], i),
+                                   cache, i)
         x = L.rmsnorm(x, params["lm"]["final_norm"], cfg.norm_eps)
         return x @ params["lm"]["unembed"], cache
+
+    def _layer_decode(self, x, lp, cache: Dict[str, torch.Tensor], i: int):
+        """Layer ``i``'s decode step, its conv window and state written
+        into ``cache`` in place."""
+        h = L.rmsnorm(x, lp["ln"], self.cfg.norm_eps)
+        o, conv, state = mamba_block(
+            lp["mamba"], h, self.cfg, conv_state=cache["conv"][i],
+            ssm_state=cache["state"][i], decode=True)
+        cache["conv"][i] = conv
+        cache["state"][i] = state
+        return x + o

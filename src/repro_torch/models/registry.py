@@ -1,10 +1,12 @@
 """Model factory: ArchConfig → model object (family dispatch).
 
-The port builds the dense family, the vlm family (whose backbone is
-dense; its ViT frontend is a stub that arrives as ``input_embeds``), the
-moe family (:class:`~repro_torch.models.moe.MoeLM`) and the ssm family
-(:class:`~repro_torch.models.mamba2.MambaLM`).  The hybrid and audio
-families wait for the model-families slice of ``ROADMAP.md``.
+The port builds all six families of the JAX package: dense, vlm (whose
+backbone is dense; its ViT frontend is a stub that arrives as
+``input_embeds``), moe (:class:`~repro_torch.models.moe.MoeLM`), ssm
+(:class:`~repro_torch.models.mamba2.MambaLM`), hybrid
+(:class:`~repro_torch.models.zamba2.HybridLM`) and audio
+(:class:`~repro_torch.models.whisper.EncDecLM`, whose conv frontend is a
+stub that arrives as ``input_embeds``).
 """
 
 from __future__ import annotations
@@ -17,9 +19,9 @@ from repro_torch.models.common import ArchConfig
 from repro_torch.models.mamba2 import MambaLM
 from repro_torch.models.moe import MoeLM
 from repro_torch.models.transformer import DenseLM
+from repro_torch.models.whisper import EncDecLM
+from repro_torch.models.zamba2 import HybridLM
 
-# families the port does not build yet → the JAX module that holds them
-_PENDING = {"hybrid": "zamba2.py", "audio": "whisper.py"}
 # the JAX package's ssd_dtype lever, by name
 SSD_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -30,7 +32,7 @@ def build_model(cfg: ArchConfig, attn_impl: Optional[str] = None,
     """Family dispatch.  ``attn_impl``: None (the device decides), "ref"
     or "kernel", for the families with attention; ``ssd_dtype`` ("f32" or
     "bf16") and ``moe_grouped`` are the JAX package's levers for the ssm
-    and moe families, and ``parallel_block`` the beyond-paper PaLM-style
+    and hybrid families and the moe family, and ``parallel_block`` the beyond-paper PaLM-style
     block of the dense family; each is ignored by the families it does not
     apply to, as in the JAX package."""
     if cfg.family in ("dense", "vlm"):
@@ -38,16 +40,16 @@ def build_model(cfg: ArchConfig, attn_impl: Optional[str] = None,
                        parallel_block=parallel_block)
     if cfg.family == "moe":
         return MoeLM(cfg, attn_impl=attn_impl, moe_grouped=moe_grouped)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         if ssd_dtype not in SSD_DTYPES:
             raise ValueError(f"ssd_dtype {ssd_dtype!r} not in "
                              f"{sorted(SSD_DTYPES)}")
-        return MambaLM(cfg, ssd_dtype=SSD_DTYPES[ssd_dtype])
-    if cfg.family in _PENDING:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family} family (repro/models/"
-            f"{_PENDING[cfg.family]}) is not ported yet; it comes with the "
-            f"model-families slice of ROADMAP.md")
+        if cfg.family == "ssm":
+            return MambaLM(cfg, ssd_dtype=SSD_DTYPES[ssd_dtype])
+        return HybridLM(cfg, attn_impl=attn_impl,
+                        ssd_dtype=SSD_DTYPES[ssd_dtype])
+    if cfg.family == "audio":
+        return EncDecLM(cfg, attn_impl=attn_impl)
     raise ValueError(f"unknown family {cfg.family!r}")
 
 

@@ -28,7 +28,9 @@ TOL = {"float32": 2e-3, "bfloat16": 2e-2}
 
 # (b, hq, hkv, sq, skv, d, causal, window): GQA groups 1, 4, 5 and 8,
 # causal and not, windows 32 and 128, Sq < Skv (end alignment), Sq > Skv,
-# lengths that divide no tile
+# lengths that divide no tile; head dim 112 (zamba2) causal, not causal
+# with Sq != Skv, and Sq > Skv; whisper's cross-attention (not causal, one
+# query row or many against more keys, at D 64)
 CASES = [
     (1, 4, 4, 32, 32, 16, True, None),
     (2, 8, 2, 48, 48, 32, True, None),
@@ -42,6 +44,11 @@ CASES = [
     (1, 5, 1, 40, 17, 32, True, None),
     (1, 4, 4, 1, 29, 128, True, None),
     (1, 4, 2, 33, 65, 128, True, 7),
+    (1, 4, 2, 40, 40, 112, True, None),
+    (1, 4, 4, 24, 75, 112, False, None),
+    (1, 8, 2, 50, 30, 112, True, None),
+    (2, 4, 4, 1, 150, 64, False, None),
+    (1, 4, 4, 45, 150, 64, False, None),
 ]
 
 
@@ -225,17 +232,21 @@ def test_tensor_core_limit_catches_planted_faults(case, fault):
 
 
 @pytest.mark.parametrize("dtype,d,want", [
-    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 112, "wgmma"),
+    (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
     (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
-    (torch.float32, 64, "simt"), (torch.float32, 128, "simt")])
+    (torch.float32, 64, "simt"), (torch.float32, 112, "simt"),
+    (torch.float32, 128, "simt")])
 def test_route_is_chosen_by_dtype_and_head_dim(dtype, d, want):
     assert kernel.route(dtype, d) == want
 
 
 def test_route_refuses_other_head_dims_and_dtypes():
-    with pytest.raises(ValueError, match="head dim 112"):
-        kernel.route(torch.bfloat16, 112)
+    with pytest.raises(ValueError, match="head dim 96"):
+        kernel.route(torch.bfloat16, 96)
+    with pytest.raises(ValueError, match="head dim 80"):
+        kernel.route(torch.float32, 80)
     with pytest.raises(ValueError, match="float16"):
         kernel.route(torch.float16, 128)
 
@@ -245,7 +256,11 @@ def test_route_refuses_other_head_dims_and_dtypes():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", CASES + [
     (2, 40, 8, 300, 300, 128, True, None),
-    (1, 8, 8, 129, 257, 64, False, 100)], ids=str)
+    (1, 8, 8, 129, 257, 64, False, 100),
+    (2, 32, 32, 300, 300, 112, True, None),
+    (1, 32, 32, 130, 1000, 112, False, None),
+    (1, 20, 20, 448, 1500, 64, False, None),
+    (4, 20, 20, 1, 1500, 64, False, None)], ids=str)
 def test_cuda_kernel_matches_plain(case, dtype):
     b, hq, hkv, sq, skv, d, causal, window = case
     q, k, v = _torch(_qkv(b, hq, hkv, sq, skv, d, seed=5), dtype, "cuda")
@@ -269,11 +284,14 @@ def test_cuda_kernel_matches_plain(case, dtype):
 
 
 @gpu
-def test_cuda_tensor_core_kernel_on_the_heads_view():
+@pytest.mark.parametrize("hq,hkv,d", [(40, 8, 128), (32, 32, 112)],
+                         ids=["qwen3-14b", "zamba2-7b"])
+def test_cuda_tensor_core_kernel_on_the_heads_view(hq, hkv, d):
     """The path's heads views (B, H, S, D) of (B, S, H*D) projections, at
-    S = 1024 with qwen3-14b's heads, taken at their strides."""
+    S = 1024 with qwen3-14b's and zamba2-7b's heads, taken at their
+    strides."""
     rng = np.random.default_rng(7)
-    b, s, hq, hkv, d = 2, 1024, 40, 8, 128
+    b, s = 2, 1024
 
     def heads(h):
         x = torch.from_numpy(rng.standard_normal((b, s, h * d))

@@ -188,10 +188,14 @@ def test_carry_over_takes_a_jax_bfloat16_array_exactly():
         params_from_numpy({"w": np.zeros(3, np.float32)}, cfg)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-large-v3"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="model-families slice"):
-        build_model(configs.get_arch(arch))
+@pytest.mark.parametrize("arch", sorted(configs.ALL_ARCHS))
+def test_every_family_builds(arch):
+    """``build_model`` builds all six families, each the class the JAX
+    package's registry picks for it."""
+    r_model = r_build_model(r_configs.get_arch(arch))
+    model = build_model(configs.get_arch(arch))
+    assert type(model).__name__ == type(r_model).__name__
+    assert model.cfg.family == r_model.cfg.family
 
 
 @pytest.mark.parametrize("pos_shape", [(7,), (2, 7)])

@@ -88,6 +88,19 @@ def test_serve_loop_matches_the_jax_loop_for_moe_and_ssm(arch):
     group at the config's capacity factor, so tokens may drop, in both
     packages alike) and the ssm family (a conv window and a state in the
     cache, no KV)."""
+    _family_loop_matches(arch)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-large-v3"])
+def test_serve_loop_matches_the_jax_loop_for_hybrid_and_audio(arch):
+    """The same loop for the hybrid family (Mamba's conv window and state
+    and one KV cache per attention site) and the audio family (its decoder
+    against the cross-attention KV of 1500 zero frames, as the JAX loop
+    leaves it)."""
+    _family_loop_matches(arch)
+
+
+def _family_loop_matches(arch):
     r_cfg = dataclasses.replace(
         r_configs.reduced_config(r_configs.get_arch(arch)), dtype=jnp.float32)
     cfg = dataclasses.replace(configs.reduced_config(configs.get_arch(arch)),

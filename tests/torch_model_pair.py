@@ -1,6 +1,6 @@
 """One reduced model built by both packages, with the JAX parameters carried
 across by ``params_from_numpy`` (no RNG is re-derived), for the family
-tests ``test_torch_moe.py`` and ``test_torch_mamba2.py``."""
+tests ``test_torch_{moe,mamba2,zamba2,whisper}.py``."""
 
 import dataclasses
 
@@ -94,3 +94,14 @@ def decode_both(p: Pair, toks: np.ndarray, cache_dtype=None):
         want.append(np.asarray(r_logits, np.float32)[:, 0])
         got.append(logits[:, 0].float().numpy())
     return np.stack(want), np.stack(got), r_cache, cache
+
+
+def as_written(fn, *args):
+    """``fn(*args)`` jitted with XLA's excess precision off, so every
+    bfloat16 intermediate is rounded where the JAX source rounds it.  By
+    default XLA on the CPU keeps some of them in float32 inside a fusion
+    (a product's input, a sum fed to a norm); the port, like the card's
+    kernels, rounds where the source does.  The two then drift apart by
+    a bfloat16 rounding per block, which a deep stack magnifies."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*args)
