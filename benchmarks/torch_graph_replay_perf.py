@@ -42,7 +42,6 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -50,10 +49,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+import port_bench  # noqa: E402
 import torch  # noqa: E402
+from port_bench import ModelledSession  # noqa: E402
 
 from repro_torch.configs.paper_suite import BENCHMARKS  # noqa: E402
 from repro_torch.core.cache import JITCache  # noqa: E402
@@ -88,16 +88,6 @@ STAGES = [
 ]
 
 
-def card_line(device: str) -> str:
-    if device == "cpu":
-        return "cpu (no card)"
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
-        else "not read"
-
-
 def _capture(sess: Session):
     with sess.capture("tenant-a", name="serve_pipe") as g:
         buf = g.input("x")
@@ -106,18 +96,9 @@ def _capture(sess: Session):
     return g
 
 
-class ModelledSession(Session):
-    """A Session on one build worker whose host clock stays at 0 µs, so
-    every event time is the queues' model alone, the same in every run."""
-
-    def now_us(self) -> float:
-        return 0.0
-
-
 def _session(device: str) -> Session:
     return ModelledSession([Device("ovl0", OverlaySpec(**SPEC_KW))],
-                           cache=JITCache(capacity=64), max_workers=1,
-                           device=device)
+                           cache=JITCache(capacity=64), device=device)
 
 
 def _run(mode: str, device: str):
@@ -258,7 +239,7 @@ def replay_times(n: int) -> Dict:
 def run(device: str = "cuda", gate: float = 1.0) -> Dict:
     """``bench`` with the card's replay readings and the gates' failures."""
     result = bench(device)
-    result["card"] = card_line(device)
+    result["card"] = port_bench.card_line(device)
     failures = check_gate(result, gate)
     result["replay"] = []
     if device != "cpu":
@@ -277,6 +258,35 @@ def run(device: str = "cuda", gate: float = 1.0) -> Dict:
     result["gate"] = gate
     result["gate_failures"] = failures
     return result
+
+
+def rows(result: Dict) -> List[Dict]:
+    """The reference's CSV rows, then the card's replay readings."""
+    out = [dict(
+        name=f"graph_replay/{key}",
+        us_per_call=result[key]["makespan_us"],
+        derived=(f"{result[key]['config_charges']} config charges "
+                 f"({result[key]['config_us']}us) over "
+                 f"{result[key]['requests']} requests x "
+                 f"{result[key]['stages']} stages, "
+                 f"{result[key]['partitions']} partitions"))
+        for key in ("graph", "nodewise")]
+    out.append(dict(
+        name="graph_replay/ratio", us_per_call=0.0,
+        derived=(f"config charges cut {result['charge_ratio']}x "
+                 f"(partition ratio {result['partition_ratio']}x), "
+                 f"makespan {result['makespan_ratio']}x, "
+                 f"identical={result['identical_results']}")))
+    out += [dict(
+        name=f"graph_replay/replay@{r['items']}",
+        us_per_call=r["graph"]["host_us"],
+        derived=(f"fused {r['graph']['device_ms']:.4f}ms device "
+                 f"{r['graph']['launches']} launches, nodewise "
+                 f"{r['nodewise']['host_us']:.1f}us host "
+                 f"{r['nodewise']['device_ms']:.4f}ms device "
+                 f"{r['nodewise']['launches']} launches"))
+        for r in result["replay"]]
+    return out
 
 
 def report(result: Dict) -> None:
@@ -314,7 +324,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("torch_graph_replay_perf: no CUDA device (pass --device cpu "
               "to rehearse on the CPU)", file=sys.stderr)
         return 2
-    print(card_line(args.device), flush=True)
+    print(port_bench.card_line(args.device), flush=True)
     result = run(args.device, args.gate)
     report(result)
     for f in result["gate_failures"]:

@@ -25,8 +25,9 @@ is timed three ways:
       Inductor's and Triton's caches in a fresh directory under ``build/``
       and Inductor's FX-graph cache off, so it is a real compile and no
       cache hit; a first compile of another function has paid the
-      compiler's once-a-process set-up.  It ports nothing; it is the cost a program-as-code
-      design would pay per kernel;
+      compiler's once-a-process set-up (``port_bench.recompile_ms``,
+      shared with ``torch_par_time.py``).  It ports nothing; it is the
+      cost a program-as-code design would pay per kernel;
   (c) with ``--rebuild`` only, **an executor rebuild**: a cold ``nvcc``
       build of ``csrc/overlay_exec.cu`` into a fresh directory under
       ``build/`` through ``cuda_build.py``.
@@ -43,25 +44,21 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import shutil
 import statistics
-import subprocess
 import sys
-import tempfile
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+import port_bench  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs.paper_suite import BENCHMARKS  # noqa: E402
-from repro_torch.core.dfg import trace  # noqa: E402
 from repro_torch.core.jit import jit_compile  # noqa: E402
 from repro_torch.core.options import CompileOptions  # noqa: E402
 from repro_torch.core.overlay import OverlaySpec  # noqa: E402
@@ -71,23 +68,7 @@ SPEC = OverlaySpec(width=8, height=8, dsp_per_fu=2)
 NAMES = ("poly1", "poly2", "chebyshev")
 N_ITEMS = 4096
 SWAP_ROUNDS = 20
-SCRATCH = ROOT / "build" / "reconfig_time"
 PAPER = "paper: 42.4 us overlay configuration vs 31.6 ms fabric"
-
-
-def card_line(device: str) -> str:
-    if device == "cpu":
-        return "cpu (no card)"
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
-        else "not read"
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def programs() -> Dict:
@@ -100,50 +81,16 @@ def programs() -> Dict:
     return dict(cks=cks, pad_to=pad_to, pad_regs=pad_regs)
 
 
-def _fresh_dir(tag: str) -> Path:
-    SCRATCH.mkdir(parents=True, exist_ok=True)
-    return Path(tempfile.mkdtemp(prefix=f"{tag}_", dir=SCRATCH))
-
-
-def recompile_ms(dfg, x: torch.Tensor) -> Dict[str, float]:
-    """``torch.compile`` of ``dfg.evaluate`` on ``x``: first call minus a
-    warm call, host ms, with every compile cache cold."""
-    import torch._dynamo
-    import torch._inductor.config as inductor_config
-
-    cache = _fresh_dir("inductor")
-    env = {"TORCHINDUCTOR_CACHE_DIR": str(cache / "inductor"),
-           "TRITON_CACHE_DIR": str(cache / "triton")}
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    times = []
-    try:
-        # one compile thread: no worker processes to outlive the call
-        with inductor_config.patch(fx_graph_cache=False, compile_threads=1):
-            torch._dynamo.reset()
-            compiled = torch.compile(lambda v: tuple(dfg.evaluate([v])),
-                                     fullgraph=True, dynamic=False)
-            for _ in range(2):
-                _sync(x.device)
-                t0 = time.perf_counter()
-                compiled(x)
-                _sync(x.device)
-                times.append((time.perf_counter() - t0) * 1e3)
-    finally:
-        torch._dynamo.reset()
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        shutil.rmtree(cache, ignore_errors=True)
-    return dict(first_ms=times[0], warm_ms=times[1],
-                compile_ms=times[0] - times[1])
+def recompile_ms(dfg, *xs: torch.Tensor) -> Dict[str, float]:
+    """``torch.compile`` of ``dfg.evaluate`` on ``xs``: first call minus a
+    warm call, host ms, with every compile cache cold
+    (``port_bench.recompile_ms``, caches under ``build/reconfig_time/``)."""
+    return port_bench.recompile_ms(dfg, *xs, sub="reconfig_time")
 
 
 def rebuild_ms() -> Dict:
     """A cold nvcc build of the executor's source into a fresh directory."""
-    out = _fresh_dir("nvcc")
+    out = port_bench.fresh_dir("reconfig_time", "nvcc")
     t0 = time.perf_counter()
     kernel.LIBRARY.build(out)
     ms = (time.perf_counter() - t0) * 1e3
@@ -166,24 +113,22 @@ def bench(device: str = "cuda", rebuild: bool = False,
     x = torch.from_numpy(x_np).to(dev)[None]
     want = {n: np.asarray(ck.run_reference(x_np), np.float32)
             for n, ck in cks.items()}
-    # the compiler's once-a-process set-up (imports, device queries) is
-    # paid here, by a kernel that is none of the three
-    recompile(trace(lambda v: v * 0.5 + 0.25, 1, "warmup"), x[0])
+    port_bench.warm_compiler(recompile, x[0])
     # the executor built once, warmed on the first program
     resident = ops.load_image(cks[NAMES[0]].program, dev,
                               pad_to=p["pad_to"], pad_regs=p["pad_regs"])
     kernel.overlay_execute(resident, x)
-    _sync(dev)
+    port_bench.sync(dev)
     builds = kernel.LIBRARY.builds
     swaps: Dict[str, List[float]] = {n: [] for n in NAMES}
     exact = {n: True for n in NAMES}
     for _ in range(SWAP_ROUNDS):
         for n in NAMES[1:] + NAMES[:1]:
-            _sync(dev)
+            port_bench.sync(dev)
             t0 = time.perf_counter()
             resident.write(*images[n])
             got = kernel.overlay_execute(resident, x)
-            _sync(dev)
+            port_bench.sync(dev)
             swaps[n].append((time.perf_counter() - t0) * 1e3)
             exact[n] &= bool(np.array_equal(
                 got[0].cpu().numpy().view(np.int32), want[n].view(np.int32)))
@@ -224,9 +169,25 @@ def check_gate(result: Dict) -> List[str]:
 def run(device: str = "cuda", rebuild: bool = False) -> Dict:
     """``bench`` with the card's line and the gate's failures."""
     result = bench(device, rebuild=rebuild)
-    result["card"] = card_line(device)
+    result["card"] = port_bench.card_line(device)
     result["gate_failures"] = check_gate(result)
     return result
+
+
+def rows(result: Dict) -> List[Dict]:
+    """The reference's CSV rows: the swap against the recompile."""
+    out = []
+    for n, row in result["programs"].items():
+        rc = row["recompile"]
+        speedup = rc["compile_ms"] / max(row["swap_ms"], 1e-9)
+        out.append(dict(
+            name=f"reconfig/{n}", us_per_call=row["swap_ms"] * 1e3,
+            derived=(f"program_swap={row['swap_ms']:.3f}ms "
+                     f"torch_compile={rc['compile_ms']:.1f}ms "
+                     f"speedup={speedup:.1f}x "
+                     f"modelled_fpga_config={row['config_us_modelled']:.1f}us "
+                     f"bit_exact={row['bit_exact']} ({PAPER})")))
+    return out
 
 
 def report(result: Dict) -> None:
@@ -261,7 +222,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("torch_reconfig_time: no CUDA device (pass --device cpu to "
               "rehearse on the CPU)", file=sys.stderr)
         return 2
-    print(card_line(args.device), flush=True)
+    print(port_bench.card_line(args.device), flush=True)
     result = run(args.device, rebuild=args.rebuild)
     report(result)
     for f in result["gate_failures"]:

@@ -45,7 +45,6 @@ import argparse
 import hashlib
 import json
 import statistics
-import subprocess
 import sys
 import threading
 import time
@@ -54,9 +53,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+import port_bench  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.core.faults import FaultPlan  # noqa: E402
@@ -78,16 +77,6 @@ EXEC_FAULT_RATE = 0.05
 # the host's enqueue before each
 DEVICE_REPS = 50
 HIDE_HOST_CYCLES = 1_000_000
-
-
-def card_line(device: str) -> str:
-    if device == "cpu":
-        return "cpu (no card)"
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
-        else "not read"
 
 
 def make_trace(seed: int = 7) -> List[dict]:
@@ -134,20 +123,15 @@ def _warm(sess: Session, build):
     return out
 
 
-def _sync(device: str) -> None:
-    if device != "cpu":
-        torch.cuda.synchronize()
-
-
 def run_sequential(trace: List[dict], device: str) -> Dict:
     with _session(device) as sess:
         zoo = _warm(sess, lambda: build_zoo(sess, sorted(TENANTS)))
         t0 = sess.now_us()
         reqs = _requests(trace, t0)
-        _sync(device)
+        port_bench.sync(device)
         t_host = time.perf_counter()
         outputs, makespan = serve_sequential(sess, zoo, reqs)
-        _sync(device)
+        port_bench.sync(device)
         host_ms = (time.perf_counter() - t_host) * 1e3
         digests = [_digest(outputs[r.rid]) for r in reqs]
         for m in zoo.values():
@@ -166,11 +150,11 @@ def run_batched(trace: List[dict], device: str, chaos: bool) -> Dict:
         with srv:
             t0 = sess.now_us()
             reqs = _requests(trace, t0)
-            _sync(device)
+            port_bench.sync(device)
             t_host = time.perf_counter()
             admitted = sum(srv.submit(r) for r in reqs)
             makespan = srv.run()
-            _sync(device)
+            port_bench.sync(device)
             host_ms = (time.perf_counter() - t_host) * 1e3
             serving = sess.stats()["serving"]
             done = [r for r in reqs if r.output is not None]
@@ -270,23 +254,41 @@ def check_gate(result: Dict, gate: float) -> List[str]:
     return failures
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--gate", type=float, default=2.0,
-                    help="min sequential/batched modelled makespan ratio "
-                         "(default 2.0; <= 0 disables gating)")
-    ap.add_argument("--device", default="cuda",
-                    help="where the Sessions run (default: the CUDA card)")
-    ap.add_argument("--json", metavar="PATH", default=None)
-    args = ap.parse_args()
-    if args.device != "cpu" and not torch.cuda.is_available():
-        print("torch_serving_perf: no CUDA device (pass --device cpu to "
-              "rehearse on the CPU)", file=sys.stderr)
-        return 2
-    card = card_line(args.device)
-    print(card, flush=True)
-    result = bench(args.device)
-    result["card"] = card
+def run(device: str = "cuda", gate: float = 2.0) -> Dict:
+    """``bench`` with the card's line and the gates' failures (``gate`` <=
+    0 disables them)."""
+    result = bench(device)
+    result["card"] = port_bench.card_line(device)
+    result["gate"] = gate
+    result["gate_failures"] = check_gate(result, gate) if gate > 0 else []
+    return result
+
+
+def rows(result: Dict) -> List[Dict]:
+    """The reference's CSV rows."""
+    out = []
+    for key in ("sequential", "batched", "chaos"):
+        r = result[key]
+        extra = ""
+        if key != "sequential":
+            occ = np.mean(list(r["occupancy"].values()))
+            extra = (f", mean occupancy {occ:.2f}, "
+                     f"degraded_steps={r['degraded_steps']}")
+        out.append(dict(
+            name=f"serving/{key}", us_per_call=r["makespan_us"],
+            derived=(f"fleet makespan {r['makespan_us']:.0f}us "
+                     f"{r['requests']} requests{extra}")))
+    out.append(dict(
+        name="serving/speedup", us_per_call=0.0,
+        derived=(f"{result['speedup']:.3f}x sequential; "
+                 f"bit_identical={result['bit_identical']} "
+                 f"chaos_bit_identical={result['chaos_bit_identical']} "
+                 f"all_complete={result['all_complete']}")))
+    return out
+
+
+def report(result: Dict) -> None:
+    card = result["card"]
     for key in ("sequential", "batched", "chaos"):
         r = result[key]
         print(f"{key:<10} modelled makespan {r['makespan_us']:>10.3f} us  "
@@ -307,10 +309,25 @@ def main() -> int:
           f"bit_identical={result['bit_identical']}, "
           f"chaos_bit_identical={result['chaos_bit_identical']}, "
           f"all_complete={result['all_complete']}")
-    failures = check_gate(result, args.gate) if args.gate > 0 else []
-    result["gate"] = args.gate
-    result["gate_failures"] = failures
-    for f in failures:
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--gate", type=float, default=2.0,
+                    help="min sequential/batched modelled makespan ratio "
+                         "(default 2.0; <= 0 disables gating)")
+    ap.add_argument("--device", default="cuda",
+                    help="where the Sessions run (default: the CUDA card)")
+    ap.add_argument("--json", metavar="PATH", default=None)
+    args = ap.parse_args()
+    if args.device != "cpu" and not torch.cuda.is_available():
+        print("torch_serving_perf: no CUDA device (pass --device cpu to "
+              "rehearse on the CPU)", file=sys.stderr)
+        return 2
+    print(port_bench.card_line(args.device), flush=True)
+    result = run(args.device, args.gate)
+    report(result)
+    for f in result["gate_failures"]:
         print(f"GATE FAILED: {f}", file=sys.stderr)
     if args.json:
         with open(args.json, "w") as fh:
@@ -320,7 +337,7 @@ def main() -> int:
                      | {k: {kk: vv for kk, vv in result[k].items()
                             if kk != "digests"}
                         for k in ("sequential", "batched", "chaos")}))
-    return 1 if failures else 0
+    return 1 if result["gate_failures"] else 0
 
 
 if __name__ == "__main__":

@@ -40,17 +40,16 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+import port_bench  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs.paper_suite import BENCHMARKS  # noqa: E402
@@ -86,21 +85,6 @@ PROBES = ("span", "activate", "active_tracer")
 
 def fail(msg: str) -> None:
     raise SystemExit(f"GATE FAILED: {msg}")
-
-
-def card_line(device: str) -> str:
-    if device == "cpu":
-        return "cpu (no card)"
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
-        else "not read"
-
-
-def _sync(device: str) -> None:
-    if device != "cpu":
-        torch.cuda.synchronize()
 
 
 def bench_disabled_probe(device: str) -> Dict:
@@ -247,7 +231,7 @@ def bench_enqueue_tracer_off(device: str, reps: int) -> Dict:
         queue = sess.queue_for("t", "d")
 
         def drain():
-            _sync(device)
+            port_bench.sync(device)
             queue.drain()
 
         def call():
@@ -367,6 +351,46 @@ def bench_recut(device: str) -> Dict:
     return dict(keep=keep, win=win)
 
 
+def run(device: str = "cuda", reps: int = 200) -> Dict:
+    """Every section; a failed gate raises ``SystemExit`` where it is
+    found, so a result that returns has no gate failure."""
+    probe = bench_disabled_probe(device)
+    return dict(
+        card=port_bench.card_line(device), device=device, spec=SPEC_KW,
+        probe=probe,
+        timeline=bench_timeline_unperturbed(device),
+        warm_hit=bench_warm_hit_books_no_stages(),
+        enqueue=bench_enqueue_tracer_off(device, reps),
+        recut=bench_recut(device), gate_failures=[])
+
+
+def rows(result: Dict) -> List[Dict]:
+    """The reference's CSV rows."""
+    out = [dict(
+        name="obs/span_disabled_ns",
+        us_per_call=result["probe"]["span_off_ns"] * 1e-3,
+        derived=(f"disabled probe {result['probe']['span_off_ns']:.0f} "
+                 f"ns/site (shared no-op), enabled "
+                 f"{result['probe']['span_on_ns']:.0f} ns/span")), dict(
+        name="obs/timeline_identical", us_per_call=0.0,
+        derived=(f"{result['timeline']['kernels']} kernels: modelled "
+                 f"timestamps identical with tracer attached, "
+                 f"{result['timeline']['device_spans']} device spans")), dict(
+        name="obs/warm_hit_spans", us_per_call=0.0,
+        derived=(f"warm hit books {len(result['warm_hit']['warm_spans'])} "
+                 f"span kinds, zero P&R stages"))]
+    for key in ("keep", "win"):
+        r = result["recut"][key]
+        out.append(dict(
+            name=f"obs/recut_{r['case']}",
+            us_per_call=r.get("new_replay_us", 0.0),
+            derived=(f"{r['reason']}: est {r['est_ratio']}x, measured "
+                     f"{r['measured_ratio']}x, identical="
+                     f"{r['identical']}, reinstantiate_misses="
+                     f"{r['reinstantiate_misses']}")))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda",
@@ -379,15 +403,8 @@ def main() -> int:
         print("torch_trace_overhead_perf: no CUDA device (pass --device cpu "
               "to rehearse on the CPU)", file=sys.stderr)
         return 2
-    card = card_line(args.device)
-    print(card, flush=True)
-    probe = bench_disabled_probe(args.device)
-    result = dict(
-        card=card, device=args.device, spec=SPEC_KW, probe=probe,
-        timeline=bench_timeline_unperturbed(args.device),
-        warm_hit=bench_warm_hit_books_no_stages(),
-        enqueue=bench_enqueue_tracer_off(args.device, args.reps),
-        recut=bench_recut(args.device))
+    print(port_bench.card_line(args.device), flush=True)
+    result = run(args.device, args.reps)
     if args.json:
         with open(args.json, "w") as fh:
             json.dump(result, fh, indent=1)

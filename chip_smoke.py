@@ -148,11 +148,23 @@ tensor-core kernel and the float32 SIMT kernel).  Phases:
       kernel at zamba2's prefill shape q (4, 32, 4096, 112) and at
       whisper's four shapes in turns with ``scaled_dot_product_attention``.
 
+  (m) the paper's benchmarks and the reference's benchmark suite, after
+      (l): ``run("cuda")`` of the ten suites of ``benchmarks/`` the port
+      added last (``torch_{replication_scaling, par_time, resource_table,
+      overlay_exec_perf, jit_cache_perf, queue_sched_perf,
+      chaos_serving_perf, template_build_perf, persistent_cache_perf,
+      fleet_warm_start_perf}.py``; the template builds at the reference's
+      ``--smoke`` sizes, the persistent cache at its four kernels), every
+      gate held and every executor launch bit for bit against
+      ``run_reference``, then ``benchmarks/torch_run.py --suite
+      resource_table --json`` in its own process (exit code, CSV and JSON
+      rows); the executor stays built once.
+
 Exits non-zero, printing no result, without a card or when any check
 fails.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists each ported kernel with its launches on the main paths
-(phases (c), (h), (i) and (j) for the executor, phases (g), (k) and (l)
-for RMSNorm and flash attention).
+(phases (c), (h), (i), (j) and (m) for the executor, phases (g), (k) and
+(l) for RMSNorm and flash attention).
 """
 
 from __future__ import annotations
@@ -160,6 +172,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1811,6 +1824,101 @@ def verified_benchmarks():
     return out
 
 
+# phase (m): the ten suites of slice 10, with the reference's CI sizes for
+# the template builds (the persistent cache at its four kernels, where the
+# reference recorded its 50x gate), then the harness on one suite
+PAPER_SUITES = (("torch_replication_scaling", {}), ("torch_par_time", {}),
+                ("torch_resource_table", {}), ("torch_overlay_exec_perf", {}),
+                ("torch_jit_cache_perf", {}), ("torch_queue_sched_perf", {}),
+                ("torch_chaos_serving_perf", {}),
+                ("torch_template_build_perf", dict(smoke=True)),
+                ("torch_persistent_cache_perf", {}),
+                ("torch_fleet_warm_start_perf", {}))
+HARNESS_JSON = ROOT / "build" / "chip_smoke_torch_run.json"
+
+
+def paper_readings(name: str, res: dict) -> dict:
+    """The few numbers of a suite's result that PERF.md reads."""
+    if name == "torch_replication_scaling":
+        return {f"dsp{d}": {"exec_gops": r["gops"], "ms": r["ms"]}
+                for r in res["executor"].values() for d in r["dsps"]}
+    if name == "torch_par_time":
+        return {r["kernel"]: {"overlay_par_ms": r["overlay_par_ms"],
+                              "torch_compile_ms":
+                                  r["torch_compile"]["compile_ms"]}
+                for r in res["rows"]}
+    if name == "torch_resource_table":
+        return {r["kernel"]: {"exec_items_per_s": r["exec_items_per_s"],
+                              "modelled_items_per_s":
+                                  r["modelled_items_per_s"]}
+                for r in res["rows"]}
+    if name == "torch_overlay_exec_perf":
+        return {f"{c['kernel']}@{c['items']}": {
+            k: c[f"{k}_ms"] for k in ("executor", "plain", "compiled")}
+            for c in res["cells"]}
+    if name == "torch_persistent_cache_perf":
+        return {"speedup_total": res["speedup_total"]}
+    return {}
+
+
+def paper_harness() -> dict:
+    """(m) ``benchmarks/torch_run.py`` on one suite in its own process: its
+    exit code, CSV and JSON rows."""
+    HARNESS_JSON.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "benchmarks" / "torch_run.py"),
+         "--suite", "resource_table", "--json", str(HARNESS_JSON)],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(SRC)})
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"(m) torch_run.py exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    rows = json.loads(HARNESS_JSON.read_text())
+    csv = proc.stdout.strip().splitlines()
+    check(len(rows) == 6 and {r["suite"] for r in rows} == {"resource_table"}
+          and csv[1] == "name,us_per_call,derived"
+          and [line.split(",")[0] for line in csv[2:]] ==
+          [r["name"] for r in rows],
+          f"(m) torch_run.py rows: {csv}")
+    log(f"(m) benchmarks/torch_run.py --suite resource_table: exit 0, "
+        f"{len(rows)} rows, {secs:.1f} s")
+    return dict(exit=proc.returncode, rows=len(rows), s=secs)
+
+
+def phase_paper_benchmarks(card: str):
+    """(m) the paper's Fig. 6, Fig. 7 and Table III and the reference's
+    runtime suites through their ``run`` on the card, every gate held."""
+    from repro_torch.kernels.overlay_exec import kernel
+
+    t0 = time.perf_counter()
+    builds = kernel.LIBRARY.builds
+    out = {}
+    # ---- the main path: counts set to 0 just before, read just after
+    kernel.overlay_execute.launches = 0
+    for name, kw in PAPER_SUITES:
+        t = time.perf_counter()
+        bench = load_benchmark(name)
+        res = bench.run(DEVICE, **kw)
+        secs = time.perf_counter() - t
+        log(f"(m) benchmarks/{name}.py ({secs:.1f} s):")
+        bench.report(res)
+        check(res["gate_failures"] == [],
+              f"(m) {name} gates: {res['gate_failures']}")
+        out[name] = dict(s=secs, **paper_readings(name, res))
+    launches = kernel.overlay_execute.launches
+    # ----
+    out["torch_run"] = paper_harness()
+    check(launches > 0, "(m) the paper benchmarks never launched the "
+          "executor")
+    check(kernel.LIBRARY.builds == builds == 1,
+          f"(m) the executor was built {kernel.LIBRARY.builds} times")
+    secs = time.perf_counter() - t0
+    log(f"(m) paper benchmarks: {launches} executor launches, {secs:.1f} s; "
+        f"{card}")
+    return launches, dict(s=secs, suites=out)
+
+
 def phase_verified(card: str):
     """(j) the static verifier on the card's main path, the analysis CLI
     and the paper's reconfiguration and graph replay benchmarks."""
@@ -3267,6 +3375,7 @@ def main() -> int:
                               for n in paths.values())
                    for route in model_launches["flash_attention_by_route"]}
     log("(k) and (l) readings " + json.dumps(families))
+    paper_launches, paper = phase_paper_benchmarks(card)
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
@@ -3275,11 +3384,12 @@ def main() -> int:
         "source": "src/repro_torch/csrc/overlay_exec.cu",
         "replaces": "src/repro/kernels/overlay_exec/kernel.py:30",
         "launches": (launches + runtime_launches + serving_launches
-                     + verified_launches),
+                     + verified_launches + paper_launches),
         "launches_by_path": {"(c) run_overlay": launches,
                              "(h) runtime seam": runtime_launches,
                              "(i) serving": serving_launches,
-                             "(j) verified": verified_launches},
+                             "(j) verified": verified_launches,
+                             "(m) paper benchmarks": paper_launches},
         "match": "bit-exact",
         "max_abs_err": err,
         "ms": totals["ms"],
@@ -3294,6 +3404,7 @@ def main() -> int:
         "runtime_seam": runtime,
         "serving": serving,
         "verified": verified,
+        "paper_benchmarks": paper,
     }, {
         "name": "rmsnorm",
         "route": "cuda",

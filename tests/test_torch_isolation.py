@@ -1,6 +1,7 @@
 """The port stands alone: nothing under ``src/repro_torch/``, and not
-``chip_smoke.py`` or the port's benchmarks (``benchmarks/torch_*.py``),
-imports JAX or any module of the JAX package ``repro``.
+``chip_smoke.py`` or the port's benchmarks (``benchmarks/torch_*.py`` and
+the helper they share, ``benchmarks/port_bench.py``), imports JAX or any
+module of the JAX package ``repro``.
 
 Checked twice: statically over every import statement, and in a fresh
 interpreter that imports every module of the port and then looks at
@@ -22,11 +23,13 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
 BENCHMARKS = sorted((ROOT / "benchmarks").glob("torch_*.py"))
+# what the port's benchmarks share; a helper, not a script
+BENCH_HELPER = ROOT / "benchmarks" / "port_bench.py"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [SMOKE] + BENCHMARKS
+    return sorted(PORT.rglob("*.py")) + [SMOKE] + BENCHMARKS + [BENCH_HELPER]
 
 
 def _forbidden(name: str) -> bool:
