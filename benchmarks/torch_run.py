@@ -19,6 +19,7 @@ the port has, on one CUDA card.
   fleet_warm_start_perf → the remote cache tier and the compile farm
   serving_perf          → continuous batching against one at a time
   trace_overhead_perf   → tracing off costs nothing; profile re-cuts
+  model_step            → a reduced train and decode step per architecture
 
 Each suite is ``benchmarks/torch_<name>.py``, run through its ``run``
 (the template suite at the reference's ``--smoke`` sizes, as the
@@ -52,7 +53,7 @@ SUITES = ("par_time", "replication_scaling", "resource_table",
           "reconfig_time", "overlay_exec_perf", "template_build_perf",
           "persistent_cache_perf", "queue_sched_perf", "graph_replay_perf",
           "jit_cache_perf", "chaos_serving_perf", "fleet_warm_start_perf",
-          "serving_perf", "trace_overhead_perf")
+          "serving_perf", "trace_overhead_perf", "model_step")
 # the reference harness runs the template suite at its CI size
 RUN_KWARGS: Dict[str, Dict] = {"template_build_perf": dict(smoke=True)}
 

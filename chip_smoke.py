@@ -5,10 +5,11 @@
 
 Runs from the root of a checkout and needs one CUDA card; it builds the
 port's CUDA kernels from ``src/repro_torch/csrc/`` with nvcc (the overlay
-executor, RMSNorm, and flash attention's two routes: the bfloat16
-tensor-core kernel and the float32 SIMT kernel).  Phases:
+executor, RMSNorm forward and backward, flash attention's two forward
+routes — the bfloat16 tensor-core kernel and the float32 SIMT kernel — and
+its backward).  Phases:
 
-  (a) set-up: the card's name and power limit, the four kernel builds,
+  (a) set-up: the card's name and power limit, the five kernel builds,
       one nvcc each, all started together, with ptxas's registers, shared
       memory and spills;
   (b) the executor kernel against its plain PyTorch version on the card,
@@ -159,12 +160,36 @@ tensor-core kernel and the float32 SIMT kernel).  Phases:
       ``run_reference``, then ``benchmarks/torch_run.py --suite
       resource_table --json`` in its own process (exit code, CSV and JSON
       rows); the executor stays built once.
+  (n) training, after (m): (n1) the two backward kernels against their
+      plain versions (``ref.rmsnorm_bwd``, ``ref.attention_bwd``) and
+      against autograd through the plain forwards, each run twice and bit
+      for bit the same: RMSNorm at qwen3-14b's training rows (5120 wide,
+      and q_norm's and k_norm's heads views) and in float32, unaligned,
+      wide and ragged; attention at qwen3-14b's training shape q (2, 40,
+      2048, 128), k/v (2, 8, 2048, 128) bf16 causal, a window, rows that
+      see no key, whisper's non-causal 448 -> 1500 at D 64, D 112 at group
+      1, group 16, D 16 and 32, and float32; then timed at the training
+      shapes beside the plain versions, autograd through
+      ``scaled_dot_product_attention`` and ``F.rms_norm`` (yardsticks
+      only), and their bounds.  (n2) qwen3-14b at full width, cut to
+      ``TRAIN_LAYERS`` of its 40 layers (the deepest that leaves
+      ``FREE_GB`` free), trained through ``TrainLoop`` for six steps of
+      B=2 x S=2048 ``SyntheticTokens`` with full remat and AdamW, a
+      checkpoint at step 3 and a restart from it (the restored state
+      bit-identical to the saved one): launches of all four kernels
+      counted, ms per step, tokens/s, peak memory, a profiled step with
+      the backward kernels' share; then one step from two weight seeds
+      against the same step through both kernels' plain versions (loss,
+      grad_norm, the updated first moment and parameters), each limit
+      also held against planted faults (attention dropping its last keys,
+      one key/value head's dk zeroed, RMSNorm's dw without its last rows).
 
 Exits non-zero, printing no result, without a card or when any check
 fails.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists each ported kernel with its launches on the main paths
-(phases (c), (h), (i), (j) and (m) for the executor, phases (g), (k) and
-(l) for RMSNorm and flash attention).
+(phases (c), (h), (i), (j) and (m) for the executor, phases (g), (k),
+(l) and (n) for RMSNorm and flash attention, phase (n) for their
+backward kernels).
 """
 
 from __future__ import annotations
@@ -443,9 +468,10 @@ def kernel_libraries():
     mods = kernel_modules()
     fa = mods["flash_attention"]
     return {"overlay_exec": mods["overlay_exec"].LIBRARY,
-            "rmsnorm": mods["rmsnorm"].LIBRARY,
+            "rmsnorm (forward and backward)": mods["rmsnorm"].LIBRARY,
             "flash_attention (wgmma)": fa.LIBRARY_WGMMA,
-            "flash_attention (SIMT)": fa.LIBRARY}
+            "flash_attention (SIMT)": fa.LIBRARY,
+            "flash_attention (backward)": fa.LIBRARY_BWD}
 
 
 def kernel_name(symbol: str) -> str:
@@ -3332,6 +3358,703 @@ def phase_family(kind: str, card: str):
         profile=breakdown, agreement_max_abs_err=errors)
 
 
+# ---------------------------------------------------------------- phase (n)
+TRAIN_ARCH = "qwen3-14b"
+# layers kept of qwen3-14b's 40 for training on one card: the deepest cut
+# that leaves FREE_GB of the card free at the training loop's peak
+# (reserved), read with benchmarks/torch_family_depth.py --family train
+# --no-checkpoint (on an H100: 12 layers 9.71 GB free, 13 layers 5.01)
+TRAIN_LAYERS = 12
+# the cut the checkpoint, the restart and the agreement run at: the
+# machine the card sits in takes at most 45 GiB of writes to its disk in a
+# run, and the train state is 10 bytes a parameter (bf16 parameters,
+# float32 mu and nu): 42.0 GB (39.1 GiB) at 8 layers, 45.3 GB at 9,
+# 55.2 GB at 12
+TRAIN_CKPT_LAYERS = 8
+TRAIN_B, TRAIN_S = 2, 2048
+# the loop's steps, the step whose checkpoint the run restarts from, the
+# schedule's warmup, and the step that runs under the profiler
+TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_WARMUP, TRAIN_PROFILE_STEP = 6, 3, 2, 4
+TRAIN_LR = 3e-4
+# where the checkpoint goes (gitignored); None skips the checkpoint run
+# (benchmarks/torch_family_depth.py --no-checkpoint)
+TRAIN_CKPT_DIR = ROOT / "build" / "chip_smoke_train_ckpt"
+# a backward kernel against its plain version: max |kernel - plain| over
+# max |plain| of each gradient.  In float32 the two differ only in the
+# order of their float32 sums; in bfloat16 both sum in float32 and round
+# once, so they may differ by one rounding of the largest value, 2^-8,
+# allowed twice over
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+# (b, hq, hkv, sq, skv, d, causal, window, dtype): qwen3-14b's training
+# shape, then a small case of every other path the forwards take
+FA_BWD_CASES = (
+    (2, 40, 8, 2048, 2048, 128, True, None, "bfloat16"),  # the training step
+    (1, 40, 8, 1024, 1024, 128, True, 128, "bfloat16"),   # window
+    (1, 40, 8, 300, 100, 128, True, None, "bfloat16"),    # rows seeing no key
+    (4, 20, 20, 448, 1500, 64, False, None, "bfloat16"),  # whisper's cross
+    (1, 32, 32, 300, 300, 112, True, None, "bfloat16"),   # D 112, group 1
+    (1, 64, 4, 256, 256, 128, True, None, "bfloat16"),    # group 16
+    (1, 16, 8, 130, 130, 32, False, 40, "bfloat16"),      # D 32, window
+    (1, 8, 2, 200, 330, 128, True, 64, "float32"),        # window, Sq < Skv
+    (1, 6, 2, 130, 70, 64, True, None, "float32"),        # rows seeing no key
+    (1, 4, 4, 100, 100, 16, False, None, "float32"),      # D 16
+    (1, 4, 4, 64, 64, 112, True, None, "float32"),        # D 112
+)
+
+
+def bwd_error(got, want) -> float:
+    """max |got - want| / max(1e-30, max |want|); inf where got is not
+    finite."""
+    import torch
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        return float("inf")
+    return float((g - w).abs().max()) / max(1e-30, float(w.abs().max()))
+
+
+def abs_error(pairs) -> float:
+    """The largest max |got - want| over (got, want) pairs."""
+    return max(float((g.float() - w.float()).abs().max()) for g, w in pairs)
+
+
+def attention_bwd_bound_ms(b, hq, hkv, sq, skv, d, causal, window,
+                           itemsize):
+    """→ (ms to read q, k, v, o and do and write dq, dk and dv once, ms for
+    the backward's five products — S, dP, dq, dk, dv — of 2 D operations
+    per visible (query, key) pair at the bfloat16 tensor-core rate)."""
+    # the forward's bound: q, k, v and out once, 4 D operations a pair
+    fwd_bytes, fwd_ops = attention_bound_ms(b, hq, sq, skv, d, causal,
+                                            window, itemsize, hkv)
+    return 2 * fwd_bytes, fwd_ops * 10 / 4
+
+
+def train_bwd_cases(gen, n_layers: int):
+    """The RMSNorm rows of one qwen3-14b training step, as (name, x, dy,
+    calls a step): ln1/ln2 and the final norm over (B*S, 5120), q_norm's
+    and k_norm's heads views of the projections."""
+    import torch
+    bf = torch.bfloat16
+    d, hd, hq, hkv = QWEN["d"], QWEN["hd"], QWEN["hq"], QWEN["hkv"]
+    b, s = TRAIN_B, TRAIN_S
+    return [
+        ("ln1/ln2/final (B*S, 5120)", randn(gen, (b, s, d), bf),
+         randn(gen, (b, s, d), bf), 2 * n_layers + 1),
+        ("q_norm, heads view (B, 40, S, 128)",
+         randn(gen, (b, s, hq, hd), bf).transpose(1, 2),
+         randn(gen, (b, hq, s, hd), bf), n_layers),
+        ("k_norm, heads view (B, 8, S, 128)",
+         randn(gen, (b, s, hkv, hd), bf).transpose(1, 2),
+         randn(gen, (b, hkv, s, hd), bf), n_layers),
+    ]
+
+
+def phase_backward_kernels():
+    """(n1) the two backward kernels against their plain versions (and
+    autograd through the plain forwards), twice for determinism, then
+    timed at qwen3-14b's training shapes beside the plain versions and
+    autograd through the library calls."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ref as rref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    # (kernel, dtype name, "rel" or "abs") → the largest error against the
+    # plain backward
+    worst = {}
+
+    def note(kind, dtype, err, tol, what):
+        key = (kind, str(dtype).removeprefix("torch."), "rel")
+        worst[key] = max(worst.get(key, 0.0), err)
+        check(err <= tol, f"{what}: {err} > {tol}")
+
+    def note_abs(kind, dtype, pairs):
+        key = (kind, str(dtype).removeprefix("torch."), "abs")
+        worst[key] = max(worst.get(key, 0.0), abs_error(pairs))
+
+    # ---- RMSNorm: the training rows, then f32, unaligned, wide and ragged
+    cases = [(name, x, dy) for name, x, dy, _ in train_bwd_cases(gen, 1)]
+    cases += [(f"{tuple(shape)} {dt}", randn(gen, shape, dt),
+               randn(gen, shape, dt), )
+              for shape, dt in (((4096, 5120), torch.float32),
+                                ((33, 7168), torch.float32),
+                                ((6, 37), torch.float32),
+                                ((5, 20000), torch.float32),
+                                ((3, 7, 1280), torch.bfloat16))]
+    for name, x, dy in cases:
+        dt = x.dtype
+        tol = tol_of(BWD_TOL, dt)
+        w = randn(gen, (x.shape[-1],), dt)
+        dx, dw = rk.rmsnorm_bwd(x, w, dy)
+        dx2, dw2 = rk.rmsnorm_bwd(x, w, dy)
+        check(torch.equal(dx, dx2) and torch.equal(dw, dw2),
+              f"RMSNorm backward {name}: two runs differ")
+        rx, rw = rref.rmsnorm_bwd(x, w, dy)
+        xa, wa = (t.detach().requires_grad_() for t in (x, w))
+        ax, aw = torch.autograd.grad(rref.rmsnorm(xa, wa), (xa, wa), dy)
+        errs = [bwd_error(dx, rx), bwd_error(dw, rw), bwd_error(dx, ax),
+                bwd_error(dw, aw)]
+        for err, what in zip(errs, ("dx vs rmsnorm_bwd", "dw vs rmsnorm_bwd",
+                                    "dx vs autograd", "dw vs autograd")):
+            note("rmsnorm", dt, err, tol, f"RMSNorm backward {name} {what}")
+        note_abs("rmsnorm", dt, ((dx, rx), (dw, rw)))
+        log(f"(n1) RMSNorm backward {name}: dx, dw against ref.rmsnorm_bwd "
+            f"{errs[0]:.3g}, {errs[1]:.3g} and autograd through ref.rmsnorm "
+            f"{errs[2]:.3g}, {errs[3]:.3g} of max |plain| (limit {tol:g}); "
+            f"two runs bit-equal")
+        del dx, dw, dx2, dw2, rx, rw, ax, aw
+
+    # ---- attention
+    for b, hq, hkv, sq, skv, d, causal, window, dname in FA_BWD_CASES:
+        dt = getattr(torch, dname)
+        tol = tol_of(BWD_TOL, dt)
+        q = randn(gen, (b, sq, hq, d), dt).transpose(1, 2)   # heads views
+        k = randn(gen, (b, skv, hkv, d), dt).transpose(1, 2)
+        v = randn(gen, (b, skv, hkv, d), dt).transpose(1, 2)
+        do = randn(gen, (b, sq, hq, d), dt).transpose(1, 2)
+        kw = dict(causal=causal, window=window)
+        o = fa.flash_attention(q, k, v, **kw)
+        got = fa.flash_attention_bwd(q, k, v, o, do, **kw)
+        again = fa.flash_attention_bwd(q, k, v, o, do, **kw)
+        check(all(torch.equal(a, c) for a, c in zip(got, again)),
+              f"attention backward {(b, hq, hkv, sq, skv, d)}: two runs "
+              f"differ")
+        want = fref.attention_bwd(q, k, v, o, do, **kw)
+        qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
+        auto = torch.autograd.grad(fref.attention(qa, ka, va, **kw),
+                                   (qa, ka, va), do)
+        errs = [bwd_error(g, w) for g, w in zip(got, want)]
+        errs_auto = [bwd_error(g, w) for g, w in zip(got, auto)]
+        shape = (f"q ({b},{hq},{sq},{d}) k/v ({b},{hkv},{skv},{d}) {dname}"
+                 f"{' causal' if causal else ''}"
+                 f"{f' window {window}' if window else ''}")
+        for err, what in zip(errs + errs_auto,
+                             ("dq", "dk", "dv", "dq (autograd)",
+                              "dk (autograd)", "dv (autograd)")):
+            note("flash_attention", dt, err, tol,
+                 f"attention backward {shape} {what}")
+        note_abs("flash_attention", dt, zip(got, want))
+        log(f"(n1) attention backward {shape}: dq, dk, dv against "
+            f"ref.attention_bwd {', '.join(f'{e:.3g}' for e in errs)} and "
+            f"autograd through ref.attention "
+            f"{', '.join(f'{e:.3g}' for e in errs_auto)} of max |plain| "
+            f"(limit {tol:g}); two runs bit-equal")
+        del q, k, v, do, o, got, again, want, auto, qa, ka, va
+
+    # ---- times at the training shapes, the L2 evicted before each launch
+    evict = torch.empty(L2_FLUSH_BYTES // 4, device=DEVICE)
+    before = hide_host(evict)
+    # per call at each shape, measured; summed over a step's calls only as
+    # a figure derived from them (the profiled step of (n2) measures the
+    # step's RMSNorm backward time itself)
+    rms = dict(shapes={}, derived_per_step=dict(
+        ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0))
+    for name, x, dy, calls in train_bwd_cases(gen, TRAIN_LAYERS):
+        w = randn(gen, (x.shape[-1],), x.dtype)
+        k_ms = cuda_ms(lambda: rk.rmsnorm_bwd(x, w, dy), before=before)[0]
+        p_ms = cuda_ms(lambda: rref.rmsnorm_bwd(x, w, dy), reps=3)[0]
+        xl, wl = (t.detach().requires_grad_() for t in (x, w))
+        out = F.rms_norm(xl, (x.shape[-1],), wl, eps=1e-6)
+        l_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (xl, wl), dy, retain_graph=True), before=before)[0]
+        n = x.numel()
+        b_ms = (3 * n + 2 * x.shape[-1]) * x.element_size() \
+            / MEM_BYTES_PER_S * 1e3
+        rms["shapes"][name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                   bound_ms=b_ms, calls_per_step=calls)
+        if not rms.get("ms"):               # the first shape: ln1/ln2/final
+            rms.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                       bound_ms=b_ms)
+        for key, val in (("ms", k_ms), ("plain_ms", p_ms),
+                         ("library_ms", l_ms), ("bound_ms", b_ms)):
+            rms["derived_per_step"][key] += val * calls
+        log(f"(n1) RMSNorm backward {name} bf16: kernel {k_ms:.4f} ms, share "
+            f"of the byte bound {b_ms / k_ms:.3f} ({b_ms:.4f} ms); "
+            f"autograd through F.rms_norm {l_ms:.4f} ms; plain "
+            f"{p_ms:.3f} ms; {calls} calls a training step")
+        del x, dy, xl, wl, out
+    per = rms["derived_per_step"]
+    log(f"(n1) RMSNorm backward per training step ({TRAIN_LAYERS} layers), "
+        f"derived as each shape's time per call times its calls a step: "
+        f"kernel {per['ms']:.3f} ms, bound {per['bound_ms']:.3f} ms (share "
+        f"{per['bound_ms'] / per['ms']:.3f}), F.rms_norm's backward "
+        f"{per['library_ms']:.3f} ms, plain {per['plain_ms']:.3f} ms")
+
+    b, hq, hkv, sq, skv, d, causal, window, _ = FA_BWD_CASES[0]
+    bf = torch.bfloat16
+    q = randn(gen, (b, sq, hq, d), bf).transpose(1, 2)
+    k = randn(gen, (b, skv, hkv, d), bf).transpose(1, 2)
+    v = randn(gen, (b, skv, hkv, d), bf).transpose(1, 2)
+    do = randn(gen, (b, sq, hq, d), bf).transpose(1, 2)
+    o = fa.flash_attention(q, k, v)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                         enable_gqa=True)
+    runs = {"kernel": lambda: fa.flash_attention_bwd(q, k, v, o, do),
+            "library": lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                                   retain_graph=True)}
+    turns = {name: [] for name in runs}
+    for turn in range(2):
+        for name, fn in runs.items():
+            turns[name].append(cuda_ms(fn, reps=FA_REPS,
+                                       before=hide_host())[0])
+    k_ms, l_ms = (statistics.mean(turns[n]) for n in runs)
+    p_ms = cuda_ms(lambda: fref.attention_bwd(q, k, v, o, do), reps=3)[0]
+    byte_ms, op_ms = attention_bwd_bound_ms(b, hq, hkv, sq, skv, d, causal,
+                                            window, 2)
+    b_ms = max(byte_ms, op_ms)
+    log(f"(n1) attention backward at q ({b},{hq},{sq},{d}) k/v "
+        f"({b},{hkv},{skv},{d}) bf16 causal: kernel {k_ms:.4f} ms (turns "
+        f"{turns['kernel']}), share of the bound {b_ms / k_ms:.4f}, "
+        f"{k_ms / l_ms:.3f} x autograd through SDPA ({l_ms:.4f} ms, turns "
+        f"{turns['library']}); plain {p_ms:.3f} ms; bound {b_ms:.4f} ms "
+        f"(operations: five products at the bf16 tensor-core rate; bytes "
+        f"{byte_ms:.4f} ms); {TRAIN_LAYERS} calls a training step")
+    del q, k, v, do, o, qs, ks, vs, out, evict
+    torch.cuda.empty_cache()
+    fa_bwd = dict(ms=k_ms, ms_turns=turns["kernel"], plain_ms=p_ms,
+                  library_ms=l_ms, bound_ms=b_ms,
+                  bound_by="operations" if op_ms >= byte_ms else "bytes")
+    return rms, fa_bwd, worst
+
+
+def train_faults():
+    """name → (object, attribute, stand-in) patched into the kernel route
+    of one training step: one forward fault (phase (g)'s key/value head
+    map shifted by one head) and two backward faults (the attention
+    backward's dk of key/value head 0 zeroed; the RMSNorm backward's dw
+    summing all but the last quarter of its rows).  A stand-in for a
+    backward wrapper carries its own launch count: the real wrapper, which
+    it calls, counts through its module's name, which the patch rebinds."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ref as rref
+    from repro_torch.models import layers
+    real_fa, real_fa_bwd = fa.flash_attention, fa.flash_attention_bwd
+    real_rms_bwd = rk.rmsnorm_bwd
+
+    def shifted_heads(q, k, v, **kw):
+        return real_fa(q, k.roll(-1, 1), v.roll(-1, 1), **kw)
+
+    def dk_head_zeroed(*args, **kw):
+        dq, dk, dv = real_fa_bwd(*args, **kw)
+        dk[:, 0] = 0
+        return dq, dk, dv
+
+    def dw_rows_dropped(x, w, dy, eps=1e-6):
+        dx, dw = real_rms_bwd(x, w, dy, eps)
+        d = x.shape[-1]
+        xr, gr = x.reshape(-1, d), dy.reshape(-1, d)
+        n = xr.shape[0] // 4
+        _, tail = rref.rmsnorm_bwd(xr[-n:], w, gr[-n:], eps=eps)
+        return dx, (dw.float() - tail.float()).to(dw.dtype)
+
+    dk_head_zeroed.launches = dw_rows_dropped.launches = 0
+    return {"GQA map shifted by one head":
+            (layers.fa_ops, "attention", shifted_heads),
+            "attention backward: dk of key/value head 0 zeroed":
+            (fa, "flash_attention_bwd", dk_head_zeroed),
+            "RMSNorm backward: dw without the last quarter of the rows":
+            (rk, "rmsnorm_bwd", dw_rows_dropped)}
+
+
+# the planted faults each training reading is held against: the loss is
+# the forward's, so only the forward fault moves it
+TRAIN_FAULTS_READ = {
+    "loss": ("GQA map shifted by one head",),
+    "grad_norm": ("GQA map shifted by one head",
+                  "attention backward: dk of key/value head 0 zeroed"),
+    "mu": ("GQA map shifted by one head",
+           "attention backward: dk of key/value head 0 zeroed",
+           "RMSNorm backward: dw without the last quarter of the rows"),
+    "params": ("GQA map shifted by one head",
+               "attention backward: dk of key/value head 0 zeroed"),
+}
+# the training step against the same step through both kernels' plain
+# versions (phase (n2), 8 layers): |loss difference|; |grad_norm
+# difference| over the plain grad_norm; the largest over leaves of the
+# updated first moment's relative L2 difference (mu = 0.1 x the clipped
+# gradient after the first step); the largest share, over leaves, of
+# updated parameter elements that differ (the first AdamW step moves each
+# element by about lr times the sign of its gradient, so near-zero
+# gradients that flip sign set the clean reading).  On an H100 the clean
+# readings at seeds 0 and 1 were 1.345e-4 and 1.373e-4 (loss), 1.49e-4 and
+# 2.33e-4 (grad_norm), 0.0237 and 0.0264 (mu), 0.0648 and 0.0657 (params);
+# the planted faults read 0.0232 (loss, GQA map), 2.83e-3 and 0.0154
+# (grad_norm), 0.355 to 1.48 (mu), 0.180 and 0.776 (params) (PERF.md
+# section 6).  Each limit sits near the geometric mean of the largest
+# clean reading and the smallest fault's.
+TRAIN_TOL = {"loss": 2e-3, "grad_norm": 1e-3, "mu": 0.1, "params": 0.11}
+
+
+def train_readings(model, plain_model, opt_cfg, batch, seed: int,
+                   faults: bool):
+    """One training step from the weights of ``seed`` through the kernels
+    (as they are, and with each planted fault) against the same step
+    through both kernels' plain versions → readings
+    [(check, run, fault or None, value)], each printed."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.models import layers
+    from repro_torch.train.step import init_state, make_train_step
+    from repro_torch.models.common import leaves
+
+    dev = torch.device(DEVICE)
+    run = f"bf16 seed {seed}"
+
+    def fresh():
+        return init_state(model, torch.Generator(device=dev).manual_seed(seed))
+
+    def plain_rms(x, w, eps=1e-6, impl=None):
+        return rk.rmsnorm(x, w, eps, impl="ref")
+
+    state = fresh()
+    with mock.patch.object(layers, "rmsnorm", plain_rms):
+        state, met = make_train_step(plain_model, opt_cfg)(state, batch)
+    ref_loss, ref_gn = float(met["loss"]), float(met["grad_norm"])
+    ref_mu = [t.to("cpu", copy=True) for t in leaves(state["opt"]["mu"])]
+    ref_p = [t.to("cpu", copy=True) for t in leaves(state["params"])]
+    del state, met
+    torch.cuda.empty_cache()
+    out = []
+    patches = train_faults() if faults else {}
+    for fault, patch in {None: None, **patches}.items():
+        state = fresh()
+        with contextlib.ExitStack() as stack:
+            if patch is not None:
+                stack.enter_context(mock.patch.object(*patch))
+            state, met = make_train_step(model, opt_cfg)(state, batch)
+        loss, gn = float(met["loss"]), float(met["grad_norm"])
+        mu_err, p_share = 0.0, 0.0
+        for got, want in zip(leaves(state["opt"]["mu"]), ref_mu):
+            w = want.to(dev)
+            mu_err = max(mu_err, float(torch.linalg.vector_norm(got - w))
+                         / max(1e-30, float(torch.linalg.vector_norm(w))))
+        for got, want in zip(leaves(state["params"]), ref_p):
+            p_share = max(p_share, int(torch.count_nonzero(
+                got != want.to(dev))) / got.numel())
+        vals = {"loss": abs(loss - ref_loss),
+                "grad_norm": abs(gn - ref_gn) / ref_gn,
+                "mu": mu_err, "params": p_share}
+        log(f"(n2) {run}" + (f", fault '{fault}'" if fault else "")
+            + f": loss {loss:.6f} (plain {ref_loss:.6f}), grad_norm "
+            f"{gn:.6f} (plain {ref_gn:.6f}); readings " + ", ".join(
+                f"{k} {v:.4g}" for k, v in vals.items()))
+        out += [(k, run, fault, v) for k, v in vals.items()]
+        del state, met
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_loop_run(layers: int, ckpt, tag: str, card: str):
+    """qwen3-14b at full width cut to ``layers``, trained through
+    ``TrainLoop`` for TRAIN_STEPS steps from the weights of seed 0; with a
+    checkpoint directory ``ckpt``, in two loops: the first writes the
+    checkpoint at TRAIN_CKPT_STEP, the second restores it (held bit for bit
+    against the state it was written from) and trains on → readings."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models.common import leaves, tree_map
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import TrainLoop, TrainLoopConfig
+    from repro_torch.train.step import init_state, make_train_step
+
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rmsnorm import kernel as rk
+
+    dev = torch.device(DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_arch(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    check(cfg.d_model == QWEN["d"] and cfg.dtype == torch.bfloat16,
+          f"{TRAIN_ARCH} config changed")
+    model = build_model(cfg, remat_policy="full")
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                          total_steps=TRAIN_STEPS)
+    ds = SyntheticTokens(cfg.vocab, TRAIN_S, TRAIN_B, seed=0)
+    state = init_state(model, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    s_bytes = sum(t.numel() * t.element_size() for t in leaves(state))
+    log(f"{tag}, {layers} of its {full.n_layers} layers at full width "
+        f"(d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}): "
+        f"{n_params / 1e9:.3f} B parameters, train state {s_bytes / 1e9:.2f} "
+        f"GB (bf16 parameters, float32 mu and nu); B={TRAIN_B} S={TRAIN_S}, "
+        f"remat full, AdamW lr {TRAIN_LR} warmup {TRAIN_WARMUP}")
+
+    step_fn = make_train_step(model, opt_cfg)
+    # per step: device ms, and the peak allocated so far (GB)
+    step_ms, step_peak, profiled = [], [], {}
+
+    def timed(st, batch):
+        if len(step_ms) == TRAIN_PROFILE_STEP and ckpt is None:
+            res = []
+            before = (fa.flash_attention_bwd.launches,
+                      rk.rmsnorm_bwd.launches)
+            wall, busy, n_k, top = profile_window(
+                lambda _: res.append(step_fn(st, batch)), 1,
+                OUT / "train_step_trace.json")
+            # the backward wrappers' calls in the profiled step
+            calls = {"attention backward":
+                     fa.flash_attention_bwd.launches - before[0],
+                     "RMSNorm backward": rk.rmsnorm_bwd.launches - before[1]}
+            profiled.update(wall=wall, busy=busy, kernels=n_k, top=top,
+                            calls=calls)
+            step_ms.append(None)
+        else:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = [step_fn(st, batch)]
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        step_peak.append(round(torch.cuda.max_memory_allocated() / 1e9, 2))
+        return res[0]
+
+    if ckpt is not None:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    first = TrainLoop(timed, state, ds, TrainLoopConfig(
+        total_steps=TRAIN_CKPT_STEP if ckpt else TRAIN_STEPS,
+        checkpoint_every=TRAIN_CKPT_STEP,
+        checkpoint_dir=str(ckpt) if ckpt else None, log_every=1))
+    t0 = time.perf_counter()
+    out = first.run()
+    run1_s = time.perf_counter() - t0
+    metrics, last, restore_s = out["metrics"], first, None
+    opt_ms = None
+    if ckpt is not None:
+        # the saved state's bits summed per leaf; then it leaves the card
+        # and the restart restores the checkpoint there, each array checked
+        # against the SHA-256 its write recorded (no host copy of the
+        # state: the host holds a few arrays at once)
+        saved = [bit_sums(t) for t in leaves(first.state)]
+        like = tree_map(lambda t: torch.empty(0, device=t.device),
+                        first.state)
+        del state, first, last
+        torch.cuda.empty_cache()
+        last = TrainLoop(timed, like, ds, TrainLoopConfig(
+            total_steps=TRAIN_STEPS, checkpoint_dir=str(ckpt), log_every=1))
+        t0 = time.perf_counter()
+        resumed = last.try_restore()
+        restore_s = time.perf_counter() - t0
+        check(resumed and last.start_step == TRAIN_CKPT_STEP,
+              f"restart resumed={resumed} at step {last.start_step}")
+        check([bit_sums(t) for t in leaves(last.state)] == saved,
+              "the restored train state differs from the saved one")
+        log(f"{tag} checkpoint at step {TRAIN_CKPT_STEP} "
+            f"({s_bytes / 1e9:.1f} GB): written with the first loop's last "
+            f"step ({run1_s:.1f} s for {TRAIN_CKPT_STEP} steps and the "
+            f"write), restored in {restore_s:.1f} s, every array's digest "
+            f"and every leaf's bit sums equal to the saved state's")
+        del like, saved
+        last.ckpt = None          # the restart writes no second checkpoint
+        out = last.run()
+        metrics = metrics + out["metrics"]
+        shutil.rmtree(ckpt, ignore_errors=True)
+        # the optimizer alone, on zero gradients: its share of a step
+        from repro_torch.optim.adamw import adamw_update
+        grads = tree_map(torch.zeros_like, last.state["params"])
+        opt_ms = cuda_ms(lambda: adamw_update(
+            opt_cfg, last.state["params"], grads, last.state["opt"]),
+            reps=3, warm=1)[0]
+        del grads
+        log(f"{tag} AdamW update alone ({n_params / 1e9:.3f} B parameters): "
+            f"{opt_ms:.1f} ms; moving each parameter's bf16 value and "
+            f"gradient and float32 mu and nu in and out once takes "
+            f"{n_params * 22 / MEM_BYTES_PER_S * 1e3:.1f} ms")
+    total = torch.cuda.get_device_properties(0).total_memory
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    free_gb = (total - reserved) / 1e9
+    losses = [m["loss"] for m in metrics]
+    log(f"{tag} steps {[m['step'] for m in metrics]}: loss "
+        f"{[round(v, 4) for v in losses]}, grad_norm "
+        f"{[round(m['grad_norm'], 4) for m in metrics]}; peak allocated "
+        f"after each step (GB) {step_peak}")
+    check(out["final_step"] == TRAIN_STEPS and len(metrics) == TRAIN_STEPS
+          and all(np.isfinite(losses))
+          and all(np.isfinite(m["grad_norm"]) for m in metrics),
+          f"{tag} training gave {len(metrics)} steps, losses {losses}")
+    check(all(bool(torch.isfinite(t.float()).all())
+              for t in leaves(last.state["params"])),
+          f"{tag} parameters not finite after training")
+    timed_ms = [ms for i, ms in enumerate(step_ms) if i > 0 and ms]
+    med = statistics.median(timed_ms)
+    toks = TRAIN_B * TRAIN_S
+    log(f"{tag} train step: {med:.1f} ms median of steps after the first "
+        f"({[round(v, 1) for v in timed_ms]}; first {step_ms[0]:.1f} ms), "
+        f"{toks / med * 1e3:.0f} tokens/s; peak device memory "
+        f"{peak / 1e9:.2f} GB allocated, {reserved / 1e9:.2f} GB reserved "
+        f"of {total / 1e9:.2f} GB: {free_gb:.2f} GB free; {card}")
+    check(free_gb >= FREE_GB, f"{tag} leaves {free_gb:.2f} GB free, under "
+                              f"{FREE_GB:g}")
+    breakdown = None
+    if profiled and profiled["busy"] is None:
+        log(f"{tag} profiled step: the trace holds no kernel; device time "
+            f"not measured")
+    elif profiled:
+        parts, n_parts = kernel_parts(OUT / "train_step_trace.json")
+        bwd_ms = parts["attention backward"] + parts["RMSNorm backward"]
+        per_call = {name: n_parts[name] / n if n else None
+                    for name, n in profiled["calls"].items()}
+        breakdown = dict(host_ms=profiled["wall"], busy_ms=profiled["busy"],
+                         idle=1 - profiled["busy"] / profiled["wall"],
+                         backward_kernels_ms=bwd_ms,
+                         backward_kernels_share=bwd_ms / profiled["busy"],
+                         parts_ms=parts, parts_kernels=n_parts,
+                         backward_calls=profiled["calls"],
+                         kernels_per_backward_call=per_call)
+        log(f"{tag} profiled step {TRAIN_PROFILE_STEP}: host "
+            f"{profiled['wall']:.1f} ms, device busy {profiled['busy']:.1f} "
+            f"ms, idle share {breakdown['idle']:.3f}, {profiled['kernels']} "
+            f"kernels; the backward kernels {bwd_ms:.2f} ms, "
+            f"{breakdown['backward_kernels_share']:.3f} of the busy time; "
+            f"backward wrapper calls {profiled['calls']}, kernels in the "
+            f"trace per call {per_call}; "
+            f"device ms by part: " + ", ".join(
+                f"{k} {ms:.2f}" for k, ms in parts.items())
+            + "; largest kernels: " + "; ".join(
+                f"{k} {ms:.2f} ms" for k, ms in profiled["top"]))
+    return model, ds, opt_cfg, dict(
+        layers=layers, step_ms=med, step_ms_all=step_ms,
+        tokens_per_s=toks / med * 1e3, peak_gb=peak / 1e9,
+        reserved_gb=reserved / 1e9, free_gb=free_gb, losses=losses,
+        profile=breakdown, checkpoint_gb=s_bytes / 1e9 if ckpt else None,
+        checkpoint_restore_s=restore_s, adamw_ms=opt_ms)
+
+
+# kernel-name fragments → the part of a training step they are
+TRAIN_KERNEL_PARTS = (
+    ("attention backward", ("fa_bwd_",)),
+    ("RMSNorm backward", ("rmsnorm_bwd_",)),
+    ("attention forward", ("flash_attention",)),
+    ("RMSNorm forward", ("rmsnorm_rows", "rmsnorm_loop")),
+    ("matrix products", ("gemm", "nvjet", "sm90_", "cutlass", "xmma",
+                         "splitK")),
+    ("elementwise", ("elementwise",)),
+    ("reductions", ("reduce", "Reduce")),
+)
+
+
+def kernel_parts(trace_path):
+    """Device ms, and the number of kernels, of a profiled window by part
+    of the step (TRAIN_KERNEL_PARTS, the first match; "other" for the
+    rest) → (ms by part, kernels by part)."""
+    events = json.loads(Path(trace_path).read_text()).get("traceEvents", [])
+    out = {name: 0.0 for name, _ in TRAIN_KERNEL_PARTS}
+    out["other"] = 0.0
+    n = dict.fromkeys(out, 0)
+    for e in events:
+        if e.get("cat") != "kernel" or "dur" not in e:
+            continue
+        name = e.get("name", "")
+        part = next((p for p, keys in TRAIN_KERNEL_PARTS
+                     if any(k in name for k in keys)), "other")
+        out[part] += e["dur"] / 1e3
+        n[part] += 1
+    return out, n
+
+
+def bit_sums(t):
+    """Two sums over a tensor's bits read as integers, the second weighted
+    by position, with its shape and dtype: equal for equal tensors; for a
+    restored state (beside the digests the restore checks) the check that
+    no array went to the wrong leaf or changed a bit on its way."""
+    import torch
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()]
+    flat, plain, weighted = t.reshape(-1).view(ints), 0, 0
+    for lo in range(0, flat.numel(), 1 << 26):     # 2^26 elements at once
+        bits = flat[lo:lo + (1 << 26)].long()
+        pos = torch.arange(lo + 1, lo + 1 + bits.numel(),
+                           device=t.device) % 65521
+        plain += int(bits.sum())
+        weighted += int((bits * pos).sum())
+    return plain, weighted, tuple(t.shape), t.dtype
+
+
+def phase_train(card: str):
+    """(n2) qwen3-14b at full width trained through ``TrainLoop`` (the
+    main path: launches counted): TRAIN_LAYERS of its 40 layers for six
+    steps (times, memory, a profiled step), then TRAIN_CKPT_LAYERS with a
+    checkpoint at TRAIN_CKPT_STEP and a restart from it; then agreement
+    with the plain route at two weight seeds, each limit held against
+    planted faults."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.models.registry import build_model
+
+    t_phase = time.perf_counter()
+    # as launch/train.py runs: segments that grow in place, so a step's
+    # changing temporaries do not strand the card's memory in fragments
+    # (with fixed segments 14 GB sat reserved but unallocated at 8 layers)
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    runs = [(TRAIN_LAYERS, None, "(n2) qwen3-14b")]
+    if TRAIN_CKPT_DIR is not None:
+        runs.append((TRAIN_CKPT_LAYERS, TRAIN_CKPT_DIR,
+                     "(n2) qwen3-14b, checkpoint and restart"))
+    # ---- the main path: counts set to 0 just before, read just after
+    reset_counts()
+    rk.rmsnorm_bwd.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    readings = {}
+    for layers, ckpt, tag in runs:
+        model, ds, opt_cfg, readings[tag] = train_loop_run(layers, ckpt, tag,
+                                                           card)
+    launches = counts()
+    bwd_launches = {"rmsnorm_bwd": rk.rmsnorm_bwd.launches,
+                    "flash_attention_bwd": fa.flash_attention_bwd.launches}
+    # ----
+    n_l = sum(layers for layers, _, _ in runs) * TRAIN_STEPS
+    n_s = len(runs) * TRAIN_STEPS
+    want = {"flash_attention": 2 * n_l, "rmsnorm": 8 * n_l + n_s,
+            "flash_attention_bwd": n_l, "rmsnorm_bwd": 4 * n_l + n_s}
+    have = {"flash_attention": launches["flash_attention"],
+            "rmsnorm": launches["rmsnorm"], **bwd_launches}
+    log(f"(n2) launches in {n_s} steps: {have} (flash attention by route "
+        f"{launches['flash_attention_by_route']}; the forwards twice a "
+        f"layer, once more in the recompute of full remat)")
+    check(have == want and launches["flash_attention_by_route"]["simt"] == 0,
+          f"(n2) launches {have}, expected {want}")
+
+    # ---- agreement with both kernels' plain versions, one step from the
+    # weights of two seeds at the checkpoint run's cut; planted faults at
+    # the first
+    tag = runs[-1][2]
+    batch = ds.batch_at(0)
+    plain = build_model(model.cfg, remat_policy="full", attn_impl="ref")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    agree = train_readings(model, plain, opt_cfg, batch, 0, faults=True)
+    agree += train_readings(model, plain, opt_cfg, batch, 1, faults=False)
+    kept = [r for r in agree
+            if r[2] is None or r[2] in TRAIN_FAULTS_READ[r[0]]]
+    errors = check_limits(TRAIN_TOL, kept,
+                          f"(n2) agreement at {model.cfg.n_layers} layers")
+    log(f"(n2) agreement's peak device memory "
+        f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB reserved; phase "
+        f"(n2) {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    main = readings[runs[0][2]]
+    return launches, bwd_launches, dict(
+        main, checkpoint_run=readings.get(tag) if len(runs) > 1 else None,
+        agreement=errors, agreement_layers=model.cfg.n_layers,
+        seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -3348,17 +4071,33 @@ def main() -> int:
     t_start = time.perf_counter()
     max_err: list = []
     card = phase_setup()
+    t_last = [t_start]
+
+    def took(phase: str) -> None:
+        now = time.perf_counter()
+        log(f"{phase} took {now - t_last[0]:.1f} s")
+        t_last[0] = now
+    took("(a)")
     phase_kernel_vs_plain(max_err)
+    took("(b)")
     launches, totals, n_runs, cell_ms = phase_main_path(max_err)
+    took("(c)")
     phase_reconfig(max_err)
+    took("(d)")
     runtime_launches, runtime = phase_runtime(card, cell_ms)
+    took("(h)")
     serving_launches, serving = phase_serving(card)
+    took("(i)")
     verified_launches, verified = phase_verified(card)
+    took("(j)")
     err = max(max_err)
     check(err == 0.0, f"max abs error {err}")
     rms, rms_errs = phase_rmsnorm()
+    took("(e)")
     fa, fa_errs, fa_shares = phase_flash_attention()
+    took("(f)")
     model_launches, agree_errs = phase_model()
+    took("(g)")
     for name in ("rmsnorm", "flash_attention"):
         check(model_launches[name] > 0,
               f"the serving path never launched {name}")
@@ -3369,13 +4108,31 @@ def main() -> int:
                         ("hybrid", f"(l) {ZAMBA_ARCH}"),
                         ("audio", f"(l) {WHISPER_ARCH}")):
         paths[label], families[label] = phase_family(kind, card)
+        took(label)
+    log("(k) and (l) readings " + json.dumps(families))
+    paper_launches, paper = phase_paper_benchmarks(card)
+    took("(m)")
+    rms_bwd, fa_bwd, bwd_errs = phase_backward_kernels()
+    took("(n1)")
+    train_launches, bwd_launches, train = phase_train(card)
+    took("(n2)")
+    paths["(n) qwen3-14b training"] = train_launches
     by_path = {name: {label: n[name] for label, n in paths.items()}
                for name in ("rmsnorm", "flash_attention")}
     fa_by_route = {route: sum(n["flash_attention_by_route"][route]
                               for n in paths.values())
                    for route in model_launches["flash_attention_by_route"]}
-    log("(k) and (l) readings " + json.dumps(families))
-    paper_launches, paper = phase_paper_benchmarks(card)
+    for name, n in bwd_launches.items():
+        check(n > 0, f"training never launched {name}")
+    log("(n) readings " + json.dumps(train))
+    # kernels per backward wrapper call and device ms per step, counted in
+    # the profiled training step's trace (None where it holds no kernel)
+    prof = train["profile"] or {}
+    per_call = prof.get("kernels_per_backward_call",
+                        {"RMSNorm backward": None, "attention backward": None})
+
+    def step_part(part):
+        return prof["parts_ms"][part] if prof else None
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
@@ -3456,6 +4213,63 @@ def main() -> int:
         "at_zamba2_prefill_shape": fa["zamba2_shape"],
         "at_whisper_shapes": fa["whisper_shapes"],
         "model_agreement_max_abs_err": agree_errs,
+    }, {
+        "name": "rmsnorm_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm/kernel.py:38 (backward; no "
+                    "Pallas counterpart: the JAX package differentiates its "
+                    "plain version)",
+        "launches": bwd_launches["rmsnorm_bwd"],
+        "launches_by_path": {"(n) qwen3-14b training":
+                             bwd_launches["rmsnorm_bwd"]},
+        "kernel_launches_per_call": per_call["RMSNorm backward"],
+        "match": "dx and dw within 2^-7 (bfloat16) and 1e-4 (float32) of "
+                 "max |plain| of ref.rmsnorm_bwd and of autograd through "
+                 "ref.rmsnorm; two runs bit-equal",
+        "max_abs_err": bwd_errs[("rmsnorm", "bfloat16", "abs")],
+        "max_rel_err": bwd_errs[("rmsnorm", "bfloat16", "rel")],
+        "max_abs_err_float32": bwd_errs[("rmsnorm", "float32", "abs")],
+        "ms": rms_bwd["ms"],
+        "plain_ms": rms_bwd["plain_ms"],
+        "bound_ms": rms_bwd["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": rms_bwd["library_ms"],
+        "per": f"one call at qwen3-14b's ln1/ln2/final rows (B*S, 5120) "
+               f"bf16, B={TRAIN_B}, S={TRAIN_S}, timed with the L2 evicted; "
+               f"{4 * TRAIN_LAYERS + 1} calls at three shapes per training "
+               f"step of {TRAIN_LAYERS} layers",
+        "ms_per_training_step": step_part("RMSNorm backward"),
+        "derived_per_training_step": rms_bwd["derived_per_step"],
+        "shapes": rms_bwd["shapes"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:98 "
+                    "(backward; no Pallas counterpart: the JAX package "
+                    "differentiates its plain version)",
+        "launches": bwd_launches["flash_attention_bwd"],
+        "launches_by_path": {"(n) qwen3-14b training":
+                             bwd_launches["flash_attention_bwd"]},
+        "kernel_launches_per_call": per_call["attention backward"],
+        "match": "dq, dk and dv within 2^-7 (bfloat16) and 1e-4 (float32) "
+                 "of max |plain| of ref.attention_bwd and of autograd "
+                 "through ref.attention; two runs bit-equal",
+        "max_abs_err": bwd_errs[("flash_attention", "bfloat16", "abs")],
+        "max_rel_err": bwd_errs[("flash_attention", "bfloat16", "rel")],
+        "max_abs_err_float32": bwd_errs[("flash_attention", "float32",
+                                         "abs")],
+        "ms": fa_bwd["ms"],
+        "ms_turns": fa_bwd["ms_turns"],
+        "plain_ms": fa_bwd["plain_ms"],
+        "bound_ms": fa_bwd["bound_ms"],
+        "bound_by": fa_bwd["bound_by"],
+        "library_ms": fa_bwd["library_ms"],
+        "per": "one call at q (2, 40, 2048, 128), k/v (2, 8, 2048, 128) "
+               f"bf16 causal; {TRAIN_LAYERS} calls per training step",
+        "ms_per_training_step": step_part("attention backward"),
+        "training": train,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

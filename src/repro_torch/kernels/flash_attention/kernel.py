@@ -2,14 +2,16 @@
 
 Replaces the Pallas kernel ``_fa_kernel`` / ``flash_attention`` of the JAX
 package (``repro/kernels/flash_attention/kernel.py``) with two hand-written
-kernels, one function between them:
+forward kernels, one function between them, and one backward:
 
 - ``csrc/flash_attention_wgmma.cu``, the tensor-core route: bfloat16 at head
   dims 64, 112 and 128 (every model on the port's main path; 112 runs on the
   128-column tile with TMA's zero-filled columns), with TMA loads, a ring of
   K/V stages and ``wgmma`` products;
 - ``csrc/flash_attention.cu``, the SIMT route: float32 FMAs, for float32 and
-  for head dims 16 and 32.
+  for head dims 16 and 32;
+- ``csrc/flash_attention_bwd.cu``, the backward of both (SIMT, float32
+  sums), which recomputes the row statistics the forwards do not write.
 
 :func:`route` picks one from the dtype and head dim alone; a build or launch
 error raises, and no call ever falls back to the other route or to the
@@ -27,9 +29,15 @@ device decides: CUDA tensors launch a kernel (``flash_attention.launches``
 counts the launches, ``flash_attention.launches_by_route`` splits them by
 route), CPU tensors take the plain version
 :func:`repro_torch.kernels.flash_attention.ref.attention`, anything else
-raises.  ``impl="ref"`` asks for the plain version on any device and
-``impl="kernel"`` for the kernel, raising off a CUDA device.  Each library
-is built at its first launch (:class:`repro_torch.cuda_build.CudaLibrary`).
+raises.  Where autograd records (grad mode on, an input that requires
+grad) the call is a :class:`torch.autograd.Function` whose backward is
+:func:`flash_attention_bwd`, decided by the device in the same way: the
+backward kernel on CUDA tensors (``flash_attention_bwd.launches`` counts
+its calls, two kernel launches each), :func:`ref.attention_bwd` on CPU
+ones.  ``impl="ref"`` asks for the plain version on any device,
+differentiated by autograd, and ``impl="kernel"`` for the kernel, raising
+off a CUDA device.  Each library is built at its first launch
+(:class:`repro_torch.cuda_build.CudaLibrary`).
 """
 
 from __future__ import annotations
@@ -40,7 +48,6 @@ from typing import Optional
 import torch
 
 from repro_torch.cuda_build import CudaLibrary
-from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.flash_attention import ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -56,6 +63,10 @@ LIBRARY_WGMMA = CudaLibrary("flash_attention_wgmma", {
         ctypes.c_int),
     "flash_attention_wgmma_smem_bytes": ([_I], ctypes.c_int)})
 LIBRARIES = {"simt": LIBRARY, "wgmma": LIBRARY_WGMMA}
+LIBRARY_BWD = CudaLibrary("flash_attention_bwd", {
+    "flash_attention_bwd_launch": (
+        [_P] * 9 + [_I] * 6 + [_STRIDES, _I, _I, ctypes.c_float, _I, _P],
+        ctypes.c_int)})
 
 # dtype codes of the SIMT kernel's C interface; head dims each route takes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -106,14 +117,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be at least 1, got {window}")
     if skv == 0:
         raise ValueError("attention over no keys")
+    if _on_kernel_device(q, impl):
+        route(q.dtype, d)                   # raises for what no route takes
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Attention.apply(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal, window, scale)   # nothing to train
+
+
+def _on_kernel_device(q: torch.Tensor, impl: Optional[str]) -> bool:
+    """True for CUDA tensors (the kernels), False for CPU tensors with
+    ``impl=None`` (the plain versions); raises for anything else."""
     if q.device.type == "cpu" and impl is None:
-        return ref.attention(q, k, v, causal=causal, window=window,
-                             scale=scale)
+        return False
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}: "
                          f"it runs on a CUDA device")
-    return _launch(q, k, v, causal=causal, window=window, scale=scale,
-                   route=route(q.dtype, d))
+    return True
+
+
+def _forward(q, k, v, causal, window, scale):
+    """The forward of the tensors' device: a kernel, or the plain
+    version."""
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal=causal, window=window, scale=scale,
+                       route=route(q.dtype, q.shape[-1]))
+    return ref.attention(q, k, v, causal=causal, window=window, scale=scale)
+
+
+class _Attention(torch.autograd.Function):
+    """The forward and backward of one device: the kernels on CUDA
+    tensors, the plain versions on CPU ones.  Saves q, k, v (views, as
+    given) and the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out = _forward(q, k, v, causal, window, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.opts = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, scale = ctx.opts
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=causal,
+                                         window=window, scale=scale)
+        return dq, dk, dv, None, None, None
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -122,8 +171,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             route: str = "wgmma") -> torch.Tensor:
     """Launch one route's kernel on CUDA tensors that
     :func:`flash_attention` has validated.  Called with an explicit route
-    only to time the SIMT kernel against the tensor-core one."""
-    refuse_grad("flash_attention", q, k, v)
+    only to time the SIMT kernel against the tensor-core one; autograd does
+    not see this call."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     if route == "wgmma":
@@ -141,11 +190,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"B * Hq = {b * hq} exceeds {_MAX_GRID_Y}")
     else:
         raise ValueError(f"unknown flash-attention route {route!r}")
-    vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if (t.stride(3) != 1 or t.data_ptr() % 16
-                or any(s % vec for n, s in zip(t.shape[:3], t.stride()[:3])
-                       if n > 1)):
+        if not _rows_aligned(t):
             raise ValueError(f"{name} rows must be contiguous and 16-byte "
                              f"aligned, got strides {t.stride()}")
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
@@ -172,3 +218,66 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Each row of the last dimension contiguous and 16-byte aligned."""
+    vec = 16 // t.element_size()
+    return not (t.stride(3) != 1 or t.data_ptr() % 16
+                or any(s % vec for n, s in zip(t.shape[:3], t.stride()[:3])
+                       if n > 1))
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None):
+    """The gradients of :func:`flash_attention` → (dq, dk, dv), each
+    contiguous in its input's shape and dtype.  q, k, v and the options as
+    given to the forward, ``o`` its output, ``do`` the output's gradient at
+    any strides.  The device decides as in :func:`flash_attention`: the
+    backward kernel on CUDA tensors, :func:`ref.attention_bwd` on CPU
+    ones."""
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do "
+                         f"{tuple(do.shape)} {do.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if not _on_kernel_device(q, None):
+        return ref.attention_bwd(q, k, v, o, do, causal=causal,
+                                 window=window, scale=scale)
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    route(q.dtype, d)                       # the forward's dtypes and dims
+    if max(b * hq, b * hkv) > _MAX_GRID_Y:
+        raise ValueError(f"B * Hq = {b * hq} exceeds {_MAX_GRID_Y}")
+    if not _rows_aligned(do):
+        do = do.contiguous()                # e.g. an expanded gradient
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
+        if not _rows_aligned(t):
+            raise ValueError(f"{name} rows must be contiguous and 16-byte "
+                             f"aligned, got strides {t.stride()}")
+    dq = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, hkv, skv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, hkv, skv, d), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    stats = torch.empty((3, b, hq, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 15)(*(s for t in (q, k, v, o, do)
+                                         for s in t.stride()[:3]))
+    scale = scale if scale is not None else d ** -0.5
+    lib = LIBRARY_BWD.get()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr(), b, hq, hkv, sq, skv, d, strides, int(causal),
+            0 if window is None else int(window), float(scale),
+            DTYPES[q.dtype], stream)
+    LIBRARY_BWD.check(err, "flash_attention backward launch")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -1,4 +1,5 @@
-"""Binding of the CUDA RMSNorm kernel (``csrc/rmsnorm.cu``).
+"""Binding of the CUDA RMSNorm kernels, forward and backward, of one source
+(``csrc/rmsnorm.cu``).
 
 Replaces the Pallas kernel ``_rms_kernel`` / ``rmsnorm`` of the JAX
 package (``repro/kernels/rmsnorm/kernel.py``).  The TPU wrapper padded the
@@ -12,11 +13,17 @@ made on the way in.
 decides: a CUDA tensor launches the kernel (``rmsnorm.launches`` counts the
 launches), a CPU tensor takes the plain version
 :func:`repro_torch.kernels.rmsnorm.ref.rmsnorm`, anything else raises.
-``impl="ref"`` asks for the plain version on any device and
-``impl="kernel"`` for the kernel, raising off a CUDA device.  The library
-is built at first launch (:class:`repro_torch.cuda_build.CudaLibrary`).
-:func:`launch_plan` decides how the kernel splits the rows; the CPU tests
-check it.
+Where autograd records (grad mode on, an input that requires grad) the
+call is a :class:`torch.autograd.Function` whose backward is
+:func:`rmsnorm_bwd`, decided by the device in the same way: the
+backward kernel on a CUDA tensor (``rmsnorm_bwd.launches`` counts its
+calls, two kernel launches each), :func:`ref.rmsnorm_bwd` on a CPU one.
+``impl="ref"`` asks for the plain version on any device, differentiated
+by autograd, and ``impl="kernel"`` for the kernel, raising off a CUDA
+device.  Each library is built at its first launch
+(:class:`repro_torch.cuda_build.CudaLibrary`).  :func:`launch_plan` and
+:func:`bwd_plan` decide how the kernels split the rows; the CPU tests
+check them.
 """
 
 from __future__ import annotations
@@ -30,7 +37,6 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.cuda_build import CudaLibrary
-from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.rmsnorm import ref
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -39,7 +45,12 @@ LIBRARY = CudaLibrary("rmsnorm", {
         [_P, _P, _P, _LL, _I, _LL, _LL, _LL, _LL, _LL, ctypes.c_float, _I,
          _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "rmsnorm_blocks_per_sm": (
-        [_I] * 7 + [ctypes.POINTER(_I)], ctypes.c_int)})
+        [_I] * 7 + [ctypes.POINTER(_I)], ctypes.c_int),
+    "rmsnorm_bwd_launch": (
+        [_P] * 6 + [_LL, _I] + [_LL] * 10 + [ctypes.c_float] + [_I] * 6
+        + [_P], ctypes.c_int),
+    "rmsnorm_bwd_blocks_per_sm": (
+        [_I] * 6 + [ctypes.POINTER(_I)], ctypes.c_int)})
 
 # dtype codes of the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -187,7 +198,8 @@ def row_layout(x: torch.Tensor) -> Tuple[int, Tuple[int, int],
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
             impl: Optional[str] = None) -> torch.Tensor:
     """x: (..., D) with unit stride in D; weight: (D,) of x's dtype, float32
-    or bfloat16 → x's shape, contiguous, x's dtype."""
+    or bfloat16 → x's shape, contiguous, x's dtype.  Differentiable on
+    every route."""
     if impl not in (None, "ref", "kernel"):
         raise ValueError(f"unknown rmsnorm impl {impl!r}")
     if impl == "ref":
@@ -200,12 +212,54 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
                          f"bfloat16, got {x.dtype} and {weight.dtype}")
     if weight.device != x.device:
         raise ValueError(f"x on {x.device}, weight on {weight.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        _on_kernel_device(x, impl)
+        return _RMSNorm.apply(x, weight, eps)
+    return _forward(x, weight, eps, impl)   # nothing to differentiate
+
+
+rmsnorm.launches = 0
+
+
+def _on_kernel_device(x: torch.Tensor, impl: Optional[str]) -> bool:
+    """True for a CUDA tensor (the kernels), False for a CPU tensor with
+    ``impl=None`` (the plain versions); raises for anything else."""
     if x.device.type == "cpu" and impl is None:
-        return ref.rmsnorm(x, weight, eps=eps)
+        return False
     if x.device.type != "cuda":
         raise ValueError(f"no RMSNorm kernel for device {x.device}: it runs "
                          f"on a CUDA device")
-    refuse_grad("rmsnorm", x, weight)
+    return True
+
+
+def _forward(x, weight, eps, impl=None):
+    """The forward of ``x``'s device: the kernel, or the plain version."""
+    if _on_kernel_device(x, impl):
+        return _launch(x, weight, eps)
+    return ref.rmsnorm(x, weight, eps=eps)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The forward and backward of one device: the kernels on a CUDA
+    tensor, the plain versions on a CPU one."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _forward(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, weight, dy, ctx.eps)
+        return dx, dw, None
+
+
+def _launch(x: torch.Tensor, weight: torch.Tensor,
+            eps: float) -> torch.Tensor:
+    """The forward kernel on CUDA tensors that :func:`rmsnorm` has
+    validated."""
     d = x.shape[-1]
     if d > 1 and x.stride(-1) != 1:
         raise ValueError(f"x must have unit stride in its last dimension, "
@@ -236,4 +290,117 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
     return out
 
 
-rmsnorm.launches = 0
+# ------------------------------------------------------------- backward
+
+# threads of a backward block; the loads a thread keeps for the register
+# kernel (its instances in csrc/rmsnorm.cu)
+BWD_BLOCK = 256
+BWD_MAXV = (1, 2, 4, 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How the backward splits its rows.  ``kind`` "rows": a group of
+    ``tpr`` threads owns a row, each thread keeping ``maxv`` loads of
+    ``vec`` elements of x, dy and w in registers, ``BWD_BLOCK // tpr`` rows
+    a block at a time; "loop": one row a block, read twice."""
+    kind: str
+    vec: int
+    maxv: int
+    tpr: int
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(d: int, dtype: torch.dtype, aligned: bool) -> BwdPlan:
+    """The backward's split of rows of ``d`` elements of ``dtype``;
+    ``aligned`` as for :func:`launch_plan`, over x, dy, w, dx and dw.  The
+    threads of a row are the fewest powers of two that leave each at most
+    four loads (up to the whole block), so the block's rows share its dw
+    sums in at most 32 KB of shared memory; rows needing more than eight
+    loads a thread take the loop kernel."""
+    vec = 16 // dtype.itemsize
+    if not aligned or d % vec:
+        vec = 1
+    nv = d // vec
+    tpr = 1
+    while tpr < BWD_BLOCK and tpr * 4 < nv:
+        tpr *= 2
+    need = -(-nv // tpr)
+    maxv = next((m for m in BWD_MAXV if m >= need), None)
+    if maxv is None:
+        return BwdPlan("loop", 1, 0, BWD_BLOCK)
+    return BwdPlan("rows", vec, maxv, tpr)
+
+
+def _bwd_blocks_per_sm(plan: BwdPlan, dtype: torch.dtype, d: int,
+                       device) -> int:
+    key = ("bwd", plan, dtype, d, device.index)
+    if key not in _LIMITS:
+        val = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = LIBRARY.get().rmsnorm_bwd_blocks_per_sm(
+                DTYPES[dtype], KINDS[plan.kind], plan.vec, plan.maxv,
+                plan.tpr, d, ctypes.byref(val))
+        LIBRARY.check(err, "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
+        _LIMITS[key] = val.value
+    return _LIMITS[key]
+
+
+def _rows_of(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its rows fold into the kernels' three nested
+    dimensions with unit stride along a row, else a contiguous copy (an
+    expanded gradient, for one)."""
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        return t.contiguous()
+    try:
+        row_layout(t)
+    except ValueError:
+        return t.contiguous()
+    return t
+
+
+def rmsnorm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-6):
+    """The gradients of :func:`rmsnorm` → (dx, x's shape, contiguous, x's
+    dtype; dw, the weight's shape and dtype).  x, weight and eps as given
+    to the forward; dy of the output's shape and dtype, at any strides.
+    The device decides as in :func:`rmsnorm`: the backward kernel on CUDA
+    tensors, :func:`ref.rmsnorm_bwd` on CPU ones."""
+    if tuple(dy.shape) != tuple(x.shape) or dy.dtype != x.dtype \
+            or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device} "
+                         f"does not match x {tuple(x.shape)} {x.dtype}")
+    if not _on_kernel_device(x, None):
+        return ref.rmsnorm_bwd(x, weight, dy, eps=eps)
+    dy = _rows_of(dy)
+    d = x.shape[-1]
+    n_rows, (xn1, xn2), (xs0, xs1, xs2) = row_layout(x)
+    _, (dn1, dn2), (ds0, ds1, ds2) = row_layout(dy)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    dw = torch.empty((d,), dtype=weight.dtype, device=x.device)
+    if n_rows == 0 or d == 0:
+        return dx, dw.zero_()
+    size = x.element_size()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, weight, dy, dx, dw)) \
+        and all(st * size % 16 == 0
+                for st in (xs0, xs1, xs2, ds0, ds1, ds2))
+    plan = bwd_plan(d, x.dtype, aligned)
+    per_block = BWD_BLOCK // plan.tpr if plan.kind == "rows" else 1
+    tiles = -(-n_rows // per_block)
+    grid = max(1, min(tiles, _sm_count(x.device)
+                      * _bwd_blocks_per_sm(plan, x.dtype, d, x.device)))
+    partial = torch.empty((grid, d), dtype=torch.float32, device=x.device)
+    lib = LIBRARY.get()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.rmsnorm_bwd_launch(
+            x.data_ptr(), weight.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            dw.data_ptr(), partial.data_ptr(), n_rows, d, xn1, xn2, xs0,
+            xs1, xs2, dn1, dn2, ds0, ds1, ds2, float(eps), DTYPES[x.dtype],
+            KINDS[plan.kind], plan.vec, plan.maxv, plan.tpr, grid, stream)
+    LIBRARY.check(err, "rmsnorm backward launch")
+    rmsnorm_bwd.launches += 1
+    return dx, dw
+
+
+rmsnorm_bwd.launches = 0

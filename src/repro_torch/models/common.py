@@ -20,10 +20,12 @@ named in :data:`FLOAT32_LEAVES`, which stay float32 whatever it is.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence
+import functools
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +122,104 @@ class ArchConfig:
         return int(L * (attn + mlp + 2 * d) + self.vocab * d * 2)
 
 
+# ---------------------------------------------------------- parameter trees
+# Nested dictionaries of tensors (parameters, optimizer and train state),
+# flattened as ``jax.tree.flatten`` flattens a pytree of dicts: keys in
+# sorted order, depth first.  The order is what the optimizer's global-norm
+# sum and the checkpoint's array indices follow, so both packages number a
+# state's arrays alike.
+
+def leaves(tree: Any) -> List[Any]:
+    """Every leaf of ``tree``, dict keys in sorted order."""
+    return list(_walk(tree))
+
+
+def _walk(node: Any) -> Iterator[Any]:
+    if isinstance(node, dict):
+        for key in sorted(node):
+            yield from _walk(node[key])
+    else:
+        yield node
+
+
+def unflatten(like: Any, values: Sequence[Any]) -> Any:
+    """A tree of ``like``'s structure holding ``values`` in
+    :func:`leaves` order."""
+    it = iter(values)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {key: build(node[key]) for key in sorted(node)}
+        return next(it)
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more values than leaves")
+    return out
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` applied leaf by leaf over trees of one structure."""
+    if isinstance(tree, dict):
+        if any(not isinstance(r, dict) or sorted(r) != sorted(tree)
+               for r in rest):
+            raise ValueError("trees of different structure")
+        return {key: tree_map(fn, tree[key], *(r[key] for r in rest))
+                for key in sorted(tree)}
+    return fn(tree, *rest)
+
+
+# the top-level parameter subtrees whose leaves stack the layers along a
+# leading axis (the rest, ``lm`` and zamba2's ``shared``, are unstacked)
+STACKED = frozenset({"layers", "enc", "dec"})
+
+
+# ------------------------------------------------------------------- remat
+
+# the JAX package's remat policies: ``jax.checkpoint`` around each layer
+# body ("full"), with ``checkpoint_dots`` ("dots"), or not at all ("none")
+REMAT_POLICIES = ("none", "full", "dots")
+
+# the matrix products whose outputs "dots" keeps (what jnp.matmul and
+# einsum reach at the dispatcher), as ``checkpoint_dots`` keeps
+# dot_general's
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def checked_remat_policy(policy: str) -> str:
+    """``policy``, or a ValueError naming the policies there are."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {policy!r} not in {REMAT_POLICIES}")
+    return policy
+
+
+def remat(body: Callable, policy: str) -> Callable:
+    """``body`` as one layer of a training forward under ``policy``:
+    "full" keeps only its inputs and recomputes it in the backward
+    (``torch.utils.checkpoint`` without reentry), "dots" keeps the matrix
+    products' outputs as well (a selective-checkpoint policy), "none"
+    keeps everything.  The recompute launches the forward kernels again.
+    With grad mode off (serving) the body runs as it is."""
+    if checked_remat_policy(policy) == "none":
+        return body
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return body(*args)
+        return ckpt.checkpoint(body, *args, **kw)
+    return run
+
+
 # --------------------------------------------------------------- init utils
 
 def dense_init(gen: torch.Generator, shape: Sequence[int],
@@ -190,3 +290,28 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
             raise ValueError(f"{path}: {t.dtype}, config says {cfg.dtype}")
         return t
     return conv(tree, "", "")
+
+
+def state_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
+                     device=None) -> Dict[str, Any]:
+    """The JAX package's train state ``{"params", "opt": {"mu", "nu",
+    "step"}}``, after ``jax.tree.map(np.asarray, state)``, as the port's:
+    the parameters through :func:`params_from_numpy`, the optimizer's
+    float32 moments and int32 step as they are, bit for bit, so both
+    packages can start from one mid-schedule state."""
+    opt = tree["opt"]
+
+    def moments(node, path):
+        if isinstance(node, dict):
+            return {k: moments(v, f"{path}/{k}") for k, v in node.items()}
+        t = array_to_tensor(np.asarray(node), device)
+        if t.dtype != torch.float32:
+            raise ValueError(f"{path}: {t.dtype}, moments are float32")
+        return t
+    step = array_to_tensor(np.asarray(opt["step"]), device)
+    if step.dtype != torch.int32 or step.dim() != 0:
+        raise ValueError(f"opt/step: {step.dtype} {tuple(step.shape)}, "
+                         f"must be an int32 scalar")
+    return {"params": params_from_numpy(tree["params"], cfg, device),
+            "opt": {"mu": moments(opt["mu"], "opt/mu"),
+                    "nu": moments(opt["nu"], "opt/nu"), "step": step}}

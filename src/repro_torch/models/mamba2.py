@@ -19,7 +19,8 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models import overlay_ops
-from repro_torch.models.common import ArchConfig, dense_init
+from repro_torch.models.common import (ArchConfig, checked_remat_policy,
+                                       dense_init, remat)
 from repro_torch.models.transformer import layer_params
 
 
@@ -117,7 +118,10 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     # contracted as C·Bᵀ, then × the decay matrix, then × xdt
     Lmat = rounded(_segsum(dA).exp_())                          # (b,c,h,l,l)
     cb = C_ @ B_.transpose(-1, -2)                              # (b,c,l,s)
-    y_diag = Lmat.mul_(cb[:, :, None]) @ xdt_h                  # (b,c,h,l,p)
+    # in place unless autograd keeps Lmat (exp's output) for the backward
+    Lmat = Lmat * cb[:, :, None] if Lmat.requires_grad \
+        else Lmat.mul_(cb[:, :, None])
+    y_diag = Lmat @ xdt_h                                       # (b,c,h,l,p)
     del Lmat, cb
 
     # chunk-final states: sum_l B_l decay_l xdt_l
@@ -200,12 +204,15 @@ def mamba_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
 class MambaLM:
     """Decoder-only Mamba2 LM (attention-free).  ``ssd_dtype`` is the
     JAX package's lever of the same name (float32 or bfloat16 for the
-    large SSD tensors)."""
+    large SSD tensors); ``remat_policy`` checkpoints each layer body in
+    training (:func:`repro_torch.models.common.remat`)."""
 
     def __init__(self, cfg: ArchConfig,
-                 ssd_dtype: torch.dtype = torch.float32):
+                 ssd_dtype: torch.dtype = torch.float32,
+                 remat_policy: str = "full"):
         self.cfg = cfg
         self.ssd_dtype = ssd_dtype
+        self.remat_policy = checked_remat_policy(remat_policy)
 
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
         """Random parameters drawn from ``gen``, on ``gen``'s device."""
@@ -234,8 +241,9 @@ class MambaLM:
                              f"input_embeds")
         cfg = self.cfg
         x = params["lm"]["embed"][tokens]
+        body = remat(self._layer_train, self.remat_policy)
         for i in range(cfg.n_layers):
-            x = self._layer_train(x, layer_params(params["layers"], i))
+            x = body(x, layer_params(params["layers"], i))
         if last_only:
             x = x[:, -1:]
         x = L.rmsnorm(x, params["lm"]["final_norm"], cfg.norm_eps)

@@ -112,8 +112,8 @@ class MoeLM(DenseLM):
     does, whatever ``moe_grouped`` says."""
 
     def __init__(self, cfg: ArchConfig, attn_impl=None,
-                 moe_grouped: bool = False):
-        super().__init__(cfg, attn_impl=attn_impl)
+                 moe_grouped: bool = False, remat_policy: str = "full"):
+        super().__init__(cfg, attn_impl=attn_impl, remat_policy=remat_policy)
         self.moe_grouped = moe_grouped
 
     def init(self, gen: torch.Generator) -> Dict[str, Any]:

@@ -26,30 +26,37 @@ from repro_torch.models.zamba2 import HybridLM
 SSD_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
-def build_model(cfg: ArchConfig, attn_impl: Optional[str] = None,
-                ssd_dtype: str = "f32", moe_grouped: bool = False,
-                parallel_block: bool = False):
-    """Family dispatch.  ``attn_impl``: None (the device decides), "ref"
-    or "kernel", for the families with attention; ``ssd_dtype`` ("f32" or
-    "bf16") and ``moe_grouped`` are the JAX package's levers for the ssm
-    and hybrid families and the moe family, and ``parallel_block`` the beyond-paper PaLM-style
-    block of the dense family; each is ignored by the families it does not
-    apply to, as in the JAX package."""
+def build_model(cfg: ArchConfig, remat_policy: str = "full",
+                attn_impl: Optional[str] = None, ssd_dtype: str = "f32",
+                moe_grouped: bool = False, parallel_block: bool = False):
+    """Family dispatch.  ``remat_policy`` ("full", "dots" or "none")
+    checkpoints each layer body of a training forward, as in the JAX
+    package (whose audio family takes "dots" as "full");
+    ``attn_impl``: None (the device decides), "ref" or "kernel", for the
+    families with attention; ``ssd_dtype`` ("f32" or "bf16") and
+    ``moe_grouped`` are the JAX package's levers for the ssm and hybrid
+    families and the moe family, and ``parallel_block`` the beyond-paper
+    PaLM-style block of the dense family; each is ignored by the families
+    it does not apply to, as in the JAX package."""
     if cfg.family in ("dense", "vlm"):
         return DenseLM(cfg, attn_impl=attn_impl,
-                       parallel_block=parallel_block)
+                       parallel_block=parallel_block,
+                       remat_policy=remat_policy)
     if cfg.family == "moe":
-        return MoeLM(cfg, attn_impl=attn_impl, moe_grouped=moe_grouped)
+        return MoeLM(cfg, attn_impl=attn_impl, moe_grouped=moe_grouped,
+                     remat_policy=remat_policy)
     if cfg.family in ("ssm", "hybrid"):
         if ssd_dtype not in SSD_DTYPES:
             raise ValueError(f"ssd_dtype {ssd_dtype!r} not in "
                              f"{sorted(SSD_DTYPES)}")
         if cfg.family == "ssm":
-            return MambaLM(cfg, ssd_dtype=SSD_DTYPES[ssd_dtype])
+            return MambaLM(cfg, ssd_dtype=SSD_DTYPES[ssd_dtype],
+                           remat_policy=remat_policy)
         return HybridLM(cfg, attn_impl=attn_impl,
-                        ssd_dtype=SSD_DTYPES[ssd_dtype])
+                        ssd_dtype=SSD_DTYPES[ssd_dtype],
+                        remat_policy=remat_policy)
     if cfg.family == "audio":
-        return EncDecLM(cfg, attn_impl=attn_impl)
+        return EncDecLM(cfg, attn_impl=attn_impl, remat_policy=remat_policy)
     raise ValueError(f"unknown family {cfg.family!r}")
 
 

@@ -3,7 +3,9 @@ nemotron-4-15b, and the internvl2 backbone).
 
 Parameters keep the JAX package's stacked layout (a leading layer axis on
 every per-layer tensor); where the JAX model scans over that axis, this one
-loops over the layer index in Python.
+loops over the layer index in Python.  Training bodies are checkpointed by
+``remat_policy`` (:func:`repro_torch.models.common.remat`), as the JAX
+model's are ``jax.checkpoint``-ed.
 """
 
 from __future__ import annotations
@@ -13,19 +15,23 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import (ArchConfig, checked_remat_policy,
+                                       remat)
 
 
 def layer_params(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Layer ``i`` of a stacked parameter tree: views, no copies."""
+    """Layer ``i`` of a stacked parameter tree: views, no copies.  A leaf
+    may also be a list of per-layer tensors (the train step hands the
+    layers over so, to take each layer's gradient on its own)."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
 
 
 class DenseLM:
     def __init__(self, cfg: ArchConfig, attn_impl: Optional[str] = None,
-                 parallel_block: bool = False):
+                 parallel_block: bool = False, remat_policy: str = "full"):
         self.cfg = cfg
+        self.remat_policy = checked_remat_policy(remat_policy)
         # None: the device decides (the flash kernel on a card, the plain
         # version on the CPU); "ref": the plain version; "kernel": the kernel
         self.attn_impl = attn_impl
@@ -77,8 +83,9 @@ class DenseLM:
             p = input_embeds.shape[1]
             x = torch.cat([input_embeds.to(x.dtype), x[:, p:]], dim=1)
         pos = torch.arange(tokens.shape[1], device=x.device)
+        body = remat(self._layer_train, self.remat_policy)
         for i in range(cfg.n_layers):
-            x = self._layer_train(x, layer_params(params["layers"], i), pos)
+            x = body(x, layer_params(params["layers"], i), pos)
         if last_only:
             x = x[:, -1:]
         x = L.rmsnorm(x, params["lm"]["final_norm"], cfg.norm_eps)

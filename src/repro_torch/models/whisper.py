@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers as L
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import (ArchConfig, checked_remat_policy,
+                                       remat)
 from repro_torch.models.transformer import layer_params
 
 # the encoder's frames at whisper's 30-second window
@@ -32,8 +33,13 @@ ENC_LEN = 1500
 
 
 class EncDecLM:
-    def __init__(self, cfg: ArchConfig, attn_impl: Optional[str] = None):
+    def __init__(self, cfg: ArchConfig, attn_impl: Optional[str] = None,
+                 remat_policy: str = "full"):
         self.cfg = cfg
+        # as in the JAX package, any policy but "none" checkpoints the whole
+        # body of each encoder and decoder layer ("dots" included)
+        self.remat_policy = checked_remat_policy(remat_policy)
+        self._remat = "none" if remat_policy == "none" else "full"
         # None: the device decides; "ref": the plain version; "kernel"
         self.attn_impl = attn_impl
 
@@ -62,13 +68,16 @@ class EncDecLM:
         cfg = self.cfg
         x = frames.to(cfg.dtype)
         pos = torch.arange(x.shape[1], device=x.device)
-        for i in range(cfg.enc_layers):
-            lp = layer_params(params["enc"], i)
+
+        def layer(x, lp):
             h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
             x = x + L.attention(lp["attn"], h, cfg, pos=pos, causal=False,
                                 attn_impl=self.attn_impl)
             h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-            x = x + L.mlp(lp["mlp"], h, cfg)
+            return x + L.mlp(lp["mlp"], h, cfg)
+        body = remat(layer, self._remat)
+        for i in range(cfg.enc_layers):
+            x = body(x, layer_params(params["enc"], i))
         return x
 
     # ------------------------------------------------------------ decoder
@@ -84,8 +93,8 @@ class EncDecLM:
         memory = self.encode(params, input_embeds)
         x = params["lm"]["embed"][tokens]
         pos = torch.arange(tokens.shape[1], device=x.device)
-        for i in range(cfg.n_layers):
-            lp = layer_params(params["dec"], i)
+
+        def layer(x, lp, memory):
             h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
             x = x + L.attention(lp["attn"], h, cfg, pos=pos,
                                 attn_impl=self.attn_impl)
@@ -93,7 +102,10 @@ class EncDecLM:
             x = x + L.attention(lp["xattn"], h, cfg, pos=pos, memory=memory,
                                 attn_impl=self.attn_impl)
             h = L.rmsnorm(x, lp["ln3"], cfg.norm_eps)
-            x = x + L.mlp(lp["mlp"], h, cfg)
+            return x + L.mlp(lp["mlp"], h, cfg)
+        body = remat(layer, self._remat)
+        for i in range(cfg.n_layers):
+            x = body(x, layer_params(params["dec"], i), memory)
         if last_only:
             x = x[:, -1:]
         x = L.rmsnorm(x, params["lm"]["final_norm"], cfg.norm_eps)

@@ -17,15 +17,16 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import ArchConfig, remat
 from repro_torch.models.mamba2 import MambaLM
 from repro_torch.models.transformer import layer_params
 
 
 class HybridLM(MambaLM):
     def __init__(self, cfg: ArchConfig, attn_impl: Optional[str] = None,
-                 ssd_dtype: torch.dtype = torch.float32):
-        super().__init__(cfg, ssd_dtype=ssd_dtype)
+                 ssd_dtype: torch.dtype = torch.float32,
+                 remat_policy: str = "full"):
+        super().__init__(cfg, ssd_dtype=ssd_dtype, remat_policy=remat_policy)
         # None: the device decides; "ref": the plain version; "kernel"
         self.attn_impl = attn_impl
 
@@ -74,10 +75,18 @@ class HybridLM(MambaLM):
         cfg = self.cfg
         x = params["lm"]["embed"][tokens]
         pos = torch.arange(tokens.shape[1], device=x.device)
-        for i in range(cfg.n_layers):
-            x = self._layer_train(x, layer_params(params["layers"], i))
+
+        def layer(x, lp, shared, i):
+            # one body with the shared block after it, as the JAX model's
+            # checkpointed body holds both
+            x = self._layer_train(x, lp)
             if self.attn_site(i) is not None:
-                x = self._shared_block(params["shared"], x, pos)
+                x = self._shared_block(shared, x, pos)
+            return x
+        body = remat(layer, self.remat_policy)
+        for i in range(cfg.n_layers):
+            x = body(x, layer_params(params["layers"], i), params["shared"],
+                     i)
         if last_only:
             x = x[:, -1:]
         x = L.rmsnorm(x, params["lm"]["final_norm"], cfg.norm_eps)

@@ -1,0 +1,3 @@
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init,  # noqa: F401
+                                     adamw_update, clip_by_global_norm,
+                                     lr_schedule)

@@ -1,1 +1,3 @@
-from repro_torch.train.step import make_prefill_step, make_serve_step  # noqa: F401
+from repro_torch.train.step import (init_state, make_prefill_step,  # noqa
+                                    make_serve_step, make_train_step)
+from repro_torch.train.loop import TrainLoop, TrainLoopConfig  # noqa: F401
