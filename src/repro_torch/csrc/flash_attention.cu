@@ -42,7 +42,10 @@
 // accumulator stay in the registers of the 16 threads that share ty; row
 // reductions are 16-lane shuffles.  Loads are 16 bytes a thread; the ragged
 // ends of Sq and Skv are masked in the kernel (keys past Skv count as absent,
-// not as masked), so no length needs to divide 64.
+// not as masked), so no length needs to divide 64.  When the caller passes a
+// `stats` buffer (autograd's forward) the epilogue also writes each row's
+// max m and sum l, the row statistics the backward
+// (csrc/flash_attention_bwd.cu) reads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,8 +106,9 @@ __device__ __forceinline__ float row16_sum(float v) {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int hq,
-                       int group, int sq, int skv, long long qsb,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ stats, int hq, int group, int sq,
+                       int skv, long long qsb,
                        long long qsh, long long qss, long long ksb,
                        long long ksh, long long kss, long long vsb,
                        long long vsh, long long vss, int causal, int window,
@@ -256,6 +260,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty * 4 + i;
     if (row >= sq) continue;
     const float denom = l[i] == 0.0f ? 1.0f : l[i];
+    if (stats != nullptr && tx == 0) {
+      const long long idx = (long long)blockIdx.y * sq + row;
+      stats[idx] = m[i];
+      stats[(long long)gridDim.y * sq + idx] = l[i];
+    }
     T* orow = out + ((long long)blockIdx.y * sq + row) * D + tx * DC;
 #pragma unroll
     for (int c = 0; c < DC; ++c) orow[c] = from_f<T>(acc[i][c] / denom);
@@ -263,9 +272,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int hq, int hkv, int sq, int skv, const long long* st, int causal,
-           int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* stats, int b, int hq, int hkv, int sq, int skv,
+           const long long* st, int causal, int window, float scale,
+           cudaStream_t stream) {
   constexpr size_t smem = (size_t)(3 * D * BQ + BK * BQ) * sizeof(float);
   static_assert(BQ == BK, "the shared-memory layout assumes BQ == BK");
   // per device and cheap, so set on every launch
@@ -276,7 +286,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   const dim3 grid((sq + BQ - 1) / BQ, b * hq);
   flash_attention_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), hq, hq / hkv, sq, skv,
+      static_cast<const T*>(v), static_cast<T*>(out), stats, hq, hq / hkv,
+      sq, skv,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
       window, scale);
   return (int)cudaGetLastError();
@@ -284,19 +295,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 
 template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v, void* out,
-             int b, int hq, int hkv, int sq, int skv, const long long* st,
-             int causal, int window, float scale, cudaStream_t stream) {
+             float* stats, int b, int hq, int hkv, int sq, int skv,
+             const long long* st, int causal, int window, float scale,
+             cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, out, b, hq, hkv, sq, skv, st,
-                                  causal, window, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, out, b, hq, hkv, sq, skv, st,
-                                  causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, b, hq, hkv, sq, skv, st,
-                                  causal, window, scale, stream);
-    case 112: return launch<T, 112>(q, k, v, out, b, hq, hkv, sq, skv, st,
-                                    causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, b, hq, hkv, sq, skv, st,
-                                    causal, window, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, out, stats, b, hq, hkv, sq, skv,
+                                  st, causal, window, scale, s);
+    case 32: return launch<T, 32>(q, k, v, out, stats, b, hq, hkv, sq, skv,
+                                  st, causal, window, scale, s);
+    case 64: return launch<T, 64>(q, k, v, out, stats, b, hq, hkv, sq, skv,
+                                  st, causal, window, scale, s);
+    case 112: return launch<T, 112>(q, k, v, out, stats, b, hq, hkv, sq, skv,
+                                    st, causal, window, scale, s);
+    case 128: return launch<T, 128>(q, k, v, out, stats, b, hq, hkv, sq, skv,
+                                    st, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -308,19 +320,21 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* out,
 // all of it); d is 16, 32, 64, 112 or 128.  `strides` holds the element strides
 // of q, k and v over (batch, head, position), in that order, nine in all;
 // the last dimension is contiguous and every row 16-byte aligned.  `out` is
-// (b, hq, sq, d) contiguous.  window <= 0 means no window.
+// (b, hq, sq, d) contiguous.  `stats` is null, or float32 (2, b, hq, sq)
+// that receives each row's m and l.  window <= 0 means no window.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int b, int hq,
-                                      int hkv, int sq, int skv, int d,
-                                      const long long* strides, int causal,
-                                      int window, float scale, int dtype,
-                                      void* stream_ptr) {
+                                      const void* v, void* out, void* stats,
+                                      int b, int hq, int hkv, int sq, int skv,
+                                      int d, const long long* strides,
+                                      int causal, int window, float scale,
+                                      int dtype, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  float* st = static_cast<float*>(stats);
   if (dtype == 0)
-    return launch_d<float>(d, q, k, v, out, b, hq, hkv, sq, skv, strides,
+    return launch_d<float>(d, q, k, v, out, st, b, hq, hkv, sq, skv, strides,
                            causal, window, scale, stream);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(d, q, k, v, out, b, hq, hkv, sq, skv,
+    return launch_d<__nv_bfloat16>(d, q, k, v, out, st, b, hq, hkv, sq, skv,
                                    strides, causal, window, scale, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,10 +8,10 @@
 // this kernel is held against `jax.vjp` of that plain version and against
 // autograd through the port's plain version
 // (src/repro_torch/kernels/flash_attention/ref.py, whose `attention_bwd` is
-// the same algorithm).  It is the backward of both forward kernels
-// (csrc/flash_attention.cu and csrc/flash_attention_wgmma.cu), which it
-// leaves unchanged.  Binding: src/repro_torch/kernels/flash_attention/
-// kernel.py (ctypes).
+// the same algorithm).  It is the backward of the SIMT forward
+// (csrc/flash_attention.cu), whose route it shares: float32, and bfloat16
+// at head dims 16 and 32.  Binding: src/repro_torch/kernels/
+// flash_attention/kernel.py (ctypes).
 //
 // What it computes.  With S = scale q k^T, masked logits set to the finite
 // -1e30 of the forward (keys past Skv absent), P = softmax(S) by row, and
@@ -22,27 +22,29 @@
 // version's `where`; P is not relied on to be 0 there.  A row that sees no
 // key (a causal row before the first key when Sq > Skv) has P = 1/Skv on
 // every key, as in the forward, so dv receives do/Skv from it and its dq is
-// 0.  The forward writes no row statistics, so they are recomputed here: the
-// row max m and the sum l of exp(S - m) are kept apart (not m + log l, which
-// rounds to m for a row whose scores are all -1e30).
+// 0.  The row statistics, the max m and the sum l of exp(S - m) of each row,
+// come from the forward (csrc/flash_attention.cu writes them when asked),
+// kept apart (not m + log l, which rounds to m for a row whose scores are
+// all -1e30).
 //
-// What bounds it.  Eight products of 2 D operations per visible (query, key)
-// pair (S twice and dP in the dq launch; S, dP, dq's twin dk and dv in the
-// dk/dv launch) against a few bytes per element of q, k, v, o and do: bound
-// by operations.  This first backward does them as float32 FMAs outside the
-// tensor cores (67 TFLOP/s at most, against 989 in bfloat16 on them); a
-// tensor-core backward is later work (ROADMAP.md).
+// What bounds it.  Seven products of 2 D operations per visible (query, key)
+// pair (S, dP and dq in the dq launch; S, dP, dk and dv in the dk/dv launch)
+// against a few bytes per element of q, k, v, o and do: bound by
+// operations.  This backward does them as float32 FMAs outside the tensor
+// cores (67 TFLOP/s at most, against 989 in bfloat16 on them), so it serves
+// float32 and head dims 16 and 32; bfloat16 at D 64, 112 and 128 takes the
+// tensor-core backward of csrc/flash_attention_bwd_wgmma.cu.
 //
 // Design.  Two launches, each block owning its outputs, so no atomics and
 // the result is deterministic.  Tiles of 64 query rows and 64 keys, 256
 // threads as a 16 x 16 grid; operands are staged in shared memory in
 // float32, transposed where a product walks them by column.
 //   - `fa_bwd_dq`, one block per (batch * query head, 64-row query tile),
-//     heaviest causal tiles first: a pass over the key tiles for the row
-//     statistics (the forward's online max and sum), which it writes with
-//     Di; then a second pass that forms dS and adds dS k into registers;
-//     thread (ty, tx) owns rows 4ty..4ty+3 and D/16 columns.  180 KB of
-//     shared memory at D 128.
+//     heaviest causal tiles first: Di, which it writes for the second
+//     launch, then one pass over the key tiles that forms dS from the
+//     forward's statistics and adds dS k into registers; thread (ty, tx)
+//     owns rows 4ty..4ty+3 and D/16 columns.  180 KB of shared memory at D
+//     128.
 //   - `fa_bwd_dkv`, one block per (batch * key/value head, 64-key tile),
 //     key tile 0 first: for each query head of the group and each query
 //     tile that reaches the key tile, it recomputes P and dS from the
@@ -166,14 +168,15 @@ struct Attn {
   }
 };
 
-// dq, and the row statistics (m, l) and Di, per (batch * query head, query
-// tile).  stats holds three (B * Hq * Sq) float32 arrays: m, l, Di.
+// dq and Di per (batch * query head, query tile).  stats holds two
+// (B * Hq * Sq) float32 arrays, m and l; di receives Di.
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ o,
           const T* __restrict__ dout, T* __restrict__ dq,
-          float* __restrict__ stats, Attn A) {
+          const float* __restrict__ stats, float* __restrict__ di_out,
+          Attn A) {
   constexpr int VEC = 16 / sizeof(T), CH = D / VEC, DC = D / 16;
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;                       // [D][BQ], scaled
@@ -218,67 +221,20 @@ fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   const int n_kt = (A.skv + BK - 1) / BK;
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = MASKED;
-    l[i] = 0.0f;
-  }
-  // pass 1: the forward's online max and sum
-  for (int t = 0; t < n_kt; ++t) {
-    const int k0 = t * BK;
-    if (!A.tile_live(q0, i1, k0, min(k0 + BK, A.skv) - 1)) continue;
-    __syncthreads();
-    stage_t<T, D, BK>(Kt, kb, A.ks[2], k0, A.skv, 1.0f);
-    __syncthreads();
-    float s[4][4] = {};
-#pragma unroll 8
-    for (int dd = 0; dd < D; ++dd) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qt[dd * BQ + ty * 4]);
-      const float4 kk = *reinterpret_cast<const float4*>(&Kt[dd * BK + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float kv[4] = {kk.x, kk.y, kk.z, kk.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mx = MASKED;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx * 4 + j;
-        if (kp >= A.skv)
-          s[i][j] = -CUDART_INF_F;       // not a key: contributes nothing
-        else if (!A.visible(row, kp))
-          s[i][j] = MASKED;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row16_max(mx));
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - m_new);
-      l[i] = l[i] * expf(m[i] - m_new) + row16_sum(sum);
-      m[i] = m_new;
-    }
-  }
-  float di[4];
+  const long long n = (long long)gridDim.y * A.sq;
+  float m[4], l[4], di[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
+    const long long idx = (long long)blockIdx.y * A.sq + row;
+    const bool in = row < A.sq;
+    m[i] = in ? stats[idx] : 0.0f;
+    l[i] = in ? stats[n + idx] : 1.0f;
     di[i] = Ds[ty * 4 + i];
-    if (tx == 0 && row < A.sq) {
-      const long long idx = (long long)blockIdx.y * A.sq + row;
-      const long long n = (long long)gridDim.y * A.sq;
-      stats[idx] = m[i];
-      stats[n + idx] = l[i];
-      stats[2 * n + idx] = di[i];
-    }
+    if (tx == 0 && in) di_out[idx] = di[i];
   }
 
-  // pass 2: dS, then dq += dS k
+  // dS, then dq += dS k
   float acc[4][DC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -356,7 +312,8 @@ __global__ void __launch_bounds__(NT)
 fa_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const T* __restrict__ dout,
            T* __restrict__ dk, T* __restrict__ dv,
-           const float* __restrict__ stats, Attn A, int batch) {
+           const float* __restrict__ stats, const float* __restrict__ di,
+           Attn A, int batch) {
   constexpr int DC = D / 16;
   extern __shared__ __align__(16) float smem[];
   float* Kt = smem;                       // [D][BK]
@@ -404,7 +361,7 @@ fa_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
         const long long idx = sbase + q0 + tid;
         Ms[tid] = in ? stats[idx] : 0.0f;
         Ls[tid] = in ? stats[n + idx] : 1.0f;
-        Dis[tid] = in ? stats[2 * n + idx] : 0.0f;
+        Dis[tid] = in ? di[idx] : 0.0f;
       }
       __syncthreads();
       float s[4][4] = {}, dp[4][4] = {};
@@ -499,8 +456,9 @@ constexpr size_t dkv_smem() {
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, void* dq, void* dk, void* dv, float* stats,
-           int b, const Attn& A, cudaStream_t stream) {
+           const void* dout, void* dq, void* dk, void* dv,
+           const float* stats, float* di, int b, const Attn& A,
+           cudaStream_t stream) {
   static_assert(BQ == BK, "the shared-memory layouts assume BQ == BK");
   // per device and cheap, so set on every launch
   cudaError_t e = cudaFuncSetAttribute(
@@ -517,27 +475,32 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const T* dt = static_cast<const T*>(dout);
   fa_bwd_dq<T, D><<<dim3((A.sq + BQ - 1) / BQ, b * A.hq), NT, dq_smem<D>(),
                     stream>>>(qt, kt, vt, static_cast<const T*>(o), dt,
-                              static_cast<T*>(dq), stats, A);
+                              static_cast<T*>(dq), stats, di, A);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   fa_bwd_dkv<T, D><<<dim3((A.skv + BK - 1) / BK, b * A.hkv), NT,
                      dkv_smem<D>(), stream>>>(
-      qt, kt, vt, dt, static_cast<T*>(dk), static_cast<T*>(dv), stats, A, b);
+      qt, kt, vt, dt, static_cast<T*>(dk), static_cast<T*>(dv), stats, di,
+      A, b);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v,
              const void* o, const void* dout, void* dq, void* dk, void* dv,
-             float* stats, int b, const Attn& A, cudaStream_t s) {
+             const float* st, float* di, int b, const Attn& A,
+             cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, dout, dq, dk, dv, stats, b, A, s);
-    case 32: return launch<T, 32>(q, k, v, o, dout, dq, dk, dv, stats, b, A, s);
-    case 64: return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, stats, b, A, s);
+    case 16:
+      return launch<T, 16>(q, k, v, o, dout, dq, dk, dv, st, di, b, A, s);
+    case 32:
+      return launch<T, 32>(q, k, v, o, dout, dq, dk, dv, st, di, b, A, s);
+    case 64:
+      return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, st, di, b, A, s);
     case 112:
-      return launch<T, 112>(q, k, v, o, dout, dq, dk, dv, stats, b, A, s);
+      return launch<T, 112>(q, k, v, o, dout, dq, dk, dv, st, di, b, A, s);
     case 128:
-      return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, stats, b, A, s);
+      return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, st, di, b, A, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -546,17 +509,19 @@ int launch_d(int d, const void* q, const void* k, const void* v,
 
 // Launches both kernels on `stream` and returns cudaGetLastError(); never
 // synchronises and allocates nothing.  dtype 0 is float32, 1 bfloat16 (every
-// tensor but `stats` of it); d is 16, 32, 64, 112 or 128.  `strides` holds
-// the element strides over (batch, head, position) of q, k, v, o and do, in
-// that order, fifteen in all; each last dimension is contiguous and every
-// row 16-byte aligned.  dq is (b, hq, sq, d), dk and dv (b, hkv, skv, d),
-// contiguous; `stats` is float32 scratch of 3 * b * hq * sq (it comes back
-// holding each row's m, l and Di).  window <= 0 means no window.
+// tensor but `stats` and `di` of it); d is 16, 32, 64, 112 or 128.
+// `strides` holds the element strides over (batch, head, position) of q, k,
+// v, o and do, in that order, fifteen in all; each last dimension is
+// contiguous and every row 16-byte aligned.  dq is (b, hq, sq, d), dk and
+// dv (b, hkv, skv, d), contiguous; `stats` is the forward's float32
+// (2, b, hq, sq) of each row's m and l; `di` is float32 scratch of
+// b * hq * sq.  window <= 0 means no window.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, void* stats, int b,
-    int hq, int hkv, int sq, int skv, int d, const long long* strides,
-    int causal, int window, float scale, int dtype, void* stream_ptr) {
+    const void* dout, void* dq, void* dk, void* dv, const void* stats,
+    void* di, int b, int hq, int hkv, int sq, int skv, int d,
+    const long long* strides, int causal, int window, float scale, int dtype,
+    void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   Attn A{hq, hkv, hq / hkv, sq, skv, causal, window, scale, {}, {}, {}, {},
          {}};
@@ -567,12 +532,14 @@ extern "C" int flash_attention_bwd_launch(
     A.os[i] = strides[9 + i];
     A.ds[i] = strides[12 + i];
   }
-  float* st = static_cast<float*>(stats);
+  const float* st = static_cast<const float*>(stats);
+  float* dd = static_cast<float*>(di);
   if (dtype == 0)
-    return launch_d<float>(d, q, k, v, o, dout, dq, dk, dv, st, b, A, stream);
+    return launch_d<float>(d, q, k, v, o, dout, dq, dk, dv, st, dd, b, A,
+                           stream);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(d, q, k, v, o, dout, dq, dk, dv, st, b, A,
-                                   stream);
+    return launch_d<__nv_bfloat16>(d, q, k, v, o, dout, dq, dk, dv, st, dd, b,
+                                   A, stream);
   return (int)cudaErrorInvalidValue;
 }
 

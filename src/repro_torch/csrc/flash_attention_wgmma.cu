@@ -58,7 +58,11 @@
 //               = the next 64 columns of D, stride byte offset = the next 8
 //               keys).
 // O stays in float32 registers; the epilogue writes O / l (l == 0 -> 1) as
-// bfloat16.  Where it rounds: q, k and v are bfloat16, and a bfloat16 x
+// bfloat16 and, when the caller passes a `stats` buffer (autograd's forward;
+// prefill, decode and serving pass none and pay nothing), each row's m and l
+// for the backward (csrc/flash_attention_bwd_wgmma.cu): m converted from the
+// log2 domain, l as summed.  The two stay apart, never m + log l, which
+// rounds to m for a row that sees no key.  Where it rounds: q, k and v are bfloat16, and a bfloat16 x
 // bfloat16 product is exact in float32, so S differs from the SIMT kernel's
 // only in the order of its sums; P -> bfloat16 before P V is the one new
 // rounding (unit roundoff 2^-8), bounded per output by 2^-8 times the plain
@@ -83,33 +87,23 @@
 // of the P V products and of the shared-memory traffic: at most 112/128 of
 // the D 128 kernel's rate, which is fine for a first kernel at this D.
 
-#include <cuda.h>           // CUtensorMap and its enums; the driver is reached
-                            // through cudaGetDriverEntryPoint, not -lcuda
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int BQ = 128;        // query rows per block
 constexpr int BK = 128;        // keys per tile
 constexpr int NS = 2;          // K/V stages in the ring
 constexpr int NT = 384;        // a producer and two consumer warpgroups
-constexpr int COLS = 64;       // bf16 columns in one swizzled 128-byte row
-constexpr int ROW_BYTES = 128;
-constexpr float MASKED = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Byte offsets in the block's shared memory, whose base is 1024-aligned (the
 // 128-byte swizzle's atom is 8 rows of 128 bytes).  A tile of R rows is
 // D / 64 boxes of R x 128 bytes, one after the other; D is the padded head
 // dim (Padded<112> = 128).
-template <int D>
-struct Padded {
-  static constexpr int value = (D + COLS - 1) / COLS * COLS;
-};
-
 template <int D>
 struct Layout {
   static constexpr int Q_BYTES = BQ * D * 2;
@@ -122,210 +116,15 @@ struct Layout {
   static constexpr int ALLOC = BYTES + 1024;           // room to align
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// spin until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of the 4-d map (D, S, H, B) at (d0, s0, h, b) into shared memory,
-// completing `bytes` of `bar`'s transaction count
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d0, int s0, int h,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::
-          "r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(s0),
-      "r"(h), "r"(b)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (in 16-byte units), layout 1 = 128-byte swizzle
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving reads or writes of an accumulator across the
-// asynchronous wgmma's issue and wait
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (64 x 128, f32) {=, +=} A (64 x 16) * B (16 x 128), A and B bf16 in
-// shared memory, both K-major
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                            uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate)
-      : "memory");
-}
-
-// d (64 x 128, f32) {=, +=} A (64 x 16) * B (16 x 128): A bf16 in registers,
-// B bf16 in shared memory, MN-major (the instruction's transpose bit)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                            const uint32_t (&a)[4], uint64_t b,
-                                            int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate)
-      : "memory");
-}
-
-// d (64 x 64, f32) {=, +=} A (64 x 16) * B (16 x 64): A bf16 in registers,
-// B bf16 in shared memory, MN-major (the instruction's transpose bit)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                           const uint32_t (&a)[4], uint64_t b,
-                                           int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
-      "%28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate)
-      : "memory");
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (D == 128)
-    wgmma_rs_n128(o, a, b, 1);
-  else
-    wgmma_rs_n64(o, a, b, 1);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// The accumulator fragment of a 64-row wgmma, as a thread of its warpgroup
-// holds it: element 4 * j + e sits at row 16 * warp + lane / 4 (+ 8 when
-// e >= 2) and column 8 * j + 2 * (lane % 4) + (e & 1).
 template <int D>
 __global__ void __launch_bounds__(NT, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
                              const __grid_constant__ CUtensorMap tm_v,
-                             __nv_bfloat16* __restrict__ out, int hq,
-                             int group, int sq, int skv, int causal,
-                             int window, float scale_log2) {
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ stats, int hq, int group,
+                             int sq, int skv, int causal, int window,
+                             float scale_log2) {
   constexpr int DP = Padded<D>::value;         // the tile's columns
   using L = Layout<DP>;
   constexpr int CH = DP / COLS;                 // 64-column boxes in a row
@@ -495,8 +294,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                              p[4 * kk + 3]};
-      wgmma_pv<DP>(o, a,
-                  smem_desc(vs + kk * 16 * ROW_BYTES, BK * ROW_BYTES, 1024));
+      wgmma_rs<DP>(o, a,
+                   smem_desc(vs + kk * 16 * ROW_BYTES, BK * ROW_BYTES, 1024));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -507,6 +306,20 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float l_0 = quad_sum(l0), l_1 = quad_sum(l1);
   const float inv0 = 1.0f / (l_0 == 0.0f ? 1.0f : l_0);
   const float inv1 = 1.0f / (l_1 == 0.0f ? 1.0f : l_1);
+  if (stats != nullptr && lane % 4 == 0) {
+    // the softmax ran in the log2 domain: m back to the scores' own units,
+    // a row that saw no key keeping the exact -1e30 of its masked scores
+    const long long n = (long long)gridDim.x * sq;
+    const long long i0 = (long long)bh * sq + row0;
+    if (row0 < sq) {
+      stats[i0] = m0 == MASKED ? MASKED : m0 * LN2;
+      stats[n + i0] = l_0;
+    }
+    if (row0 + 8 < sq) {
+      stats[i0 + 8] = m1 == MASKED ? MASKED : m1 * LN2;
+      stats[n + i0 + 8] = l_1;
+    }
+  }
   __nv_bfloat16* out0 = out + ((long long)bh * sq + row0) * D + t2;
   __nv_bfloat16* out1 = out0 + 8 * D;
 #pragma unroll
@@ -520,67 +333,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// error codes of this library beyond CUDA's own
-constexpr int ERR_NO_ENCODER = 10001;   // driver entry point not found
-constexpr int ERR_ENCODE = 10002;       // cuTensorMapEncodeTiled refused
-
-int encoder(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess) return (int)e;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr)
-      return ERR_NO_ENCODER;
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return 0;
-}
-
-// The 4-d map (D, S, H, B) of a (B, H, S, D) bfloat16 view with element
-// strides st[0..2] over (batch, head, position), loaded in boxes of 64
-// columns x `rows` positions under the 128-byte swizzle; rows past S, and
-// columns past d in the last box (d 112), read as zeros.  A dimension of extent 1 gets the stride it would have if
-// contiguous, since TMA wants every stride a nonzero multiple of 16 bytes.
-int make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d,
-             int s, int h, int b, const long long* st, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)h,
-                              (cuuint64_t)b};
-  cuuint64_t strides[3];
-  strides[0] = s > 1 ? (cuuint64_t)st[2] * 2 : (cuuint64_t)d * 2;
-  strides[1] = h > 1 ? (cuuint64_t)st[1] * 2 : strides[0] * s;
-  strides[2] = b > 1 ? (cuuint64_t)st[0] * 2 : strides[1] * h;
-  const cuuint32_t box[4] = {(cuuint32_t)COLS, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
-}
-
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int hq, int hkv, int sq, int skv, const long long* st, int causal,
-           int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* stats, int b, int hq, int hkv, int sq, int skv,
+           const long long* st, int causal, int window, float scale,
+           cudaStream_t stream) {
   EncodeTiled encode;
   int err = encoder(&encode);
   if (err) return err;
@@ -597,8 +354,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(b * hq, (sq + BQ - 1) / BQ);
   flash_attention_wgmma_kernel<D><<<grid, NT, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), hq, hq / hkv, sq, skv,
-      causal, window, scale * LOG2E);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), stats, hq, hq / hkv, sq,
+      skv, causal, window, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -610,24 +367,27 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 // `strides` holds the element strides of q, k and v over (batch, head,
 // position), in that order, nine in all; the last dimension is contiguous,
 // every base address 16-byte aligned and every stride of an extent above 1
-// a multiple of 8 elements.  `out` is (b, hq, sq, d) contiguous.  window <= 0
-// means no window.
+// a multiple of 8 elements.  `out` is (b, hq, sq, d) contiguous.  `stats` is
+// null, or float32 (2, b, hq, sq) that receives each row's m and l (the
+// backward's row statistics).  window <= 0 means no window.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
-                                            const void* v, void* out, int b,
-                                            int hq, int hkv, int sq, int skv,
-                                            int d, const long long* strides,
+                                            const void* v, void* out,
+                                            void* stats, int b, int hq,
+                                            int hkv, int sq, int skv, int d,
+                                            const long long* strides,
                                             int causal, int window,
                                             float scale, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  float* st = static_cast<float*>(stats);
   if (d == 64)
-    return launch<64>(q, k, v, out, b, hq, hkv, sq, skv, strides, causal,
+    return launch<64>(q, k, v, out, st, b, hq, hkv, sq, skv, strides, causal,
                       window, scale, stream);
   if (d == 112)
-    return launch<112>(q, k, v, out, b, hq, hkv, sq, skv, strides, causal,
-                       window, scale, stream);
+    return launch<112>(q, k, v, out, st, b, hq, hkv, sq, skv, strides,
+                       causal, window, scale, stream);
   if (d == 128)
-    return launch<128>(q, k, v, out, b, hq, hkv, sq, skv, strides, causal,
-                       window, scale, stream);
+    return launch<128>(q, k, v, out, st, b, hq, hkv, sq, skv, strides,
+                       causal, window, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -639,9 +399,5 @@ extern "C" int flash_attention_wgmma_smem_bytes(int d) {
 
 // Text of an error code, for the wrapper's exception.
 extern "C" const char* flash_attention_wgmma_error_string(int code) {
-  if (code == ERR_NO_ENCODER)
-    return "the driver has no cuTensorMapEncodeTiled";
-  if (code == ERR_ENCODE)
-    return "cuTensorMapEncodeTiled refused a q/k/v layout";
-  return cudaGetErrorString((cudaError_t)code);
+  return hopper::error_string(code);
 }

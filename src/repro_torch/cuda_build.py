@@ -2,8 +2,8 @@
 
 Each source is one shared library with a plain C interface: at first use
 ``nvcc`` compiles it for ``sm_90a`` into the checkout's ``build/``
-directory, under a name keyed on the hash of the source and the flags, and
-ctypes loads it.  Nothing is compiled, and CUDA is not touched, when a
+directory, under a name keyed on the hash of the source, the headers of
+``csrc/`` it includes and the flags, and ctypes loads it.  Nothing is compiled, and CUDA is not touched, when a
 module is imported.
 
 Every library exports ``<name>_error_string(int)``; its launch functions
@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -65,8 +66,9 @@ class CudaLibrary:
     def build(self, out_dir: Path) -> Path:
         """The library's path in ``out_dir``, compiled there by ``nvcc``
         unless a build of this source and these flags is already there."""
-        src = self.source.read_bytes()
-        digest = hashlib.sha256(src + " ".join(self.flags).encode())
+        digest = hashlib.sha256(b"".join(
+            p.read_bytes() for p in included(self.source)))
+        digest.update(" ".join(self.flags).encode())
         so = out_dir / f"{self.name}_{digest.hexdigest()[:16]}.so"
         if not so.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
@@ -90,6 +92,21 @@ class CudaLibrary:
         err.restype = ctypes.c_char_p
         self.builds += 1
         return lib
+
+
+def included(source: Path) -> List[Path]:
+    """``source`` and the files it includes by ``#include "name"`` from its
+    own directory, transitively, each once, in the order first reached."""
+    seen: List[Path] = []
+    todo = [source]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / name for name in re.findall(
+            r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M)]
+    return seen
 
 
 def nvcc() -> str:

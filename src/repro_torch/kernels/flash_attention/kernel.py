@@ -1,21 +1,26 @@
 """Binding of the CUDA flash-attention kernels.
 
 Replaces the Pallas kernel ``_fa_kernel`` / ``flash_attention`` of the JAX
-package (``repro/kernels/flash_attention/kernel.py``) with two hand-written
-forward kernels, one function between them, and one backward:
+package (``repro/kernels/flash_attention/kernel.py``) with hand-written
+kernels on two routes, a forward and a backward each:
 
-- ``csrc/flash_attention_wgmma.cu``, the tensor-core route: bfloat16 at head
-  dims 64, 112 and 128 (every model on the port's main path; 112 runs on the
-  128-column tile with TMA's zero-filled columns), with TMA loads, a ring of
-  K/V stages and ``wgmma`` products;
-- ``csrc/flash_attention.cu``, the SIMT route: float32 FMAs, for float32 and
-  for head dims 16 and 32;
-- ``csrc/flash_attention_bwd.cu``, the backward of both (SIMT, float32
-  sums), which recomputes the row statistics the forwards do not write.
+- the tensor-core route, bfloat16 at head dims 64, 112 and 128 (every model
+  on the port's main path, and the whole training path; 112 runs on the
+  128-column tile with TMA's zero-filled columns): the forward
+  ``csrc/flash_attention_wgmma.cu`` and the backward
+  ``csrc/flash_attention_bwd_wgmma.cu``, TMA loads into rings of stages
+  and ``wgmma`` products;
+- the SIMT route, float32 FMAs, for float32 and for head dims 16 and 32:
+  the forward ``csrc/flash_attention.cu`` and the backward
+  ``csrc/flash_attention_bwd.cu``.
 
-:func:`route` picks one from the dtype and head dim alone; a build or launch
-error raises, and no call ever falls back to the other route or to the
-plain version.  Where the TPU wrapper required both lengths to divide its
+:func:`route` picks one from the dtype and head dim alone, for the forward
+and the backward alike; a build or launch error raises, and no call ever
+falls back to the other route or to the plain version.  Each forward
+writes, when asked, each row's max m and sum l (``stats``, float32
+``(2, B, Hq, Sq)``, the meaning of :func:`ref.attention_stats`), which its
+backward reads instead of recomputing them; prefill, decode and serving
+ask for none.  Where the TPU wrapper required both lengths to divide its
 128-row blocks, the kernels mask the ragged ends themselves; and where the
 Pallas kernel gave 0 to a query row that sees no key (``Sq > Skv``,
 causal), they give the mean of v over every key, as the plain version does.
@@ -30,11 +35,13 @@ counts the launches, ``flash_attention.launches_by_route`` splits them by
 route), CPU tensors take the plain version
 :func:`repro_torch.kernels.flash_attention.ref.attention`, anything else
 raises.  Where autograd records (grad mode on, an input that requires
-grad) the call is a :class:`torch.autograd.Function` whose backward is
-:func:`flash_attention_bwd`, decided by the device in the same way: the
-backward kernel on CUDA tensors (``flash_attention_bwd.launches`` counts
-its calls, two kernel launches each), :func:`ref.attention_bwd` on CPU
-ones.  ``impl="ref"`` asks for the plain version on any device,
+grad) the call is a :class:`torch.autograd.Function` whose forward also
+keeps the row statistics and whose backward is :func:`flash_attention_bwd`
+on them, decided by the device in the same way: the route's backward
+kernel on CUDA tensors (``flash_attention_bwd.launches`` counts its calls,
+``launches_by_route`` splits them; three kernel launches a call on the
+tensor-core route, two on the SIMT route), :func:`ref.attention_bwd` on
+CPU ones.  ``impl="ref"`` asks for the plain version on any device,
 differentiated by autograd, and ``impl="kernel"`` for the kernel, raising
 off a CUDA device.  Each library is built at its first launch
 (:class:`repro_torch.cuda_build.CudaLibrary`).
@@ -53,32 +60,45 @@ from repro_torch.kernels.flash_attention import ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 LIBRARY = CudaLibrary("flash_attention", {"flash_attention_launch": (
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _STRIDES, _I, _I,
-     ctypes.c_float, _I, _P],
+    [_P] * 5 + [_I] * 6 + [_STRIDES, _I, _I, ctypes.c_float, _I, _P],
     ctypes.c_int)})
 LIBRARY_WGMMA = CudaLibrary("flash_attention_wgmma", {
     "flash_attention_wgmma_launch": (
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _STRIDES, _I, _I,
-         ctypes.c_float, _P],
+        [_P] * 5 + [_I] * 6 + [_STRIDES, _I, _I, ctypes.c_float, _P],
         ctypes.c_int),
     "flash_attention_wgmma_smem_bytes": ([_I], ctypes.c_int)})
 LIBRARIES = {"simt": LIBRARY, "wgmma": LIBRARY_WGMMA}
+# the backwards' C interfaces end alike: ..., scale, dtype (SIMT) or planted
+# fault (tensor cores), stream
 LIBRARY_BWD = CudaLibrary("flash_attention_bwd", {
     "flash_attention_bwd_launch": (
-        [_P] * 9 + [_I] * 6 + [_STRIDES, _I, _I, ctypes.c_float, _I, _P],
+        [_P] * 10 + [_I] * 6 + [_STRIDES, _I, _I, ctypes.c_float, _I, _P],
         ctypes.c_int)})
+LIBRARY_BWD_WGMMA = CudaLibrary("flash_attention_bwd_wgmma", {
+    "flash_attention_bwd_wgmma_launch": (
+        [_P] * 10 + [_I] * 6 + [_STRIDES, _I, _I, ctypes.c_float, _I, _P],
+        ctypes.c_int),
+    "flash_attention_bwd_wgmma_smem_bytes": ([_I, _I], ctypes.c_int)})
+BWD_LIBRARIES = {"simt": LIBRARY_BWD, "wgmma": LIBRARY_BWD_WGMMA}
 
 # dtype codes of the SIMT kernel's C interface; head dims each route takes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 112, 128)
 WGMMA_HEAD_DIMS = (64, 112, 128)
 WGMMA_BLOCK_ROWS = 128            # query rows per block of the wgmma kernel
+STATS_TILE = 64                   # rows a statistics tile of the wgmma backward
 _MAX_GRID_Y = 65535
+# the tensor-core backward's planted faults (chip_smoke.py's check that its
+# limits catch them): dS not zeroed under the mask; the group's last query
+# head left out of dK and dV
+BWD_FAULTS = {"dS not zeroed under the mask": 1,
+              "last query head of each group left out of dK/dV": 2}
 
 
 def route(dtype: torch.dtype, d: int) -> str:
-    """The kernel a CUDA call of this dtype and head dim takes: "wgmma"
-    (bfloat16 at D 64, 112 or 128) or "simt" (float32, or D 16 or 32)."""
+    """The kernels a CUDA call of this dtype and head dim takes, forward
+    and backward: "wgmma" (bfloat16 at D 64, 112 or 128) or "simt"
+    (float32, or D 16 or 32)."""
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if dtype not in DTYPES:
@@ -147,32 +167,48 @@ def _forward(q, k, v, causal, window, scale):
 class _Attention(torch.autograd.Function):
     """The forward and backward of one device: the kernels on CUDA
     tensors, the plain versions on CPU ones.  Saves q, k, v (views, as
-    given) and the output."""
+    given), the output and the row statistics (float32 (2, B, Hq, Sq):
+    1.3 MB a layer at qwen3-14b's training shape), which the backward
+    reads."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        out = _forward(q, k, v, causal, window, scale)
-        ctx.save_for_backward(q, k, v, out)
+        if q.device.type == "cuda":
+            b, hq, sq, d = q.shape
+            stats = torch.empty((2, b, hq, sq), dtype=torch.float32,
+                                device=q.device)
+            out = _launch(q, k, v, causal=causal, window=window, scale=scale,
+                          route=route(q.dtype, d), stats=stats)
+        else:
+            out = ref.attention(q, k, v, causal=causal, window=window,
+                                scale=scale)
+            stats = torch.stack(ref.attention_stats(
+                q, k, v, causal=causal, window=window, scale=scale))
+        ctx.save_for_backward(q, k, v, out, stats)
         ctx.opts = (causal, window, scale)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, stats = ctx.saved_tensors
         causal, window, scale = ctx.opts
         dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=causal,
-                                         window=window, scale=scale)
+                                         window=window, scale=scale,
+                                         stats=stats)
         return dq, dk, dv, None, None, None
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool = True, window: Optional[int] = None,
-            scale: Optional[float] = None,
-            route: str = "wgmma") -> torch.Tensor:
-    """Launch one route's kernel on CUDA tensors that
-    :func:`flash_attention` has validated.  Called with an explicit route
-    only to time the SIMT kernel against the tensor-core one; autograd does
-    not see this call."""
+            scale: Optional[float] = None, route: str = "wgmma",
+            stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch one route's forward kernel on CUDA tensors that
+    :func:`flash_attention` has validated; ``stats``, float32
+    (2, B, Hq, Sq) contiguous, receives the row statistics
+    (``flash_attention.stats_launches`` counts those launches).  Called
+    with an explicit route by :func:`flash_attention_bwd` and, to time the
+    SIMT kernel against the tensor-core one, by chip_smoke.py; autograd
+    does not see this call."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     if route == "wgmma":
@@ -197,14 +233,17 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    if stats is not None:
+        _check_stats(stats, q)
     strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v)
                                         for s in t.stride()[:3]))
     scale = scale if scale is not None else d ** -0.5
     lib = LIBRARIES[route].get()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                hq, hkv, sq, skv, d, strides, int(causal),
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if stats is None else stats.data_ptr(), b, hq, hkv, sq,
+                skv, d, strides, int(causal),
                 0 if window is None else int(window), float(scale))
         if route == "wgmma":
             err = lib.flash_attention_wgmma_launch(*args, stream)
@@ -213,11 +252,24 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     LIBRARIES[route].check(err, f"flash_attention launch ({route})")
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1
+    flash_attention.stats_launches += stats is not None
     return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
+flash_attention.stats_launches = 0
+
+
+def _check_stats(stats: torch.Tensor, q: torch.Tensor) -> None:
+    """Row statistics for q: float32 (2, B, Hq, Sq), contiguous, on q's
+    device."""
+    want = (2, *q.shape[:3])
+    if tuple(stats.shape) != want or stats.dtype != torch.float32 \
+            or stats.device != q.device or not stats.is_contiguous():
+        raise ValueError(f"stats must be float32 {want} contiguous on "
+                         f"{q.device}, got {stats.dtype} "
+                         f"{tuple(stats.shape)} on {stats.device}")
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:
@@ -231,26 +283,59 @@ def _rows_aligned(t: torch.Tensor) -> bool:
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None,
+                        stats: Optional[torch.Tensor] = None):
     """The gradients of :func:`flash_attention` → (dq, dk, dv), each
     contiguous in its input's shape and dtype.  q, k, v and the options as
     given to the forward, ``o`` its output, ``do`` the output's gradient at
-    any strides.  The device decides as in :func:`flash_attention`: the
-    backward kernel on CUDA tensors, :func:`ref.attention_bwd` on CPU
-    ones."""
+    any strides, ``stats`` the forward's row statistics (float32
+    ``(2, B, Hq, Sq)``: m, then l).  The device decides as in
+    :func:`flash_attention`: the route's backward kernel on CUDA tensors,
+    :func:`ref.attention_bwd` on CPU ones.  Without ``stats`` a CUDA call
+    first runs the route's forward kernel once more to get them (the cost
+    of one forward); autograd's backward always has them."""
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do "
                          f"{tuple(do.shape)} {do.dtype} must match q "
                          f"{tuple(q.shape)} {q.dtype}")
+    if stats is not None:
+        _check_stats(stats, q)
     if not _on_kernel_device(q, None):
         return ref.attention_bwd(q, k, v, o, do, causal=causal,
-                                 window=window, scale=scale)
+                                 window=window, scale=scale, stats=stats)
+    which = route(q.dtype, q.shape[-1])
+    if stats is None:
+        stats = torch.empty((2, *q.shape[:3]), dtype=torch.float32,
+                            device=q.device)
+        _launch(q, k, v, causal=causal, window=window, scale=scale,
+                route=which, stats=stats)
+    return _launch_bwd(q, k, v, o, do, stats, causal=causal, window=window,
+                       scale=scale, route=which)
+
+
+def _launch_bwd(q, k, v, o, do, stats, *, causal=True, window=None,
+                scale=None, route="wgmma", fault=0):
+    """Launch one route's backward kernels on CUDA tensors with the
+    forward's ``stats``.  Called with an explicit route by
+    :func:`flash_attention_bwd` and, to time the SIMT backward against the
+    tensor-core one on bfloat16 or to plant a fault (``BWD_FAULTS``), by
+    chip_smoke.py."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
-    route(q.dtype, d)                       # the forward's dtypes and dims
     if max(b * hq, b * hkv) > _MAX_GRID_Y:
         raise ValueError(f"B * Hq = {b * hq} exceeds {_MAX_GRID_Y}")
+    if route == "wgmma":
+        if q.dtype != torch.bfloat16 or d not in WGMMA_HEAD_DIMS:
+            raise ValueError(f"the wgmma backward takes bfloat16 at head "
+                             f"dims {WGMMA_HEAD_DIMS}, got {q.dtype} at {d}")
+        if -(-sq // STATS_TILE) > _MAX_GRID_Y:
+            raise ValueError(f"Sq = {sq} needs more than {_MAX_GRID_Y} "
+                             f"statistics tiles")
+    elif route != "simt":
+        raise ValueError(f"unknown flash-attention route {route!r}")
+    if fault and route != "wgmma":
+        raise ValueError("faults are planted in the wgmma backward only")
     if not _rows_aligned(do):
         do = do.contiguous()                # e.g. an expanded gradient
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
@@ -262,22 +347,35 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty((b, hkv, skv, d), dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    stats = torch.empty((3, b, hq, sq), dtype=torch.float32, device=q.device)
+    if route == "wgmma":    # (m log2 e, 1/l, Di) per 64-row tile
+        scratch = torch.empty(b * hq * -(-sq // STATS_TILE) * 3 * STATS_TILE,
+                              dtype=torch.float32, device=q.device)
+    else:                   # Di
+        scratch = torch.empty(b * hq * sq, dtype=torch.float32,
+                              device=q.device)
     strides = (ctypes.c_longlong * 15)(*(s for t in (q, k, v, o, do)
                                          for s in t.stride()[:3]))
     scale = scale if scale is not None else d ** -0.5
-    lib = LIBRARY_BWD.get()
+    lib = BWD_LIBRARIES[route].get()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats.data_ptr(), b, hq, hkv, sq, skv, d, strides, int(causal),
-            0 if window is None else int(window), float(scale),
-            DTYPES[q.dtype], stream)
-    LIBRARY_BWD.check(err, "flash_attention backward launch")
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                stats.data_ptr(), scratch.data_ptr(), b, hq, hkv, sq, skv, d,
+                strides, int(causal), 0 if window is None else int(window),
+                float(scale))
+        if route == "wgmma":
+            err = lib.flash_attention_bwd_wgmma_launch(*args, int(fault),
+                                                       stream)
+        else:
+            err = lib.flash_attention_bwd_launch(*args, DTYPES[q.dtype],
+                                                 stream)
+    BWD_LIBRARIES[route].check(err, f"flash_attention backward launch "
+                                    f"({route})")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_route[route] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_route = {"wgmma": 0, "simt": 0}

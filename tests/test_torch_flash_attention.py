@@ -12,7 +12,9 @@ rounding to that arithmetic, P -> bfloat16 before P V, and is held to
 :func:`tensor_core_limit`; a plain emulation of its arithmetic holds the
 limit itself on the CPU.  The ``gpu`` tests hold both CUDA kernels against
 the plain version on a card, over the cases ``chip_smoke.py`` runs at full
-size; run them there with ``python -m pytest -m gpu
+size, and each kernel's row statistics (the output autograd's forward asks
+for) against ``ref.attention_stats``, with the same output bits as without
+them; run them there with ``python -m pytest -m gpu
 tests/test_torch_flash_attention.py``.
 """
 
@@ -305,3 +307,32 @@ def test_cuda_tensor_core_kernel_on_the_heads_view(hq, hkv, d):
     share = ((got.float() - want.float()).abs()
              / tensor_core_limit(q, k, v, want)).max()
     assert got.is_contiguous() and share <= 1.0, float(share)
+
+
+@gpu
+@pytest.mark.parametrize("dtype,case", [
+    ("bfloat16", (2, 8, 2, 300, 300, 128, True, None)),
+    ("bfloat16", (1, 8, 8, 200, 130, 112, True, None)),
+    ("bfloat16", (1, 4, 4, 129, 257, 64, False, 100)),
+    ("bfloat16", (1, 8, 2, 100, 300, 64, True, 64)),
+    ("bfloat16", (1, 4, 4, 100, 100, 32, False, None)),
+    ("float32", (1, 4, 2, 130, 70, 64, True, None)),
+    ("float32", (1, 4, 2, 90, 90, 16, True, 8))], ids=str)
+def test_forward_kernels_write_the_stats(dtype, case):
+    """Each forward kernel's statistics against ``ref.attention_stats``
+    (m within 1e-5 of 1 + |m|, l within 1e-4 relative: the kernels sum in
+    another order and, on the tensor cores, with ex2.approx), and a
+    forward with statistics gives the same output bits as one without."""
+    b, hq, hkv, sq, skv, d, causal, window = case
+    q, k, v = (torch.from_numpy(a).to("cuda", getattr(torch, dtype))
+               for a in _qkv(b, hq, hkv, sq, skv, d, seed=14))
+    route = kernel.route(q.dtype, d)
+    stats = torch.empty((2, b, hq, sq), device="cuda")
+    with_stats = kernel._launch(q, k, v, causal=causal, window=window,
+                                route=route, stats=stats)
+    without = kernel._launch(q, k, v, causal=causal, window=window,
+                             route=route)
+    assert torch.equal(with_stats, without)
+    m, l = ref.attention_stats(q, k, v, causal=causal, window=window)
+    assert float(((stats[0] - m).abs() / (1 + m.abs())).max()) <= 1e-5
+    assert float(((stats[1] - l).abs() / l).max()) <= 1e-4

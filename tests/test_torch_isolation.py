@@ -87,7 +87,8 @@ from repro_torch.kernels.rmsnorm import kernel as rn
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 builds = (ox.LIBRARY.builds + rn.LIBRARY.builds + fa.LIBRARY.builds
-          + fa.LIBRARY_WGMMA.builds + fa.LIBRARY_BWD.builds)
+          + fa.LIBRARY_WGMMA.builds + fa.LIBRARY_BWD.builds
+          + fa.LIBRARY_BWD_WGMMA.builds)
 print(len(mods), builds, torch.cuda.is_initialized(), bad)
 """
 

@@ -2,14 +2,19 @@
 
 Each wrapper is a ``torch.autograd.Function`` whose forward and backward
 the device picks: on the card the CUDA kernels (``csrc/rmsnorm.cu``'s
-backward, ``csrc/flash_attention_bwd.cu``), on the CPU the plain versions
-``ref.rmsnorm_bwd`` and ``ref.attention_bwd``.  The JAX package trains
+backward; ``csrc/flash_attention_bwd_wgmma.cu`` for bfloat16 at D 64, 112
+and 128, ``csrc/flash_attention_bwd.cu`` otherwise), on the CPU the plain
+versions ``ref.rmsnorm_bwd`` and ``ref.attention_bwd``.  The JAX package trains
 through its plain jnp versions and has no backward kernel, so the plain
 backwards are held against ``jax.vjp`` of the JAX plain versions (float32,
 1e-5) over every mask case the forwards take, rows that see no key
 included; the plain route (``impl="ref"``, differentiated by autograd)
 gives the same gradients as ``jax.grad``.  On the card the kernels'
-gradients equal the plain route's.
+gradients equal the plain route's.  The tensor-core backward rounds P and
+dS to bfloat16 before the products that take them; a plain emulation of
+that arithmetic holds its limit (:func:`tensor_core_bwd_limit`, the one
+``chip_smoke.py`` holds the kernel to) on the CPU, where the limit also
+catches the two faults ``chip_smoke.py`` plants in the kernel.
 """
 
 import jax
@@ -26,6 +31,9 @@ from repro_torch.kernels.rmsnorm import kernel as rms
 from repro_torch.kernels.rmsnorm import ref as rms_ref
 
 GRAD_TOL = 1e-5
+# the tensor-core backward's limit: a max|plain| + r |plain| + ra plain(|.|)
+# (chip_smoke.py's BWD_TC_LIMIT, derived there)
+BWD_TC_LIMIT = (1e-5, 2.0 ** -7, 2.0 ** -7)
 
 
 def gpu(fn):
@@ -212,7 +220,9 @@ def test_backward_launch_plan(d, dtype, aligned, want):
 def test_kernels_gradients_equal_the_plain_routes_on_the_card(dtype, tol):
     """Through the kernels (the default route on the card) and through the
     plain versions (``impl="ref"``, autograd): each gradient within ``tol``
-    of the largest plain one; every backward launches its kernel."""
+    of the largest plain one, the attention's in bfloat16 (the tensor-core
+    backward) within :func:`tensor_core_bwd_limit` instead; every backward
+    launches its kernel."""
     rng = np.random.default_rng(9)
 
     def t(shape):
@@ -239,7 +249,192 @@ def test_kernels_gradients_equal_the_plain_routes_on_the_card(dtype, tol):
     want = grads("ref")
     for g, r in zip(got, want):
         assert g.dtype == r.dtype and g.shape == r.shape
+    tensor_cores = dtype == torch.bfloat16
+    for g, r in zip(got[:2] if tensor_cores else got,
+                    want[:2] if tensor_cores else want):
         err = float((g.float() - r.float()).abs().max())
         assert err <= tol * float(r.float().abs().max())
+    if tensor_cores:
+        o = attn_ref.attention(q, k, v)
+        limits = tensor_core_bwd_limit(q, k, v, o, do, want[2:])
+        assert _share(got[2:], want[2:], limits) <= 1.0
     again = grads(None)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# ------------------------------------------------- the tensor-core backward
+def _softmax_parts(q, k, v, o, do, causal, window):
+    """P, dS, the mask, and the query/key operands grouped, in float32."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    g = hq // hkv
+    logits, qf, mask = attn_ref._masked_logits(q, k, causal, window, None)
+    p = torch.softmax(logits, dim=-1)
+    dof, of = (t.float().reshape(b, hkv, g, sq, d) for t in (do, o))
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, v.float())
+    di = (dof * of).sum(-1, keepdim=True)
+    ds = torch.where(mask, p * (dp - di), 0.0)
+    return p, ds, mask, dof, of
+
+
+def tensor_core_bwd_limit(q, k, v, o, do, want, *, causal=True,
+                          window=None):
+    """The tensor-core backward's limit against ``want`` (the plain
+    backward's or autograd's gradients), elementwise: 1e-5 max|want| +
+    2^-7 |want| + 2^-7 plain(|.|), plain(|.|) = (scale |dS'| |k|, scale
+    |dS'|^T |q|, P^T |do|) with |dS'| = |dS| + P rowsum(|do| |o|): twice the
+    unit roundoff of P and dS in bfloat16 over the products that take
+    them, and of Di against autograd's unrounded output."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    p, ds, mask, dof, of = _softmax_parts(q, k, v, o, do, causal, window)
+    ds_abs = ds.abs() + torch.where(
+        mask, p * (dof.abs() * of.abs()).sum(-1, keepdim=True), 0.0)
+    scale = d ** -0.5
+    absq = q.float().abs().reshape(ds.shape[:3] + (sq, d))
+    plain_abs = (
+        scale * torch.einsum("bhgqk,bhkd->bhgqd", ds_abs, k.float().abs())
+        .reshape(b, hq, sq, d),
+        scale * torch.einsum("bhgqk,bhgqd->bhkd", ds_abs, absq),
+        torch.einsum("bhgqk,bhgqd->bhkd", p, dof.abs()))
+    a, r, ra = BWD_TC_LIMIT
+    return [a * float(w.float().abs().max()) + r * w.float().abs() + ra * pa
+            for w, pa in zip(want, plain_abs)]
+
+
+def tensor_core_bwd_emulation(q, k, v, o, do, *, causal=True, window=None,
+                              fault=None):
+    """The tensor-core backward's arithmetic, plain: float32 products of
+    bfloat16 operands, P and dS rounded to bfloat16 before dv = P^T do, dk
+    = scale dS^T q and dq = scale dS k, each gradient rounded to bfloat16.
+    ``fault`` plants one of the kernel's two planted faults."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    p, ds, mask, dof, _ = _softmax_parts(q, k, v, o, do, causal, window)
+    if fault == "dS not zeroed under the mask":
+        logits, _, _ = attn_ref._masked_logits(q, k, False, None, None)
+        m = torch.where(mask, logits, attn_ref.NEG_INF).amax(-1, True)
+        l = torch.exp(torch.where(mask, logits, attn_ref.NEG_INF) - m) \
+            .sum(-1, True)
+        raw = torch.exp(logits - m) / l
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, v.float())
+        di = (dof * o.float().reshape(dof.shape)).sum(-1, keepdim=True)
+        ds = torch.where(mask, ds, raw * (dp - di))
+    pb, dsb = (t.to(torch.bfloat16).float() for t in (p, ds))
+    qf = q.float().reshape(dof.shape)
+    if fault == "last query head of each group left out of dK/dV":
+        keep = torch.ones(hq // hkv)
+        keep[-1] = 0
+        pk, dsk = (t * keep[:, None, None] for t in (pb, dsb))
+    else:
+        pk, dsk = pb, dsb
+    scale = d ** -0.5
+    dq = scale * torch.einsum("bhgqk,bhkd->bhgqd", dsb, k.float())
+    dk = scale * torch.einsum("bhgqk,bhgqd->bhkd", dsk, qf)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", pk, dof)
+    return tuple(t.to(torch.bfloat16) for t in
+                 (dq.reshape(b, hq, sq, d), dk, dv))
+
+
+# (b, hq, hkv, sq, skv, d, causal, window): head dims 64, 112 and 128,
+# causal, windowed, not causal with Sq != Skv, rows that see no key, GQA
+# groups 1, 5 and 16
+TC_BWD_CASES = [
+    (1, 10, 2, 300, 300, 128, True, None),
+    (1, 10, 2, 256, 256, 128, True, 64),
+    (1, 8, 8, 200, 330, 64, False, None),
+    (1, 16, 16, 200, 130, 112, True, None),
+    (1, 16, 1, 130, 130, 128, True, None),
+    (1, 4, 4, 129, 257, 64, False, 100),
+    (2, 10, 2, 77, 77, 112, True, 16),
+]
+
+
+def _bwd_inputs(case, seed, device="cpu"):
+    b, hq, hkv, sq, skv, d, causal, window = case
+    rng = np.random.default_rng(seed)
+
+    def t(shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=device).to(torch.bfloat16)
+    q = t((b, sq, hq, d)).transpose(1, 2)          # heads views
+    k, v = (t((b, skv, hkv, d)).transpose(1, 2) for _ in "kv")
+    do = t((b, sq, hq, d)).transpose(1, 2)
+    return q, k, v, do
+
+
+def _share(got, want, limits):
+    """The largest |got - want| / limit; inf where got is not finite."""
+    if not all(bool(torch.isfinite(g.float()).all()) for g in got):
+        return float("inf")
+    return max(float(((g.float() - w.float()).abs() / lim).max())
+               for g, w, lim in zip(got, want, limits))
+
+
+@pytest.mark.parametrize("case", TC_BWD_CASES, ids=str)
+def test_tensor_core_bwd_arithmetic_lies_within_its_limit(case):
+    """The emulated tensor-core backward within its limit of the plain
+    backward and of autograd through the plain forward, in bfloat16."""
+    b, hq, hkv, sq, skv, d, causal, window = case
+    q, k, v, do = _bwd_inputs(case, seed=21)
+    kw = dict(causal=causal, window=window)
+    o = attn_ref.attention(q, k, v, **kw)
+    got = tensor_core_bwd_emulation(q, k, v, o, do, **kw)
+    want = attn_ref.attention_bwd(q, k, v, o, do, **kw)
+    ts = [a.detach().requires_grad_() for a in (q, k, v)]
+    auto = torch.autograd.grad(attn_ref.attention(*ts, **kw), ts, do)
+    for w in (want, auto):
+        share = _share(got, w, tensor_core_bwd_limit(q, k, v, o, do, w,
+                                                     **kw))
+        assert share <= 1.0, share
+
+
+@pytest.mark.parametrize("case,fault", [
+    (case, fault) for case in TC_BWD_CASES for fault in fa.BWD_FAULTS
+    if case[6] or case[7] or not fault.startswith("dS")], ids=str)
+def test_tensor_core_bwd_limit_catches_planted_faults(case, fault):
+    """Each planted fault exceeds the limit wherever it can show: the
+    mask's where the case masks a pair."""
+    b, hq, hkv, sq, skv, d, causal, window = case
+    q, k, v, do = _bwd_inputs(case, seed=21)
+    kw = dict(causal=causal, window=window)
+    o = attn_ref.attention(q, k, v, **kw)
+    bad = tensor_core_bwd_emulation(q, k, v, o, do, fault=fault, **kw)
+    want = attn_ref.attention_bwd(q, k, v, o, do, **kw)
+    assert _share(bad, want, tensor_core_bwd_limit(q, k, v, o, do, want,
+                                                   **kw)) > 1.0
+
+
+@gpu
+@pytest.mark.parametrize("case", TC_BWD_CASES, ids=str)
+def test_tensor_core_backward_on_the_card(case):
+    """The wgmma backward (three launches) against the plain backward and
+    autograd through the plain forward within its limit, given the
+    forward kernel's statistics as autograd gives them; two runs
+    bit-equal; each planted fault exceeds the limit where it can show."""
+    b, hq, hkv, sq, skv, d, causal, window = case
+    q, k, v, do = _bwd_inputs(case, seed=22, device="cuda")
+    kw = dict(causal=causal, window=window)
+    stats = torch.empty((2, b, hq, sq), device="cuda")
+    o = fa._launch(q, k, v, route="wgmma", stats=stats, **kw)
+    before = fa.flash_attention_bwd.launches_by_route["wgmma"]
+    got = fa.flash_attention_bwd(q, k, v, o, do, stats=stats, **kw)
+    again = fa.flash_attention_bwd(q, k, v, o, do, stats=stats, **kw)
+    assert fa.flash_attention_bwd.launches_by_route["wgmma"] == before + 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want = attn_ref.attention_bwd(q, k, v, o, do, **kw)
+    ts = [a.detach().requires_grad_() for a in (q, k, v)]
+    auto = torch.autograd.grad(attn_ref.attention(*ts, **kw), ts, do)
+    for w in (want, auto):
+        assert _share(got, w, tensor_core_bwd_limit(q, k, v, o, do, w,
+                                                    **kw)) <= 1.0
+    limits = tensor_core_bwd_limit(q, k, v, o, do, want, **kw)
+    for fault, code in fa.BWD_FAULTS.items():
+        if code == 1 and not (causal or window):
+            continue
+        bad = fa._launch_bwd(q, k, v, o, do, stats, route="wgmma",
+                             fault=code, **kw)
+        assert _share(bad, want, limits) > 1.0, fault
+    # without statistics the wrapper runs the forward for them
+    assert all(torch.equal(a, c) for a, c in zip(
+        got, fa.flash_attention_bwd(q, k, v, o, do, **kw)))
