@@ -2,7 +2,7 @@
 """Time the port's RMSNorm and overlay-executor kernels on one CUDA card.
 
     python3 benchmarks/torch_kernel_times.py [--src DIR] [--label NAME]
-                                             [--alternatives]
+                                             [--parts P,...] [--alternatives]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src/``),
 so two checkouts can be timed in turns on one card by one command, for
@@ -17,7 +17,14 @@ main paths:
   - RMSNorm: one qwen3-14b prefill step at B=4, S=4096 in bfloat16 (rows of
     5120, and rows of 128 through the transposed heads views of q and k),
     and the decode step's shapes, beside ``torch.nn.functional.rms_norm``
-    (phase (e)).
+    (phase (e));
+  - RMSNorm's backward (``rmsnorm_bwd``): qwen3-14b's three training
+    shapes at B=2, S=2048 in bfloat16 (rows of 5120; the q and k heads
+    views of 128 with a contiguous gradient), beside autograd through
+    ``torch.nn.functional.rms_norm`` (phase (n1)).
+
+``--parts`` picks which of ``executor``, ``rmsnorm`` and ``rmsnorm_bwd``
+run (default: all three).
 
 Each time is the median of ``--reps`` CUDA-event windows.  Before each
 window the L2 is evicted by reading a 100 MB scratch tensor and the card
@@ -57,6 +64,8 @@ SPECS = ((8, 8, 2), (32, 8, 2))
 # qwen3-14b's widths, and one prefill step's calls of each shape
 D, HQ, HKV, HD, LAYERS = 5120, 40, 8, 128, 40
 PREFILL_B, PREFILL_S, DECODE_B = 4, 4096, 4
+TRAIN_B, TRAIN_S, TRAIN_LAYERS = 2, 2048, 12
+PARTS = ("executor", "rmsnorm", "rmsnorm_bwd")
 # --alternatives: executor (work-items a thread, block), RMSNorm (threads,
 # vectors a thread) on rows of 5120 bf16
 EXEC_PLANS = ((8, 128), (8, 256), (4, 256), (4, 128), (2, 256), (1, 256))
@@ -243,15 +252,63 @@ def time_rmsnorm(reps: int, scratch) -> dict:
     return {"shapes": shapes, "prefill_step": step}
 
 
+def time_rmsnorm_bwd(reps: int, scratch) -> dict:
+    """The backward at qwen3-14b's training shapes: kernel ms, its share of
+    the byte bound (x, dy and dx once, w and dw once), autograd through
+    ``F.rms_norm`` on the same inputs, and the shapes' calls a step of
+    TRAIN_LAYERS layers."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import kernel
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+    b, s = TRAIN_B, TRAIN_S
+    cases = [("ln1/ln2/final (B*S, 5120)", lambda: randn(b, s, D),
+              2 * TRAIN_LAYERS + 1),
+             ("q_norm (B, 40, S, 128) view",
+              lambda: randn(b, s, HQ, HD).transpose(1, 2), TRAIN_LAYERS),
+             ("k_norm (B, 8, S, 128) view",
+              lambda: randn(b, s, HKV, HD).transpose(1, 2), TRAIN_LAYERS)]
+    shapes, step = {}, {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for name, make, calls in cases:
+        x = make()
+        dy = randn(*x.shape)
+        w = (torch.randn(x.shape[-1], generator=gen, device="cuda") * 0.1
+             + 1).to(bf)
+        k_ms = device_ms(lambda: kernel.rmsnorm_bwd(x, w, dy), reps, scratch)
+        xl, wl = (t.detach().requires_grad_() for t in (x, w))
+        out = F.rms_norm(xl, (x.shape[-1],), wl, 1e-6)
+        l_ms = device_ms(lambda: torch.autograd.grad(
+            out, (xl, wl), dy, retain_graph=True), reps, scratch)
+        byte_ms = (3 * x.numel() + 2 * x.shape[-1]) * 2 \
+            / MEM_BYTES_PER_S * 1e3
+        shapes[name] = {"ms": k_ms, "library_ms": l_ms, "bound_ms": byte_ms,
+                        "share": byte_ms / k_ms, "calls_per_step": calls}
+        for key, val in (("ms", k_ms), ("library_ms", l_ms),
+                         ("bound_ms", byte_ms)):
+            step[key] += calls * val
+        del x, dy, xl, wl, out
+    step["share"] = step["bound_ms"] / step["ms"]
+    return {"shapes": shapes, "train_step": step}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src/ directory whose repro_torch to time")
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help="comma-separated: " + ", ".join(PARTS))
     ap.add_argument("--alternatives", action="store_true",
                     help="also time the plans the wrappers did not choose")
     args = ap.parse_args()
+    parts = args.parts.split(",")
+    if not set(parts) <= set(PARTS):
+        ap.error(f"--parts takes {', '.join(PARTS)}")
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
     if not torch.cuda.is_available():
@@ -265,17 +322,27 @@ def main() -> int:
         else "not read"
     scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     result = {"label": args.label, "package": repro_torch.__file__,
-              "card": card, "reps": args.reps,
-              "overlay_exec": time_executor(args.reps, scratch),
-              "rmsnorm": time_rmsnorm(args.reps, scratch)}
+              "card": card, "reps": args.reps}
+    if "executor" in parts:
+        result["overlay_exec"] = time_executor(args.reps, scratch)
+        ex = result["overlay_exec"]["total"]
+        print(f"{args.label}: executor 12 cells {ex['ms']:.4f} ms "
+              f"({ex['with_host']:.4f} with the host); {card}")
+    if "rmsnorm" in parts:
+        result["rmsnorm"] = time_rmsnorm(args.reps, scratch)
+        rms = result["rmsnorm"]["prefill_step"]
+        print(f"{args.label}: RMSNorm per prefill step {rms['ms']:.3f} ms "
+              f"(share {rms['share']:.3f}, rms_norm "
+              f"{rms['library_ms']:.3f} ms); {card}")
+    if "rmsnorm_bwd" in parts:
+        result["rmsnorm_bwd"] = time_rmsnorm_bwd(args.reps, scratch)
+        for name, r in result["rmsnorm_bwd"]["shapes"].items():
+            print(f"{args.label}: RMSNorm backward {name} {r['ms']:.4f} ms "
+                  f"(share {r['share']:.3f} of {r['bound_ms']:.4f}; "
+                  f"autograd through rms_norm {r['library_ms']:.4f}); "
+                  f"{card}")
     if args.alternatives:
         result["alternatives"] = time_alternatives(args.reps, scratch)
-    ex, rms = result["overlay_exec"]["total"], \
-        result["rmsnorm"]["prefill_step"]
-    print(f"{args.label}: executor 12 cells {ex['ms']:.4f} ms "
-          f"({ex['with_host']:.4f} with the host), RMSNorm per prefill step "
-          f"{rms['ms']:.3f} ms (share {rms['share']:.3f}, rms_norm "
-          f"{rms['library_ms']:.3f} ms); {card}")
     for kind, runs in result.get("alternatives", {}).items():
         print(f"{args.label}: {kind} alternatives, ms in two turns: "
               + "; ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}"

@@ -514,6 +514,9 @@ def kernel_name(symbol: str) -> str:
                 k = symbol.index("E", j)
                 args.append(symbol[j + 2:k])
                 j = k + 1
+            elif symbol.startswith("Lb", j):
+                args.append("true" if symbol[j + 2] == "1" else "false")
+                j += 4
             else:
                 break
     return name + (f"<{','.join(args)}>" if args else "")
@@ -3593,6 +3596,7 @@ def phase_backward_kernels():
                                 ((6, 37), torch.float32),
                                 ((5, 20000), torch.float32),
                                 ((3, 7, 1280), torch.bfloat16))]
+    rms_faults = {}         # planted fault → its smallest error
     for name, x, dy in cases:
         dt = x.dtype
         tol = tol_of(BWD_TOL, dt)
@@ -3601,6 +3605,9 @@ def phase_backward_kernels():
         dx2, dw2 = rk.rmsnorm_bwd(x, w, dy)
         check(torch.equal(dx, dx2) and torch.equal(dw, dw2),
               f"RMSNorm backward {name}: two runs differ")
+        check(dx.stride() == rk.grad_like(x).stride(),
+              f"RMSNorm backward {name}: dx strides {dx.stride()}, x's "
+              f"{x.stride()}")
         rx, rw = rref.rmsnorm_bwd(x, w, dy)
         xa, wa = (t.detach().requires_grad_() for t in (x, w))
         ax, aw = torch.autograd.grad(rref.rmsnorm(xa, wa), (xa, wa), dy)
@@ -3610,11 +3617,32 @@ def phase_backward_kernels():
                                     "dx vs autograd", "dw vs autograd")):
             note("rmsnorm", dt, err, tol, f"RMSNorm backward {name} {what}")
         note_abs("rmsnorm", dt, ((dx, rx), (dw, rw)))
-        log(f"(n1) RMSNorm backward {name}: dx, dw against ref.rmsnorm_bwd "
-            f"{errs[0]:.3g}, {errs[1]:.3g} and autograd through ref.rmsnorm "
-            f"{errs[2]:.3g}, {errs[3]:.3g} of max |plain| (limit {tol:g}); "
-            f"two runs bit-equal")
+        # the ring kernel's planted faults: each beyond the limit
+        plan = rk.bwd_plan(x.shape[-1], dt,
+                           rk.bwd_operands(x, dy, w, dw)[3])
+        caught = {}
+        for fault, code in (rk.BWD_FAULTS.items()
+                            if plan.kind == "ring" else ()):
+            fx, fw = rk._launch_bwd(x, w, dy, 1e-6, fault=code)
+            caught[fault] = max(bwd_error(fx, rx), bwd_error(fw, rw))
+            check(caught[fault] > tol, f"RMSNorm backward {name}: the limit "
+                                       f"misses the planted fault '{fault}' "
+                                       f"({caught[fault]} <= {tol})")
+            rms_faults[fault] = min(rms_faults.get(fault, float("inf")),
+                                    caught[fault])
+            del fx, fw
+        log(f"(n1) RMSNorm backward {name}, {plan.kind} kernel"
+            f"{f' ({plan.load})' if plan.load else ''}: dx, dw against "
+            f"ref.rmsnorm_bwd {errs[0]:.3g}, {errs[1]:.3g} and autograd "
+            f"through ref.rmsnorm {errs[2]:.3g}, {errs[3]:.3g} of max "
+            f"|plain| (limit {tol:g}); two runs bit-equal; dx strides "
+            f"{dx.stride()}"
+            + ("; planted faults " + ", ".join(
+                f"{f} {e:.3g}" for f, e in caught.items()) if caught else ""))
         del dx, dw, dx2, dw2, rx, rw, ax, aw
+    check(set(rms_faults) == set(rk.BWD_FAULTS),
+          f"the RMSNorm backward's faults planted: {sorted(rms_faults)}")
+    worst["rmsnorm planted fault errors (smallest)"] = rms_faults
 
     # ---- attention: each case on its route (bfloat16 at D 64/112/128 on
     # the tensor cores, the rest SIMT), with the statistics the forward
@@ -3726,8 +3754,10 @@ def phase_backward_kernels():
         n = x.numel()
         b_ms = (3 * n + 2 * x.shape[-1]) * x.element_size() \
             / MEM_BYTES_PER_S * 1e3
-        rms["shapes"][name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                                   bound_ms=b_ms, calls_per_step=calls)
+        rms["shapes"][name] = dict(
+            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+            share_of_bound=b_ms / k_ms, ratio_to_library=k_ms / l_ms,
+            calls_per_step=calls)
         if not rms.get("ms"):               # the first shape: ln1/ln2/final
             rms.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                        bound_ms=b_ms)
@@ -3735,9 +3765,10 @@ def phase_backward_kernels():
                          ("library_ms", l_ms), ("bound_ms", b_ms)):
             rms["derived_per_step"][key] += val * calls
         log(f"(n1) RMSNorm backward {name} bf16: kernel {k_ms:.4f} ms, share "
-            f"of the byte bound {b_ms / k_ms:.3f} ({b_ms:.4f} ms); "
-            f"autograd through F.rms_norm {l_ms:.4f} ms; plain "
-            f"{p_ms:.3f} ms; {calls} calls a training step")
+            f"of the byte bound {b_ms / k_ms:.3f} ({b_ms:.4f} ms), "
+            f"{k_ms / l_ms:.3f} x autograd through F.rms_norm ({l_ms:.4f} "
+            f"ms); plain {p_ms:.3f} ms; {calls} calls a training step "
+            f"(launches a call: (n2)'s profiled step)")
         del x, dy, xl, wl, out
     per = rms["derived_per_step"]
     log(f"(n1) RMSNorm backward per training step ({TRAIN_LAYERS} layers), "
@@ -4020,15 +4051,16 @@ def train_loop_run(layers: int, ckpt, tag: str, card: str):
             res = []
             before = (fa.flash_attention_bwd.launches,
                       rk.rmsnorm_bwd.launches)
-            wall, busy, n_k, top = profile_window(
-                lambda _: res.append(step_fn(st, batch)), 1,
-                OUT / "train_step_trace.json")
+            with heads_view_copies() as copies:
+                wall, busy, n_k, top = profile_window(
+                    lambda _: res.append(step_fn(st, batch)), 1,
+                    OUT / "train_step_trace.json")
             # the backward wrappers' calls in the profiled step
             calls = {"attention backward":
                      fa.flash_attention_bwd.launches - before[0],
                      "RMSNorm backward": rk.rmsnorm_bwd.launches - before[1]}
             profiled.update(wall=wall, busy=busy, kernels=n_k, top=top,
-                            calls=calls)
+                            calls=calls, heads_view_copies=copies)
             step_ms.append(None)
         else:
             start = torch.cuda.Event(enable_timing=True)
@@ -4127,13 +4159,45 @@ def train_loop_run(layers: int, ckpt, tag: str, card: str):
         bwd_ms = parts["attention backward"] + parts["RMSNorm backward"]
         per_call = {name: n_parts[name] / n if n else None
                     for name, n in profiled["calls"].items()}
+        copies = profiled["heads_view_copies"]
+        # the RMSNorm backward's calls at each shape: q_norm's and k_norm's
+        # heads views (two a layer, tensor-map route), the rows of d_model
+        # (ln1, ln2, the final norm; bulk route)
+        routes = rms_bwd_routes(OUT / "train_step_trace.json")
+        heads = 2 * layers
+        rows = profiled["calls"]["RMSNorm backward"] - heads
+        by_route = {
+            route: dict(calls=calls, kernels=routes[route][0],
+                        kernels_per_call=routes[route][0] / calls,
+                        own_ms_per_kernel=routes[route][1]
+                        / max(1, routes[route][0]))
+            for route, calls in (("map", heads), ("bulk", rows))}
+        log(f"{tag} profiled step's RMSNorm backward: the heads views "
+            f"(tensor maps) {by_route['map']['kernels']} kernels for "
+            f"{heads} calls, {by_route['map']['own_ms_per_kernel']:.4f} ms "
+            f"a kernel's own run; the rows of {QWEN['d']} (bulk copies) "
+            f"{by_route['bulk']['kernels']} kernels for {rows} calls, "
+            f"{by_route['bulk']['own_ms_per_kernel']:.4f} ms; the loop "
+            f"kernel {routes['loop'][0]}")
+        check(routes["map"][0] == heads and routes["bulk"][0] == rows
+              and routes["loop"][0] == 0,
+              f"{tag}: RMSNorm backward kernels by route {routes}, expected "
+              f"one a call: {heads} heads views, {rows} rows")
         breakdown = dict(host_ms=profiled["wall"], busy_ms=profiled["busy"],
                          idle=1 - profiled["busy"] / profiled["wall"],
                          backward_kernels_ms=bwd_ms,
                          backward_kernels_share=bwd_ms / profiled["busy"],
                          parts_ms=parts, parts_kernels=n_parts,
                          backward_calls=profiled["calls"],
-                         kernels_per_backward_call=per_call)
+                         kernels_per_backward_call=per_call,
+                         heads_view_copies=copies,
+                         rmsnorm_bwd_by_route=by_route)
+        log(f"{tag} profiled step: autograd's backward of the q and k heads "
+            f"views (_split_heads) ran {copies['calls']} times and copied "
+            f"the RMSNorm backward's dx {copies['copies']} times")
+        check(copies["calls"] == 2 * layers and copies["copies"] == 0,
+              f"{tag}: the heads views' backward {copies}; expected "
+              f"{2 * layers} runs and no copy")
         log(f"{tag} profiled step {TRAIN_PROFILE_STEP}: host "
             f"{profiled['wall']:.1f} ms, device busy {profiled['busy']:.1f} "
             f"ms, idle share {breakdown['idle']:.3f}, {profiled['kernels']} "
@@ -4151,6 +4215,38 @@ def train_loop_run(layers: int, ckpt, tag: str, card: str):
         reserved_gb=reserved / 1e9, free_gb=free_gb, losses=losses,
         profile=breakdown, checkpoint_gb=s_bytes / 1e9 if ckpt else None,
         checkpoint_restore_s=restore_s, adamw_ms=opt_ms)
+
+
+@contextlib.contextmanager
+def heads_view_copies():
+    """Within the block, each ``layers.rmsnorm`` call on a heads view (a
+    4-d x whose autograd node is the transpose of ``_split_heads``' view)
+    hooks the view's backward node → a dict: ``calls`` counts the view
+    backwards that ran, ``copies`` those whose output is not a view of
+    the gradient they got (autograd copied the RMSNorm backward's dx into
+    the projection's (B, S, H*D) layout)."""
+    from unittest import mock
+
+    from repro_torch.models import layers
+    real = layers.rmsnorm
+    out = dict(calls=0, copies=0)
+
+    def hook(grad_inputs, grad_outputs):
+        out["calls"] += 1
+        out["copies"] += int(grad_inputs[0].data_ptr()
+                             != grad_outputs[0].data_ptr())
+
+    def rmsnorm(x, w, eps=1e-6, impl=None):
+        node = x.grad_fn
+        if x.dim() == 4 and node is not None \
+                and type(node).__name__.startswith("TransposeBackward"):
+            view = node.next_functions[0][0]
+            if view is not None:
+                view.register_hook(hook)
+        return real(x, w, eps, impl=impl)
+
+    with mock.patch.object(layers, "rmsnorm", rmsnorm):
+        yield out
 
 
 # kernel-name fragments → the part of a training step they are
@@ -4183,6 +4279,25 @@ def kernel_parts(trace_path):
         out[part] += e["dur"] / 1e3
         n[part] += 1
     return out, n
+
+
+def rms_bwd_routes(trace_path):
+    """The RMSNorm backward's kernels in a profiled window, by route →
+    {route: [kernels, ms of their own runs]}: "map" (rows through tensor
+    maps: the heads views), "bulk" (rows by bulk copies: d_model), "loop"
+    (the scalar kernel)."""
+    events = json.loads(Path(trace_path).read_text()).get("traceEvents", [])
+    out = {route: [0, 0.0] for route in ("map", "bulk", "loop")}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") != "kernel" or "dur" not in e \
+                or "rmsnorm_bwd_" not in name:
+            continue
+        route = ("loop" if "rmsnorm_bwd_loop" in name
+                 else "map" if "true>" in name else "bulk")
+        out[route][0] += 1
+        out[route][1] += e["dur"] / 1e3
+    return out
 
 
 def bit_sums(t):
@@ -4459,17 +4574,34 @@ def main() -> int:
         "launches_by_path": {"(n) qwen3-14b training":
                              bwd_launches["rmsnorm_bwd"]},
         "kernel_launches_per_call": per_call["RMSNorm backward"],
+        "kernel_launches_per_call_by_route": (
+            {route: r["kernels_per_call"]
+             for route, r in prof["rmsnorm_bwd_by_route"].items()}
+            if prof else None),
+        "own_run_ms_per_kernel_by_route": (
+            {route: r["own_ms_per_kernel"]
+             for route, r in prof["rmsnorm_bwd_by_route"].items()}
+            if prof else None),
         "match": "dx and dw within 2^-7 (bfloat16) and 1e-4 (float32) of "
                  "max |plain| of ref.rmsnorm_bwd and of autograd through "
-                 "ref.rmsnorm; two runs bit-equal",
+                 "ref.rmsnorm; two runs bit-equal; both planted faults "
+                 "caught",
         "max_abs_err": bwd_errs[("rmsnorm", "bfloat16", "abs")],
         "max_rel_err": bwd_errs[("rmsnorm", "bfloat16", "rel")],
         "max_abs_err_float32": bwd_errs[("rmsnorm", "float32", "abs")],
+        "planted_fault_min_err": bwd_errs[
+            "rmsnorm planted fault errors (smallest)"],
         "ms": rms_bwd["ms"],
         "plain_ms": rms_bwd["plain_ms"],
         "bound_ms": rms_bwd["bound_ms"],
         "bound_by": "bytes",
         "library_ms": rms_bwd["library_ms"],
+        "heads_views": {name: {k: r[k] for k in (
+            "ms", "bound_ms", "library_ms", "share_of_bound",
+            "ratio_to_library")}
+            for name, r in rms_bwd["shapes"].items() if "heads" in name},
+        "heads_view_copies_per_training_step": (
+            prof["heads_view_copies"]["copies"] if prof else None),
         "per": f"one call at qwen3-14b's ln1/ln2/final rows (B*S, 5120) "
                f"bf16, B={TRAIN_B}, S={TRAIN_S}, timed with the L2 evicted; "
                f"{4 * TRAIN_LAYERS + 1} calls at three shapes per training "

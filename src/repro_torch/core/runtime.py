@@ -843,11 +843,19 @@ class Scheduler:
         (or, for re-inflation, no actual growth) the victim's residency and
         ledger debit are restored unchanged.
 
-        Runs entirely under the fleet lock (and takes the device's ledger
-        lock around each release/re-debit window), so a concurrent
-        ``Program.release()`` of the same victim on another thread either
-        completes before the resize starts or blocks until the victim is
-        resident again — it can never double-credit the ledger in between.
+        Runs entirely under the fleet lock, and holds the device's ledger
+        lock from the victim's release through the rebuild to the swap or
+        the restore: the fabric the release frees stays this resize's, so
+        another thread's ``Context.build_program`` on the device (which
+        takes only that lock) waits and plans against the ledger as the
+        resize leaves it, and ``restore()``'s re-debit always fits (an
+        unguarded window let such a build take the fabric and made the
+        re-debit raise).  A concurrent ``Program.release()`` of the same
+        victim either completes before the resize starts or blocks until
+        the victim is resident again — it can never double-credit the
+        ledger in between.  The release hook our own releases fire takes
+        the fleet lock this thread already holds, so holding the ledger
+        lock there inverts no order.
         """
         from repro_torch.core.latency import LatencyError
         from repro_torch.core.place import PlacementError
@@ -878,42 +886,41 @@ class Scheduler:
                     # that was OUR administrative release; a True from here
                     # on means the owner asked for release mid-resize
                     victim.release_requested = False
-                rebuilt: Optional[Program] = None
-                try:
-                    rebuilt = ctx.build_program(
-                        victim.source,
-                        opts=victim.opts.replace(max_replicas=target),
-                        tenant=victim.tenant)
-                except (PlacementError, RoutingError, LatencyError):
-                    pass
-                except BaseException:
-                    # unexpected rebuild failure must still restore the
-                    # tenant before propagating (the failed build debited
-                    # nothing)
-                    restore()
-                    raise
-                if rebuilt is None or (require_growth and
-                                       rebuilt.compiled.plan.replicas <=
-                                       old.plan.replicas):
-                    if rebuilt is not None:  # too-small rebuild: free it
-                        rebuilt.release()
-                    restore()
-                    if require_growth:
-                        victim.grow_failed_free = (ctx.device.fu_free,
-                                                   ctx.device.io_free)
-                    return False
-                # swap the artifact into the victim in place: handles the
-                # owner already holds stay valid and resident
-                # (its images stay: keyed on the old artifact, the next
-                # enqueue rewrites them for the new one)
-                with ctx.lock:
+                    rebuilt: Optional[Program] = None
+                    try:
+                        rebuilt = ctx.build_program(
+                            victim.source,
+                            opts=victim.opts.replace(max_replicas=target),
+                            tenant=victim.tenant)
+                    except (PlacementError, RoutingError, LatencyError):
+                        pass
+                    except BaseException:
+                        # unexpected rebuild failure must still restore the
+                        # tenant before propagating (the failed build
+                        # debited nothing)
+                        restore()
+                        raise
+                    if rebuilt is None or (require_growth and
+                                           rebuilt.compiled.plan.replicas <=
+                                           old.plan.replicas):
+                        if rebuilt is not None:  # too-small rebuild: free it
+                            rebuilt.release()
+                        restore()
+                        if require_growth:
+                            victim.grow_failed_free = (ctx.device.fu_free,
+                                                       ctx.device.io_free)
+                        return False
+                    # swap the artifact into the victim in place: handles
+                    # the owner already holds stay valid and resident (its
+                    # images stay: keyed on the old artifact, the next
+                    # enqueue rewrites them for the new one)
                     victim.compiled = rebuilt.compiled
                     victim.build_ms = rebuilt.build_ms
                     victim.released = False
                     victim.grow_failed_free = None
                     victim._keep_images(images)
                     ctx.programs[ctx.programs.index(rebuilt)] = victim
-                return True
+                    return True
             finally:
                 # honor a release the owner requested while the victim was
                 # transiently non-resident (their call no-op'd on the
@@ -945,7 +952,10 @@ class Scheduler:
 
         Runs under the fleet lock with ``_rebalancing`` set, so release
         hooks fired by our own administrative releases don't recurse into
-        re-inflation mid-migration."""
+        re-inflation mid-migration.  Unlike :meth:`_resize` it needs no
+        ledger lock across the rebuild: a victim that finds no host stays
+        released, so nothing re-debits the source device, and the rebuild's
+        debit on its new device is made under that device's lock."""
         from repro_torch.core.latency import LatencyError
         from repro_torch.core.place import PlacementError
         from repro_torch.core.route import RoutingError

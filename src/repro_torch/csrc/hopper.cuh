@@ -3,7 +3,9 @@
 // csrc/flash_attention_bwd_wgmma.cu (backward): mbarriers, TMA loads of
 // tiles stored as 64-column boxes of 128-byte rows under the 128-byte
 // swizzle, the wgmma descriptors that name that layout, the wgmma products
-// the kernels issue, and the host side's tensor maps.
+// the kernels issue, and the host side's tensor maps.  RMSNorm's backward
+// (csrc/rmsnorm.cu) takes the mbarriers, the TMA and bulk loads and a
+// plain, unswizzled tensor map of rows.
 //
 // The accumulator fragment of a 64-row wgmma, as a thread of its warpgroup
 // holds it: element 4 * j + e sits at row 16 * warp + lane / 4 (+ 8 when
@@ -325,11 +327,36 @@ inline int make_map(EncodeTiled encode, CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
 }
 
+// The 4-d map (d, n2, n1, n0) of rows of d elements of `dtype` (`elem`
+// bytes each) whose row (i0, i1, i2) starts at element i0 st[0] + i1 st[1]
+// + i2 st[2], loaded in boxes of d columns x `rows` rows with no swizzle:
+// plain row-major tiles, for code that reads rows rather than feeding
+// wgmma (csrc/rmsnorm.cu's backward).  Rows past n2 read as zeros; a
+// dimension of extent 1 gets the stride it would have if contiguous.
+inline int make_rows_map(EncodeTiled encode, CUtensorMap* map,
+                         const void* base, CUtensorMapDataType dtype,
+                         int elem, long long d, long long n2, long long n1,
+                         long long n0, const long long* st, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)n2, (cuuint64_t)n1,
+                              (cuuint64_t)n0};
+  cuuint64_t strides[3];
+  strides[0] = n2 > 1 ? (cuuint64_t)st[2] * elem : (cuuint64_t)d * elem;
+  strides[1] = n1 > 1 ? (cuuint64_t)st[1] * elem : strides[0] * n2;
+  strides[2] = n0 > 1 ? (cuuint64_t)st[0] * elem : strides[1] * n1;
+  const cuuint32_t box[4] = {(cuuint32_t)d, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, dtype, 4, const_cast<void*>(base), dims, strides, box, one,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
+}
+
 // Text of an error code, for a wrapper's exception.
 inline const char* error_string(int code) {
   if (code == ERR_NO_ENCODER) return "the driver has no cuTensorMapEncodeTiled";
   if (code == ERR_ENCODE)
-    return "cuTensorMapEncodeTiled refused a q/k/v layout";
+    return "cuTensorMapEncodeTiled refused a layout";
   return cudaGetErrorString((cudaError_t)code);
 }
 

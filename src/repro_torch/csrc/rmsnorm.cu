@@ -64,31 +64,66 @@
 // src/repro_torch/kernels/rmsnorm/kernel.py.
 //
 // What bounds it.  It reads x and dy once and writes dx once, with about ten
-// float operations per element: bound by device memory.  dw is a sum over
-// every row, which on a GPU is a reduction across blocks.
+// float operations per element: bound by device memory.  At qwen3-14b's
+// training rows (4096 x 5120, and the q and k heads views of 128 bf16) that
+// is 0.0376, 0.0376 and 0.0075 ms on an H100 at 3.35 TB/s.  Reaching it
+// takes bytes in flight on every SM while rows reduce and store (by
+// Little's law 3.35 TB/s x ~1 us / 132 SMs, about 25 KB an SM), and dw,
+// a sum over every row, reduced across blocks without float atomics.
 //
-// Design.  Two launches, so that dw is deterministic (no float atomics):
-//   - `rmsnorm_bwd_rows`: a grid of as many 256-thread blocks as the SMs
-//     hold walks tiles of rows.  A group of `tpr` threads owns a row and
-//     each thread keeps its MAXV 16-byte vectors of x, dy and w in registers
-//     from the two row sums through to the store of dx, so each is read
-//     once; the group reduces with warp shuffles (and one shared-memory
-//     step when the row spans warps).  Each thread also keeps its columns'
-//     share of dw in float32 registers across every row the block visits;
-//     at the end the block's groups add theirs in a fixed order and the
-//     block writes one partial row of dw (grid x d, float32).
-//   - `rmsnorm_bwd_dw`: one thread per column sums the partial rows in
-//     order and rounds once to the dtype of x.
-// Rows too wide for MAXV (or unaligned rows wider than the scalar plan)
-// take `rmsnorm_bwd_loop`: one row a block at a time, read twice, each
-// column of the partial row owned by one thread of the block.  Rows of x
-// and dy may each sit at their own strides (three nested row dimensions, as
-// in the forward kernel), so q_norm's and k_norm's heads views (B, H, S, D)
-// are read in place; dx is contiguous in row order.
+// Design (`rmsnorm_bwd_ring`): one cooperative launch of a persistent grid,
+// as many blocks as the SMs hold (the occupancy API; two an SM at the
+// training shapes, at most 384 threads and 80 registers a thread), each
+// walking tiles of rows in a fixed order.
+//   - The ring.  Warp 0 is the producer: it keeps `stages` shared-memory
+//     stages full, each holding a tile's rows of x and of dy, paced by a
+//     full and an empty mbarrier a stage.  Rows of up to 256 elements (the
+//     heads views) come as one TMA box per tensor, `rows` positions of one
+//     (batch, head), through a plain 4-d tensor map over x's or dy's own
+//     strides (hopper::make_rows_map, no swizzle), so a strided view is
+//     read in place; wider rows (d_model) come as one bulk copy per row
+//     and tensor.  The launch plan (kernels/rmsnorm/kernel.py::bwd_plan)
+//     sizes a stage near 32 KB and the ring near 96 KB a block, so an SM
+//     has up to 192 KB of x and dy in flight.
+//   - Consumers.  The other warps work the stage from shared memory: a
+//     group of `tpr` threads owns a row (a power of two up to 32 for
+//     narrow rows, 8 threads of two 16-byte vectors for rows of 128 bf16,
+//     shuffles inside the group; every consumer thread for wide rows, one
+//     named barrier over double-buffered warp sums a step), two rows at
+//     once where a thread holds up to two vectors a row.  They read x and
+//     dy once for both row sums and again for dx, holding nothing of a row
+//     in registers across the reduction, and store dx with 16-byte stores
+//     at dx's own strides.  This is what bounds the consumers: measured
+//     on an H100, holding the rows in registers, or one row at a time,
+//     made them slower than the memory (PERF.md).  x and dy leave device
+//     memory once.
+//   - dw.  Each thread keeps its columns' share of sum(dy x / r) in float32
+//     registers over the block's rows, in row order; the block's groups
+//     add theirs in group order into one partial row (grid x d, float32,
+//     column by column when d is small).  After one grid sync every block
+//     sums its share of columns over the partial rows, in block order:
+//     the same order every run, so dw is bit-equal run to run, in the same
+//     launch.
+//   - dx's layout.  The wrapper hands dx with x's strides where x is
+//     non-overlapping and dense (the heads view of a projection's output),
+//     so autograd's view backward needs no copy; else contiguous.  Rows of
+//     x, dy and dx each sit at their own strides over three nested row
+//     dimensions common to the three (`Rows`).
+// Unaligned rows, and rows too wide for two stages, take `rmsnorm_bwd_loop`
+// in the same cooperative form: one row a block at a time, read twice, each
+// column of the block's partial row owned by one thread.
+//
+// Numerics.  The backward's inverse root is rsqrtf (the forward's is
+// correctly rounded); the result is held to 2^-7 (bfloat16) and 1e-4
+// (float32) of the plain backward's largest value, not bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "hopper.cuh"     // mbarriers, TMA loads and tensor maps
 
 namespace {
 
@@ -409,325 +444,601 @@ extern "C" int rmsnorm_blocks_per_sm(int dtype, int kind, int vec, int vpt,
   return (int)cudaErrorInvalidValue;
 }
 
-// Name of a CUDA error code, for the wrapper's exception text.
+// Name of an error code (CUDA's, or a tensor map's), for the wrapper's
+// exception text.
 extern "C" const char* rmsnorm_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+  return hopper::error_string(code);
 }
 
 // ---------------------------------------------------------------- backward
 
 namespace {
 
-constexpr int BLOCK = 256;            // threads of a backward block
+namespace cg = cooperative_groups;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_addr;
 
-// Where each row of a tensor starts: row r = (i0 * n1 + i1) * n2 + i2 starts
-// at i0 * s0 + i1 * s1 + i2 * s2 elements.
+constexpr int MAX_STAGES = 8;         // ring stages of a block
+// consumer warps of a ring block: with the producer at most 384 threads,
+// so two blocks fit an SM at up to 80 registers a thread
+constexpr int MAX_WARPS = 11;
+constexpr int LOOP_BLOCK = 256;       // threads of a loop-kernel block
+constexpr int ALIGN = 128;            // stage regions start on 128 bytes
+
+// The rows of x, dy and dx: row r = (i0 * n1 + i1) * n2 + i2 of tensor k
+// (0 x, 1 dy, 2 dx) starts at i0 * s[k][0] + i1 * s[k][1] + i2 * s[k][2]
+// elements.  Rows walk in runs of n2 (the positions of one (batch, head)
+// of a heads view; all rows of a contiguous tensor), so a tile's rows sit
+// at one stride from its first row's offset, and the index split is
+// made once a tile, in 32 bits (the wrapper keeps row and tile counts
+// under 2^31).
 struct Rows {
-  long long n1, n2, s0, s1, s2;
-
-  __device__ __forceinline__ long long offset(long long row) const {
-    const long long i2 = row % n2, r = row / n2;
-    return (r / n1) * s0 + (r % n1) * s1 + i2 * s2;
-  }
-};
-
-struct Shape {
-  long long n_rows;
+  int n_rows, n1, n2;
+  long long s[3][3];
   int d;
   float eps;
 };
 
-// The two row sums, reduced over the row's group of `tpr` threads.  Every
-// thread of the block calls it the same number of times.
-__device__ __forceinline__ void group_sum2(float& a, float& b, int tpr,
-                                           float (*red)[BLOCK / 32]) {
-  const int width = tpr < 32 ? tpr : 32;
+// The ring's shape: `rows` rows of x and of dy a stage (positions of one
+// run), `stages` stages, each tensor's rows of a stage in `region` bytes;
+// `tpr` threads a row.
+struct Ring {
+  int rows, stages, region, tpr;
+  int tiles_per_run, n_tiles;
+  int fault;
+};
+
+// tile t: its first row's offset in each tensor, its rows' stride in each,
+// its first position in the run (the tensor map's coordinates) and the
+// rows it holds
+struct Tile {
+  long long off[3], step[3];
+  int p, i1, i0, valid;
+
+  __device__ __forceinline__ Tile(const Rows& L, const Ring& R, int t) {
+    const int run = t / R.tiles_per_run;
+    p = (t - run * R.tiles_per_run) * R.rows;
+    i1 = run % L.n1;
+    i0 = run / L.n1;
+    valid = min(R.rows, L.n2 - p);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    if (o < width) {
-      a += __shfl_xor_sync(0xffffffffu, a, o);
-      b += __shfl_xor_sync(0xffffffffu, b, o);
-    }
-  if (tpr > 32) {
-    const int wpr = tpr / 32, warp = threadIdx.x / 32;
-    const int first = warp / wpr * wpr;
-    __syncthreads();                       // the last row's reads are done
-    if ((threadIdx.x & 31) == 0) {
-      red[0][warp] = a;
-      red[1][warp] = b;
-    }
-    __syncthreads();
-    a = 0.0f;
-    b = 0.0f;
-    for (int i = 0; i < wpr; ++i) {
-      a += red[0][first + i];
-      b += red[1][first + i];
+    for (int k = 0; k < 3; ++k) {
+      off[k] = i0 * L.s[k][0] + i1 * L.s[k][1] + (long long)p * L.s[k][2];
+      step[k] = L.s[k][2];
     }
   }
+};
+
+// The blocks' partial dw rows (grid x d, float32) are summed after one
+// grid sync, in the same order on every run, so dw is bit-equal run to run;
+// each lane keeps LOADS partial values in flight.  With few columns (d x
+// grid up to SMALL_DW) the partials are stored column by column and a warp
+// sums a column, its lanes every 32nd block's value each (contiguous), and
+// adds the lanes' sums by a fixed shuffle tree; else they are stored row by
+// row and a block sums a group of 32 columns (a lane a column, coalesced),
+// its warps every nw-th partial row each, and warp 0 adds the warps' sums
+// in warp order.  Fault 1 leaves out the last block's partial row.
+constexpr int LOADS = 16;
+constexpr long long SMALL_DW = 1 << 16;
+
+// where block b's partial of column col is kept
+__device__ __forceinline__ long long dw_slot(int d, int b, int col) {
+  return (long long)d * gridDim.x <= SMALL_DW
+      ? (long long)col * gridDim.x + b : (long long)b * d + col;
 }
 
-template <typename T, int VEC, int MAXV>
-__global__ void __launch_bounds__(BLOCK) rmsnorm_bwd_rows(
-    const T* __restrict__ x, const T* __restrict__ w,
-    const T* __restrict__ dy, T* __restrict__ dx,
-    float* __restrict__ partial, Shape S, Rows Lx, Rows Ld, int tpr) {
-  using P = Pack<T, VEC>;
-  extern __shared__ float sw[];            // [groups][d] when groups > 1
-  __shared__ float red[2][BLOCK / 32];
-  const int nv = S.d / VEC;
-  const int groups = BLOCK / tpr;
-  const int g = threadIdx.x / tpr;
-  const int lane = threadIdx.x % tpr;
-  const long long n_tiles = (S.n_rows + groups - 1) / groups;
-
-  // x, dy and w stay in registers in their own dtype (half the registers
-  // in bfloat16); only dw's share is float32
-  P wp[MAXV];
-  float acc[MAXV][VEC];
+template <typename T>
+__device__ __forceinline__ void finish_dw(const float* partial, T* dw, int d,
+                                         int fault) {
+  __shared__ float fin[32][33];
+  __threadfence();
+  cg::this_grid().sync();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nw = blockDim.x / 32;
+  const int nb = gridDim.x - (fault == 1 ? 1 : 0);
+  // sum of p[b * step] over b = b0, b0 + stride, ... < nb, LOADS at once
+  auto column = [&](const float* p, long long step, int b0, int stride) {
+    float s = 0.0f;
+    for (; b0 < nb; b0 += stride * LOADS) {
+      float v[LOADS];
 #pragma unroll
-  for (int k = 0; k < MAXV; ++k) {
-    const int v = lane + k * tpr;
-    wp[k] = v < nv ? reinterpret_cast<const P*>(w)[v] : zero_pack<T, VEC>();
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) acc[k][j] = 0.0f;
-  }
-
-  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const long long row = t * groups + g;
-    const bool live = row < S.n_rows;
-    const P* xr = live ? reinterpret_cast<const P*>(x + Lx.offset(row))
-                       : nullptr;
-    const P* dr = live ? reinterpret_cast<const P*>(dy + Ld.offset(row))
-                       : nullptr;
-    P xp[MAXV], dp[MAXV];
-#pragma unroll
-    for (int k = 0; k < MAXV; ++k) {
-      const int v = lane + k * tpr;
-      const bool in = live && v < nv;
-      xp[k] = in ? xr[v] : zero_pack<T, VEC>();
-      dp[k] = in ? dr[v] : zero_pack<T, VEC>();
-    }
-    float ss = 0.0f, sgx = 0.0f;
-#pragma unroll
-    for (int k = 0; k < MAXV; ++k)
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float xv = to_f(xp[k].v[j]);
-        ss = fmaf(xv, xv, ss);
-        sgx = fmaf(to_f(wp[k].v[j]) * to_f(dp[k].v[j]), xv, sgx);
+      for (int j = 0; j < LOADS; ++j) {
+        const int b = b0 + j * stride;
+        v[j] = b < nb ? __ldcg(p + b * step) : 0.0f;
       }
-    group_sum2(ss, sgx, tpr, red);
-    if (!live) continue;
-    const float inv = 1.0f / sqrtf(ss / (float)S.d + S.eps);
-    const float c = sgx * inv * inv * inv / (float)S.d;
-    P* orow = reinterpret_cast<P*>(dx + row * (long long)S.d);
 #pragma unroll
-    for (int k = 0; k < MAXV; ++k) {
-      const int v = lane + k * tpr;
-      if (v >= nv) continue;
-      P o;
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float xv = to_f(xp[k].v[j]), dv = to_f(dp[k].v[j]);
-        o.v[j] = from_f<T>(to_f(wp[k].v[j]) * dv * inv - xv * c);
-        acc[k][j] = fmaf(dv * xv, inv, acc[k][j]);
-      }
-      orow[v] = o;
+      for (int j = 0; j < LOADS; ++j) s += v[j];
     }
-  }
-
-  // the block's partial row of dw: its groups' shares added in group order
-  float* prow = partial + (long long)blockIdx.x * S.d;
-  if (groups == 1) {
+    return s;
+  };
+  if ((long long)d * gridDim.x <= SMALL_DW) {
+    for (int col = blockIdx.x * nw + warp; col < d; col += gridDim.x * nw) {
+      float s = column(partial + (long long)col * gridDim.x, 1, lane, 32);
 #pragma unroll
-    for (int k = 0; k < MAXV; ++k) {
-      const int v = lane + k * tpr;
-      if (v < nv)
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) prow[v * VEC + j] = acc[k][j];
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0) dw[col] = from_f<T>(s);
     }
     return;
   }
-#pragma unroll
-  for (int k = 0; k < MAXV; ++k) {
-    const int v = lane + k * tpr;
-    if (v < nv)
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) sw[g * S.d + v * VEC + j] = acc[k][j];
-  }
-  __syncthreads();
-  for (int col = threadIdx.x; col < S.d; col += BLOCK) {
-    float s = 0.0f;
-    for (int i = 0; i < groups; ++i) s += sw[i * S.d + col];
-    prow[col] = s;
+  for (int g = blockIdx.x; g * 32 < d; g += gridDim.x) {
+    const int col = g * 32 + lane;
+    fin[warp][lane] = col < d ? column(partial + col, d, warp, nw) : 0.0f;
+    __syncthreads();
+    if (warp == 0 && col < d) {
+      float t = 0.0f;
+      for (int j = 0; j < nw; ++j) t += fin[j][lane];
+      dw[col] = from_f<T>(t);
+    }
+    __syncthreads();
   }
 }
 
-// Rows too wide for the register kernel: one row a block at a time, read
-// twice, one element per load; column c of the block's partial row belongs
-// to thread c % BLOCK, which adds each row's term in row order.
+// barrier 1 over the `nct` consumer threads (the producer warp not among
+// them); each warp converges first, as bar.sync wants
+__device__ __forceinline__ void consumer_sync(int nct) {
+  __syncwarp();
+  asm volatile("bar.sync 1, %0;\n" ::"r"(nct) : "memory");
+}
+
+// The ring kernel.  Warp 0 is the producer: lane 0 waits for a stage to be
+// empty and arms its full barrier with the stage's bytes; then (MAP) lane
+// 0 loads the tile of x and of dy as one box each through the tensor maps,
+// or (bulk) the warp's lanes load the tile's rows with one bulk copy per
+// row and tensor.  The other warps consume: a group of `tpr` threads owns
+// a row of the stage (every consumer thread when tpr > 32), each thread
+// its MAXV vectors of VEC elements, read from the stage for both row sums
+// and again for dx, which it stores at dx's offset; it keeps its columns'
+// share of dw in float32 registers over every row the block visits.
+template <typename T, int VEC, int MAXV, bool MAP>
+__global__ void __launch_bounds__(32 * (MAX_WARPS + 1), 2) rmsnorm_bwd_ring(
+    const __grid_constant__ CUtensorMap tm_x,
+    const __grid_constant__ CUtensorMap tm_dy, const T* __restrict__ x,
+    const T* __restrict__ w, const T* __restrict__ dy, T* __restrict__ dx,
+    T* __restrict__ dw, float* __restrict__ partial, Rows L, Ring R) {
+  using P = Pack<T, VEC>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[2 * MAX_STAGES];
+  __shared__ float red[2][4][32];   // wide rows: per parity, sum, warp
+  uint8_t* ring =
+      smem_raw + ((ALIGN - (smem_addr(smem_raw) & (ALIGN - 1))) & (ALIGN - 1));
+  const int nct = blockDim.x - 32;  // consumer threads
+  const int nv = L.d / VEC;
+  const int row_bytes = L.d * (int)sizeof(T);
+  const uint32_t full0 = smem_addr(bars), empty0 = full0 + 8 * R.stages;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R.stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, nct / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    // ---- producer
+    int i = 0;
+    for (int t = blockIdx.x; t < R.n_tiles; t += gridDim.x, ++i) {
+      const int s = i % R.stages;
+      const uint32_t full = full0 + 8 * s;
+      const uint32_t xs = smem_addr(ring) + 2 * s * R.region;
+      const uint32_t ds = xs + R.region;
+      const Tile tl(L, R, t);
+      if (lane == 0) {
+        mbar_wait(empty0 + 8 * s, ((i / R.stages) & 1) ^ 1);
+        // a box always moves whole, rows past the run read as zeros
+        mbar_expect_tx(full, 2 * (MAP ? R.rows : tl.valid) * row_bytes);
+        if (MAP) {
+          hopper::tma_load(xs, &tm_x, full, 0, tl.p, tl.i1, tl.i0);
+          hopper::tma_load(ds, &tm_dy, full, 0, tl.p, tl.i1, tl.i0);
+        }
+      }
+      if (!MAP) {
+        __syncwarp();
+        for (int k = lane; k < tl.valid; k += 32) {
+          hopper::bulk_load(xs + k * row_bytes, x + tl.off[0] + k * tl.step[0],
+                            row_bytes, full);
+          hopper::bulk_load(ds + k * row_bytes,
+                            dy + tl.off[1] + k * tl.step[1], row_bytes, full);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: U rows of the stage at once per group, so the loads,
+    // shuffles and the inverse root of one row hide the other's latency
+    constexpr int U = MAXV <= 2 ? 2 : 1;
+    const int c = threadIdx.x - 32;
+    const int tpr = R.tpr, groups = nct / tpr;
+    const int g = c / tpr, lane_g = c % tpr;
+    const float rd = 1.0f / (float)L.d;
+    P wv[MAXV];
+    float acc[MAXV][VEC];
+#pragma unroll
+    for (int k = 0; k < MAXV; ++k) {
+      const int v = lane_g + k * tpr;
+      wv[k] = v < nv ? reinterpret_cast<const P*>(w)[v] : zero_pack<T, VEC>();
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[k][j] = 0.0f;
+    }
+    int parity = 0;
+    int i = 0;
+    for (int t = blockIdx.x; t < R.n_tiles; t += gridDim.x, ++i) {
+      const int s = i % R.stages;
+      mbar_wait(full0 + 8 * s, (i / R.stages) & 1);
+      // fault 2 reads dx's operands from the previous stage
+      const int sx = R.fault == 2 ? (s + R.stages - 1) % R.stages : s;
+      const uint8_t* xs = ring + 2 * s * R.region;
+      const uint8_t* xs_dx = ring + 2 * sx * R.region;
+      const Tile tl(L, R, t);
+      const int valid = tl.valid;
+      // with a map every group walks the same count of rows (a whole box),
+      // so its shuffles see whole warps; wide rows use every consumer
+      // thread, and the stage's rows in steps of U
+      const int n = MAP ? R.rows : valid;
+      for (int k0 = 0; k0 < n; k0 += groups * U) {
+        int k[U];
+        bool live[U];
+        float ss[U], sgx[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          k[u] = k0 + u * groups + g;
+          live[u] = k[u] < valid;
+          ss[u] = sgx[u] = 0.0f;
+        }
+        // both row sums from the stage; x and dy are read from shared
+        // memory again for dx, so nothing of the row waits in registers
+        // across the reduction
+#pragma unroll
+        for (int m = 0; m < MAXV; ++m) {
+          const int v = lane_g + m * tpr;
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (!live[u] || v >= nv) continue;
+            const P xp = reinterpret_cast<const P*>(xs + k[u] * row_bytes)[v];
+            const P dp = reinterpret_cast<const P*>(xs + R.region +
+                                                    k[u] * row_bytes)[v];
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) {
+              const float xv = to_f(xp.v[j]);
+              ss[u] = fmaf(xv, xv, ss[u]);
+              sgx[u] = fmaf(to_f(wv[m].v[j]) * to_f(dp.v[j]), xv, sgx[u]);
+            }
+          }
+        }
+        const int width = tpr < 32 ? tpr : 32;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          if (o < width)
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              ss[u] += __shfl_xor_sync(0xffffffffu, ss[u], o);
+              sgx[u] += __shfl_xor_sync(0xffffffffu, sgx[u], o);
+            }
+        if (tpr > 32) {
+          // the stage's rows across every consumer warp: the warps' sums
+          // meet in shared memory (double-buffered, so one barrier a step
+          // suffices) and each warp adds them by the same shuffle tree
+          if (lane == 0)
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              red[parity][2 * u][c / 32] = ss[u];
+              red[parity][2 * u + 1][c / 32] = sgx[u];
+            }
+          consumer_sync(nct);
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            ss[u] = lane < nct / 32 ? red[parity][2 * u][lane] : 0.0f;
+            sgx[u] = lane < nct / 32 ? red[parity][2 * u + 1][lane] : 0.0f;
+          }
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              ss[u] += __shfl_xor_sync(0xffffffffu, ss[u], o);
+              sgx[u] += __shfl_xor_sync(0xffffffffu, sgx[u], o);
+            }
+          parity ^= 1;
+        }
+        // dx from the same stage (fault 2: from the previous one)
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (!live[u]) continue;
+          const float inv = rsqrtf(ss[u] * rd + L.eps);
+          const float cc = sgx[u] * inv * inv * inv * rd;
+          const P* xr = reinterpret_cast<const P*>(xs_dx + k[u] * row_bytes);
+          const P* dr = reinterpret_cast<const P*>(xs_dx + R.region +
+                                                   k[u] * row_bytes);
+          P* orow = reinterpret_cast<P*>(dx + tl.off[2] + k[u] * tl.step[2]);
+#pragma unroll
+          for (int m = 0; m < MAXV; ++m) {
+            const int v = lane_g + m * tpr;
+            if (v >= nv) continue;
+            const P xp = xr[v], dp = dr[v];
+            P o;
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) {
+              const float xv = to_f(xp.v[j]), dv = to_f(dp.v[j]);
+              o.v[j] = from_f<T>(fmaf(to_f(wv[m].v[j]) * dv, inv, -xv * cc));
+              acc[m][j] = fmaf(dv * xv, inv, acc[m][j]);
+            }
+            orow[v] = o;
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);
+    }
+
+    // the block's partial row of dw
+    if (groups == 1) {                    // each column has one thread
+#pragma unroll
+      for (int m = 0; m < MAXV; ++m) {
+        const int v = lane_g + m * tpr;
+        if (v < nv)
+#pragma unroll
+          for (int j = 0; j < VEC; ++j)
+            partial[dw_slot(L.d, blockIdx.x, v * VEC + j)] = acc[m][j];
+      }
+    } else {
+      // the groups' shares added in group order, through the drained ring
+      float* sw = reinterpret_cast<float*>(ring);
+      consumer_sync(nct);
+#pragma unroll
+      for (int m = 0; m < MAXV; ++m) {
+        const int v = lane_g + m * tpr;
+        if (v < nv)
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) sw[g * L.d + v * VEC + j] = acc[m][j];
+      }
+      consumer_sync(nct);
+      for (int col = c; col < L.d; col += nct) {
+        float sum = 0.0f;
+        for (int j = 0; j < groups; ++j) sum += sw[j * L.d + col];
+        partial[dw_slot(L.d, blockIdx.x, col)] = sum;
+      }
+    }
+  }
+  __syncwarp();               // the producer's idle lanes wait for lane 0
+  finish_dw<T>(partial, dw, L.d, R.fault);
+}
+
+// The two row sums over the whole block.  Every thread calls it the same
+// number of times.
+__device__ __forceinline__ void block_sum2(float& a, float& b,
+                                           float (*red)[LOOP_BLOCK / 32]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+  __syncthreads();                         // the last row's reads are done
+  if ((threadIdx.x & 31) == 0) {
+    red[0][threadIdx.x / 32] = a;
+    red[1][threadIdx.x / 32] = b;
+  }
+  __syncthreads();
+  a = b = 0.0f;
+  for (int i = 0; i < LOOP_BLOCK / 32; ++i) {
+    a += red[0][i];
+    b += red[1][i];
+  }
+}
+
+// Unaligned rows and rows too wide for a stage: one row a block at a time,
+// read twice from device memory (the second time from L1/L2), one element
+// per load; column c of the block's partial row belongs to thread
+// c % LOOP_BLOCK, which adds each row's term in row order.
 template <typename T>
-__global__ void __launch_bounds__(BLOCK) rmsnorm_bwd_loop(
+__global__ void __launch_bounds__(LOOP_BLOCK) rmsnorm_bwd_loop(
     const T* __restrict__ x, const T* __restrict__ w,
-    const T* __restrict__ dy, T* __restrict__ dx,
-    float* __restrict__ partial, Shape S, Rows Lx, Rows Ld) {
-  __shared__ float red[2][BLOCK / 32];
-  float* prow = partial + (long long)blockIdx.x * S.d;
-  for (int c = threadIdx.x; c < S.d; c += BLOCK) prow[c] = 0.0f;
-  for (long long row = blockIdx.x; row < S.n_rows; row += gridDim.x) {
-    const T* xr = x + Lx.offset(row);
-    const T* dr = dy + Ld.offset(row);
+    const T* __restrict__ dy, T* __restrict__ dx, T* __restrict__ dw,
+    float* __restrict__ partial, Rows L, int fault) {
+  __shared__ float red[2][LOOP_BLOCK / 32];
+  for (int c = threadIdx.x; c < L.d; c += LOOP_BLOCK)
+    partial[dw_slot(L.d, blockIdx.x, c)] = 0.0f;
+  const Ring one{1, 0, 0, 0, L.n2, L.n_rows, 0};    // a tile a row
+  for (int row = blockIdx.x; row < L.n_rows; row += gridDim.x) {
+    const Tile tl(L, one, row);
+    const T* xr = x + tl.off[0];
+    const T* dr = dy + tl.off[1];
     float ss = 0.0f, sgx = 0.0f;
-    for (int c = threadIdx.x; c < S.d; c += BLOCK) {
+    for (int c = threadIdx.x; c < L.d; c += LOOP_BLOCK) {
       const float xv = to_f(xr[c]);
       ss = fmaf(xv, xv, ss);
       sgx = fmaf(to_f(w[c]) * to_f(dr[c]), xv, sgx);
     }
-    group_sum2(ss, sgx, BLOCK, red);
-    const float inv = 1.0f / sqrtf(ss / (float)S.d + S.eps);
-    const float k = sgx * inv * inv * inv / (float)S.d;
-    T* orow = dx + row * (long long)S.d;
-    for (int c = threadIdx.x; c < S.d; c += BLOCK) {
+    block_sum2(ss, sgx, red);
+    const float inv = 1.0f / sqrtf(ss / (float)L.d + L.eps);
+    const float k = sgx * inv * inv * inv / (float)L.d;
+    T* orow = dx + tl.off[2];
+    for (int c = threadIdx.x; c < L.d; c += LOOP_BLOCK) {
       const float xv = to_f(xr[c]), dv = to_f(dr[c]);
       orow[c] = from_f<T>(to_f(w[c]) * dv * inv - xv * k);
-      prow[c] = fmaf(dv * xv, inv, prow[c]);
+      float& p = partial[dw_slot(L.d, blockIdx.x, c)];
+      p = fmaf(dv * xv, inv, p);
     }
   }
-}
-
-// dw[c] = the sum of the partial rows' column c, in row order.
-template <typename T>
-__global__ void rmsnorm_bwd_dw(const float* __restrict__ partial, int n_part,
-                               int d, T* __restrict__ dw) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= d) return;
-  float s = 0.0f;
-  for (int i = 0; i < n_part; ++i) s += partial[(long long)i * d + c];
-  dw[c] = from_f<T>(s);
+  finish_dw<T>(partial, dw, L.d, fault);
 }
 
 template <typename T>
-using RowsKernel = void (*)(const T*, const T*, const T*, T*, float*, Shape,
-                            Rows, Rows, int);
+using RingKernel = void (*)(const CUtensorMap, const CUtensorMap, const T*,
+                            const T*, const T*, T*, T*, float*, Rows, Ring);
 
-// The register kernel for (vec, maxv), or nullptr.
+// The ring kernel for (vec, maxv, map), or nullptr.
 template <typename T>
-RowsKernel<T> bwd_select(int vec, int maxv) {
+RingKernel<T> ring_select(int vec, int maxv, int map) {
   constexpr int V = 16 / sizeof(T);
-  if (vec == V) {
+  if (vec != V) return nullptr;
+  if (map) {
     switch (maxv) {
-      case 1: return rmsnorm_bwd_rows<T, V, 1>;
-      case 2: return rmsnorm_bwd_rows<T, V, 2>;
-      case 4: return rmsnorm_bwd_rows<T, V, 4>;
-      case 8: return rmsnorm_bwd_rows<T, V, 8>;
+      case 1: return rmsnorm_bwd_ring<T, V, 1, true>;
+      case 2: return rmsnorm_bwd_ring<T, V, 2, true>;
       default: return nullptr;
     }
   }
-  if (vec == 1) {
-    switch (maxv) {
-      case 1: return rmsnorm_bwd_rows<T, 1, 1>;
-      case 2: return rmsnorm_bwd_rows<T, 1, 2>;
-      case 4: return rmsnorm_bwd_rows<T, 1, 4>;
-      case 8: return rmsnorm_bwd_rows<T, 1, 8>;
-      default: return nullptr;
-    }
+  switch (maxv) {
+    case 1: return rmsnorm_bwd_ring<T, V, 1, false>;
+    case 2: return rmsnorm_bwd_ring<T, V, 2, false>;
+    case 4: return rmsnorm_bwd_ring<T, V, 4, false>;
+    case 8: return rmsnorm_bwd_ring<T, V, 8, false>;
+    default: return nullptr;
   }
-  return nullptr;
+}
+
+// The kernel a plan names, with its dynamic shared memory allowed
+template <typename T>
+int bwd_kernel(int kind, int vec, int maxv, int map, size_t smem,
+               const void** k) {
+  if (kind == 1) {
+    *k = (const void*)rmsnorm_bwd_loop<T>;
+    return 0;
+  }
+  RingKernel<T> r = kind == 0 ? ring_select<T>(vec, maxv, map) : nullptr;
+  if (r == nullptr) return (int)cudaErrorInvalidValue;
+  *k = (const void*)r;
+  // per device and cheap, so set on every call
+  return (int)cudaFuncSetAttribute(
+      *k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// bytes of one tensor's rows in a stage, and of the whole ring (+ room to
+// align it)
+int region_bytes(int rows, int d, int size) {
+  return (rows * d * size + ALIGN - 1) / ALIGN * ALIGN;
+}
+size_t ring_smem(int rows, int stages, int d,
+                                          int size) {
+  return (size_t)2 * stages * region_bytes(rows, d, size) + ALIGN;
+}
+
+cudaError_t cooperative(const void* k, int grid, int block, size_t smem,
+                        cudaStream_t s, void** args) {
+  return cudaLaunchCooperativeKernel(k, dim3(grid), dim3(block), args, smem,
+                                     s);
 }
 
 template <typename T>
 int bwd_launch(const void* x, const void* w, const void* dy, void* dx,
-               void* dw, float* partial, const Shape& S, const Rows& Lx,
-               const Rows& Ld, int kind, int vec, int maxv, int tpr, int grid,
-               cudaStream_t s) {
+               void* dw, float* partial, const Rows& L, int kind, int map,
+               int vec, int maxv, int tpr, int warps, int rows, int stages,
+               int grid, int fault, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   const T* dyt = static_cast<const T*>(dy);
   T* dxt = static_cast<T*>(dx);
-  if (grid <= 0) return (int)cudaErrorInvalidValue;
-  if (kind == 0) {
-    RowsKernel<T> k = bwd_select<T>(vec, maxv);
-    if (k == nullptr || tpr <= 0 || tpr > BLOCK || BLOCK % tpr != 0 ||
-        (long long)tpr * maxv * vec < S.d)
-      return (int)cudaErrorInvalidValue;
-    const int groups = BLOCK / tpr;
-    const size_t smem = groups > 1 ? (size_t)groups * S.d * sizeof(float) : 0;
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    k<<<grid, BLOCK, smem, s>>>(xt, wt, dyt, dxt, partial, S, Lx, Ld, tpr);
-  } else if (kind == 1) {
-    rmsnorm_bwd_loop<T><<<grid, BLOCK, 0, s>>>(xt, wt, dyt, dxt, partial, S,
-                                               Lx, Ld);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  T* dwt = static_cast<T*>(dw);
+  if (grid <= 0 || fault < 0 || fault > 2) return (int)cudaErrorInvalidValue;
+  const void* k = nullptr;
+  if (kind == 1) {
+    int err = bwd_kernel<T>(1, 1, 1, 0, 0, &k);
+    if (err) return err;
+    Rows Lc = L;
+    void* args[] = {&xt, &wt, &dyt, &dxt, &dwt, &partial, &Lc, &fault};
+    return (int)cooperative(k, grid, LOOP_BLOCK, 0, s, args);
   }
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  rmsnorm_bwd_dw<T><<<(S.d + BLOCK - 1) / BLOCK, BLOCK, 0, s>>>(
-      partial, grid, S.d, static_cast<T*>(dw));
-  return (int)cudaGetLastError();
+  // the ring kernel: validate the plan against the kernel's assumptions
+  const int nct = 32 * warps, nv = L.d / (vec > 0 ? vec : 1);
+  const bool ok =
+      kind == 0 && warps >= 1 && warps <= MAX_WARPS && rows >= 1 &&
+      stages >= 2 && stages <= MAX_STAGES && (long long)tpr * maxv >= nv &&
+      rows % ((map ? nct / tpr : 1) * (maxv <= 2 ? 2 : 1)) == 0 &&
+      (map ? (tpr >= 1 && tpr <= 32 && (tpr & (tpr - 1)) == 0 &&
+              rows <= 256 && L.d <= 256)
+           : tpr == nct);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const size_t smem = ring_smem(rows, stages, L.d, sizeof(T));
+  int err = bwd_kernel<T>(0, vec, maxv, map, smem, &k);
+  if (err) return err;
+  Ring R{rows, stages, region_bytes(rows, L.d, sizeof(T)), tpr, 0, 0,
+         fault};
+  CUtensorMap mx, md;
+  memset(&mx, 0, sizeof(mx));
+  memset(&md, 0, sizeof(md));
+  R.tiles_per_run = (L.n2 + rows - 1) / rows;
+  const long long n_tiles = (long long)(L.n_rows / L.n2) * R.tiles_per_run;
+  if (n_tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  R.n_tiles = (int)n_tiles;
+  if (map) {
+    hopper::EncodeTiled encode;
+    if ((err = hopper::encoder(&encode))) return err;
+    const CUtensorMapDataType dt = sizeof(T) == 4
+        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const long long n0 = L.n_rows / ((long long)L.n1 * L.n2);
+    if ((err = hopper::make_rows_map(encode, &mx, x, dt, sizeof(T), L.d, L.n2,
+                                     L.n1, n0, L.s[0], rows)) ||
+        (err = hopper::make_rows_map(encode, &md, dy, dt, sizeof(T), L.d,
+                                     L.n2, L.n1, n0, L.s[1], rows)))
+      return err;
+  }
+  Rows Lc = L;
+  void* args[] = {&mx, &md, &xt, &wt, &dyt, &dxt, &dwt, &partial, &Lc, &R};
+  return (int)cooperative(k, grid, nct + 32, smem, s, args);
 }
 
 template <typename T>
-int bwd_occupancy(int kind, int vec, int maxv, int tpr, int d,
-                  int* blocks_per_sm) {
-  if (kind == 1)
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, (const void*)rmsnorm_bwd_loop<T>, BLOCK, 0);
-  RowsKernel<T> k = bwd_select<T>(vec, maxv);
-  if (k == nullptr || tpr <= 0 || tpr > BLOCK)
-    return (int)cudaErrorInvalidValue;
-  const int groups = BLOCK / tpr;
-  const size_t smem = groups > 1 ? (size_t)groups * d * sizeof(float) : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, (const void*)k, BLOCK, smem);
+int bwd_occupancy(int kind, int map, int vec, int maxv, int block, int rows,
+                  int stages, int d, int* blocks_per_sm) {
+  const size_t smem = kind == 1 ? 0 : ring_smem(rows, stages, d, sizeof(T));
+  const void* k = nullptr;
+  const int err = bwd_kernel<T>(kind, vec, maxv, map, smem, &k);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, k,
+                                                            block, smem);
 }
 
 }  // namespace
 
-// Launches both kernels on `stream` and returns cudaGetLastError(); never
-// synchronises and allocates nothing.  dtype 0 is float32, 1 bfloat16 (x,
-// w, dy, dx and dw all of it).  x's rows are laid out by (xn1, xn2, xs0,
-// xs1, xs2) and dy's by (dn1, dn2, ds0, ds1, ds2), as the header says; w and
-// dw are (d,) and dx (n_rows, d), contiguous; `partial` is float32 scratch
-// of grid x d.  kind 0 is the register kernel (`vec` elements a load, `maxv`
-// loads a thread, `tpr` threads a row), 1 the loop kernel; `grid` blocks.
+// Launches the backward on `stream` as one cooperative launch and returns
+// 0 or an error code; never synchronises and allocates nothing.  dtype 0 is
+// float32, 1 bfloat16 (x, w, dy, dx and dw all of it).  The rows of x, dy
+// and dx are laid out as `Rows` says: n_rows rows in nested dimensions
+// (n_rows / (n1 n2), n1, n2), `strides` holding the element strides over
+// them of x, then dy, then dx (nine in all); w and dw are (d,) contiguous;
+// `partial` is float32 scratch of grid x d.  kind 0 is the ring kernel
+// (`map` 1 for tensor-map tiles, 0 for bulk copies of rows; `vec` elements
+// a vector, `maxv` vectors a thread, `tpr` threads a row, `warps` consumer
+// warps, `rows` rows a stage, `stages` stages), 1 the loop kernel; `grid`
+// blocks, all resident at once; `fault` 0, or a planted fault (1: dw
+// without the last block's partial row; 2: dx from the previous stage).
 extern "C" int rmsnorm_bwd_launch(
     const void* x, const void* w, const void* dy, void* dx, void* dw,
-    void* partial, long long n_rows, int d, long long xn1, long long xn2,
-    long long xs0, long long xs1, long long xs2, long long dn1, long long dn2,
-    long long ds0, long long ds1, long long ds2, float eps, int dtype,
-    int kind, int vec, int maxv, int tpr, int grid, void* stream_ptr) {
+    void* partial, long long n_rows, int d, long long n1, long long n2,
+    const long long* strides, float eps, int dtype, int kind, int map,
+    int vec, int maxv, int tpr, int warps, int rows, int stages, int grid,
+    int fault, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const Shape S{n_rows, d, eps};
-  const Rows Lx{xn1, xn2, xs0, xs1, xs2};
-  const Rows Ld{dn1, dn2, ds0, ds1, ds2};
+  if (n_rows <= 0 || n_rows > INT32_MAX || n1 <= 0 || n2 <= 0)
+    return (int)cudaErrorInvalidValue;
+  Rows L{(int)n_rows, (int)n1, (int)n2, {}, d, eps};
+  for (int k = 0; k < 3; ++k)
+    for (int j = 0; j < 3; ++j) L.s[k][j] = strides[3 * k + j];
   float* p = static_cast<float*>(partial);
   if (dtype == 0)
-    return bwd_launch<float>(x, w, dy, dx, dw, p, S, Lx, Ld, kind, vec, maxv,
-                         tpr, grid, stream);
+    return bwd_launch<float>(x, w, dy, dx, dw, p, L, kind, map, vec, maxv,
+                             tpr, warps, rows, stages, grid, fault, stream);
   if (dtype == 1)
-    return bwd_launch<__nv_bfloat16>(x, w, dy, dx, dw, p, S, Lx, Ld, kind, vec,
-                                 maxv, tpr, grid, stream);
+    return bwd_launch<__nv_bfloat16>(x, w, dy, dx, dw, p, L, kind, map, vec,
+                                     maxv, tpr, warps, rows, stages, grid,
+                                     fault, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// The blocks of the planned first kernel one SM holds at once, for the
-// wrapper's grid.
-extern "C" int rmsnorm_bwd_blocks_per_sm(int dtype, int kind, int vec,
-                                         int maxv, int tpr, int d,
+// The blocks of the planned backward kernel one SM holds at once, for the
+// wrapper's grid (the cooperative launch needs every block resident).
+extern "C" int rmsnorm_bwd_blocks_per_sm(int dtype, int kind, int map,
+                                         int vec, int maxv, int block,
+                                         int rows, int stages, int d,
                                          int* blocks_per_sm) {
   if (dtype == 0)
-    return bwd_occupancy<float>(kind, vec, maxv, tpr, d, blocks_per_sm);
+    return bwd_occupancy<float>(kind, map, vec, maxv, block, rows, stages, d,
+                                blocks_per_sm);
   if (dtype == 1)
-    return bwd_occupancy<__nv_bfloat16>(kind, vec, maxv, tpr, d, blocks_per_sm);
+    return bwd_occupancy<__nv_bfloat16>(kind, map, vec, maxv, block, rows,
+                                        stages, d, blocks_per_sm);
   return (int)cudaErrorInvalidValue;
 }

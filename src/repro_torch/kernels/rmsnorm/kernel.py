@@ -17,7 +17,8 @@ Where autograd records (grad mode on, an input that requires grad) the
 call is a :class:`torch.autograd.Function` whose backward is
 :func:`rmsnorm_bwd`, decided by the device in the same way: the
 backward kernel on a CUDA tensor (``rmsnorm_bwd.launches`` counts its
-calls, two kernel launches each), :func:`ref.rmsnorm_bwd` on a CPU one.
+calls, one kernel launch each), :func:`ref.rmsnorm_bwd` on a CPU one; its
+dx keeps x's strides where x is dense (:func:`grad_like`).
 ``impl="ref"`` asks for the plain version on any device, differentiated
 by autograd, and ``impl="kernel"`` for the kernel, raising off a CUDA
 device.  Each library is built at its first launch
@@ -47,10 +48,10 @@ LIBRARY = CudaLibrary("rmsnorm", {
     "rmsnorm_blocks_per_sm": (
         [_I] * 7 + [ctypes.POINTER(_I)], ctypes.c_int),
     "rmsnorm_bwd_launch": (
-        [_P] * 6 + [_LL, _I] + [_LL] * 10 + [ctypes.c_float] + [_I] * 6
-        + [_P], ctypes.c_int),
+        [_P] * 6 + [_LL, _I, _LL, _LL, ctypes.POINTER(_LL), ctypes.c_float]
+        + [_I] * 11 + [_P], ctypes.c_int),
     "rmsnorm_bwd_blocks_per_sm": (
-        [_I] * 6 + [ctypes.POINTER(_I)], ctypes.c_int)})
+        [_I] * 9 + [ctypes.POINTER(_I)], ctypes.c_int)})
 
 # dtype codes of the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -168,31 +169,51 @@ def _blocks_per_sm(plan: Plan, dtype: torch.dtype, device) -> int:
     return _LIMITS[key]
 
 
-def row_layout(x: torch.Tensor) -> Tuple[int, Tuple[int, int],
-                                         Tuple[int, int, int]]:
-    """The rows of ``x`` (every index but the last) as at most three nested
-    dimensions → (n_rows, (n1, n2), (s0, s1, s2)): row ``r`` starts at
-    element ``i0*s0 + i1*s1 + i2*s2`` with ``r = (i0*n1 + i1)*n2 + i2``.
+def joint_row_layout(*ts: torch.Tensor) -> Tuple[
+        int, Tuple[int, int], List[Tuple[int, int, int]]]:
+    """The rows (every index but the last) of tensors of one shape as at
+    most three nested dimensions common to all → (n_rows, (n1, n2), one
+    (s0, s1, s2) a tensor): row ``r = (i0*n1 + i1)*n2 + i2`` of each
+    starts at element ``i0*s0 + i1*s1 + i2*s2`` of it.
 
-    Dimensions of size 1 drop out and neighbours whose strides nest merge,
-    so a contiguous tensor is one dimension and the transposed heads view
-    ``(B, H, S, D)`` of a ``(B, S, H*D)`` tensor is three.  Raises when
-    more than three remain."""
-    dims: List[List[int]] = []
-    for n, s in zip(x.shape[:-1], x.stride()[:-1]):
+    Dimensions of size 1 drop out and neighbours whose strides nest in
+    every tensor merge, so a contiguous tensor is one dimension and the
+    transposed heads view ``(B, H, S, D)`` of a ``(B, S, H*D)`` tensor is
+    three.  Raises when more than three remain."""
+    shape = ts[0].shape
+    dims: List[Tuple[int, List[int]]] = []
+    for i, n in enumerate(shape[:-1]):
         if n == 1:
             continue
-        if dims and dims[-1][1] == s * n:
-            dims[-1] = [dims[-1][0] * n, s]
+        st = [t.stride(i) for t in ts]
+        if dims and all(p == s * n for p, s in zip(dims[-1][1], st)):
+            dims[-1] = (dims[-1][0] * n, st)
         else:
-            dims.append([n, s])
+            dims.append((n, st))
     if len(dims) > 3:
-        raise ValueError(f"rows of a {tuple(x.shape)} tensor with strides "
-                         f"{x.stride()} do not fold into three dimensions")
-    dims = [[1, 0]] * (3 - len(dims)) + dims
-    n_rows = math.prod(x.shape[:-1])
-    return n_rows, (dims[1][0], dims[2][0]), (dims[0][1], dims[1][1],
-                                              dims[2][1])
+        raise ValueError(f"rows of a {tuple(shape)} tensor with strides "
+                         f"{[t.stride() for t in ts]} do not fold into "
+                         f"three dimensions")
+    dims = [(1, [0] * len(ts))] * (3 - len(dims)) + dims
+    n_rows = math.prod(shape[:-1])
+    return n_rows, (dims[1][0], dims[2][0]), [
+        tuple(dim[1][k] for dim in dims) for k in range(len(ts))]
+
+
+def _folds(*ts: torch.Tensor) -> bool:
+    try:
+        joint_row_layout(*ts)
+    except ValueError:
+        return False
+    return True
+
+
+def row_layout(x: torch.Tensor) -> Tuple[int, Tuple[int, int],
+                                         Tuple[int, int, int]]:
+    """:func:`joint_row_layout` of ``x`` alone → (n_rows, (n1, n2), (s0,
+    s1, s2))."""
+    n_rows, dims, (strides,) = joint_row_layout(x)
+    return n_rows, dims, strides
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
@@ -292,44 +313,152 @@ def _launch(x: torch.Tensor, weight: torch.Tensor,
 
 # ------------------------------------------------------------- backward
 
-# threads of a backward block; the loads a thread keeps for the register
-# kernel (its instances in csrc/rmsnorm.cu)
-BWD_BLOCK = 256
-BWD_MAXV = (1, 2, 4, 8)
+# the ring kernel's limits (csrc/rmsnorm.cu): consumer warps of a block,
+# ring stages, and the widest row one TMA box spans (elements)
+BWD_MAX_WARPS = 11
+BWD_MAX_STAGES = 8
+BWD_MAP_MAX_D = 256
+# what a plan aims for: bytes of x and dy in a stage; bytes of a block's
+# ring (two blocks an SM keep up to 192 KB in flight, where Little's law
+# asks for about 25 KB); the most a ring may take of the 227 KB a block can
+# use (the rest holds the barriers and the sums); consumer warps of a
+# narrow-row block; threads of a loop-kernel block
+BWD_STAGE_BYTES = 32 << 10
+BWD_RING_BYTES = 96 << 10
+BWD_MAX_RING = 200 << 10
+BWD_MAP_WARPS = 8
+BWD_LOOP_BLOCK = 256
+SMEM_ALIGN = 128                 # a stage's region of each tensor starts here
+# the ring kernel's planted faults (chip_smoke.py's check that its limits
+# catch them): dw summed without the last block's partial row; dx computed
+# from the previous ring stage's rows
+BWD_FAULTS = {"dw without the last block's partial row": 1,
+              "dx read from the previous ring stage": 2}
+BWD_KINDS = {"ring": 0, "loop": 1}
 
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
-    """How the backward splits its rows.  ``kind`` "rows": a group of
-    ``tpr`` threads owns a row, each thread keeping ``maxv`` loads of
-    ``vec`` elements of x, dy and w in registers, ``BWD_BLOCK // tpr`` rows
-    a block at a time; "loop": one row a block, read twice."""
+    """How the backward splits its rows.  ``kind`` "ring": a persistent
+    grid whose producer warp keeps ``stages`` shared-memory stages of
+    ``rows`` rows of x and of dy full (``load`` "map": one TMA box a tensor
+    through a tensor map over its strides, rows of one run of positions;
+    "bulk": one bulk copy a row), ``region`` bytes a tensor a stage;
+    ``warps`` consumer warps in groups of ``tpr`` threads a row, each thread
+    ``vpt`` vectors of ``vec`` elements of :func:`bwd_rows_at_once` rows at
+    once.  "loop": one row a block, read twice, one element a load."""
     kind: str
+    load: str
     vec: int
-    maxv: int
+    vpt: int
     tpr: int
+    warps: int
+    rows: int
+    stages: int
+    region: int
+
+    @property
+    def block(self) -> int:
+        return 32 * (self.warps + 1) if self.kind == "ring" \
+            else BWD_LOOP_BLOCK
+
+    @property
+    def groups(self) -> int:
+        """Rows a stage's consumers hold at once."""
+        return 32 * self.warps // self.tpr if self.kind == "ring" else 1
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory of a block: the ring, and room to align
+        it."""
+        return 2 * self.stages * self.region + SMEM_ALIGN \
+            if self.kind == "ring" else 0
+
+
+_LOOP_PLAN = BwdPlan("loop", "", 1, 0, BWD_LOOP_BLOCK, 0, 0, 0, 0)
+
+
+def _bwd_split(nv: int) -> Optional[Tuple[int, int]]:
+    """→ (consumer warps up to BWD_MAX_WARPS, vectors a thread of 1, 2, 4
+    or 8) covering a wide row of ``nv`` vectors with the fewest idle slots,
+    then the vectors a thread nearest 2; None when no split covers it."""
+    best = None
+    for vpt in (1, 2, 4, 8):
+        warps = -(-nv // (32 * vpt))
+        if warps > BWD_MAX_WARPS:
+            continue
+        key = (warps * 32 * vpt - nv, abs(vpt - 2))
+        if best is None or key < best[0]:
+            best = (key, warps, vpt)
+    return None if best is None else best[1:]
 
 
 @functools.lru_cache(maxsize=None)
 def bwd_plan(d: int, dtype: torch.dtype, aligned: bool) -> BwdPlan:
     """The backward's split of rows of ``d`` elements of ``dtype``;
-    ``aligned`` as for :func:`launch_plan`, over x, dy, w, dx and dw.  The
-    threads of a row are the fewest powers of two that leave each at most
-    four loads (up to the whole block), so the block's rows share its dw
-    sums in at most 32 KB of shared memory; rows needing more than eight
-    loads a thread take the loop kernel."""
-    vec = 16 // dtype.itemsize
+    ``aligned`` when x, dy, dx, the weight and dw start on 16 bytes and
+    every row stride is a whole number of 16 bytes.
+
+    Rows of whole 16-byte vectors go to the ring kernel: up to
+    BWD_MAP_MAX_D elements (a TMA box's width) through tensor maps, a
+    power-of-two group of up to 32 threads a row holding two vectors each
+    where the row has them, and as many rows a stage as fill about
+    BWD_STAGE_BYTES in whole steps of the block's groups; wider rows by
+    bulk copies, every consumer thread on one row (:func:`_bwd_split`), as
+    many rows a stage as fit that in whole steps.  The ring takes about
+    BWD_RING_BYTES, at least two stages.  Unaligned rows, and rows whose
+    two stages pass BWD_MAX_RING, take the loop kernel."""
+    size = dtype.itemsize
+    vec = 16 // size
     if not aligned or d % vec:
-        vec = 1
-    nv = d // vec
-    tpr = 1
-    while tpr < BWD_BLOCK and tpr * 4 < nv:
-        tpr *= 2
-    need = -(-nv // tpr)
-    maxv = next((m for m in BWD_MAXV if m >= need), None)
-    if maxv is None:
-        return BwdPlan("loop", 1, 0, BWD_BLOCK)
-    return BwdPlan("rows", vec, maxv, tpr)
+        return _LOOP_PLAN
+    nv, row = d // vec, d * size
+    if d <= BWD_MAP_MAX_D:
+        # two vectors a thread where the row has them: half the threads a
+        # row, so half the shuffles and inverse roots an element
+        tpr = min(32, 1 << (-(-nv // 2) - 1).bit_length())
+        vpt, warps, load = -(-nv // tpr), BWD_MAP_WARPS, "map"
+        if 32 * warps // tpr * bwd_rows_at_once(vpt) > BWD_MAP_MAX_D:
+            warps //= 2                  # tiny rows: a step fits a box
+        step = 32 * warps // tpr * bwd_rows_at_once(vpt)
+        rows = max(step, BWD_STAGE_BYTES // 2 // row // step * step)
+        rows = min(rows, BWD_MAP_MAX_D // step * step)
+    else:
+        split = _bwd_split(nv)
+        if split is None:
+            return _LOOP_PLAN
+        (warps, vpt), load = split, "bulk"
+        tpr, step = 32 * warps, bwd_rows_at_once(vpt)
+        rows = max(step, BWD_STAGE_BYTES // 2 // row // step * step)
+    region = -(-rows * row // SMEM_ALIGN) * SMEM_ALIGN
+    stages = max(2, min(BWD_MAX_STAGES, BWD_RING_BYTES // (2 * region)))
+    if 2 * stages * region > BWD_MAX_RING:
+        return _LOOP_PLAN
+    return BwdPlan("ring", load, vec, vpt, tpr, warps, rows, stages, region)
+
+
+def bwd_rows_at_once(vpt: int) -> int:
+    """Rows a consumer thread of the ring kernel works on together (its
+    ``U``): two while it holds at most two vectors a row, else one."""
+    return 2 if vpt <= 2 else 1
+
+
+def bwd_tiles(plan: BwdPlan, n_rows: int, n2: int) -> int:
+    """Tiles the backward walks: the ring's lie inside runs of ``n2`` rows
+    (one box, or rows at one stride, a tile); the loop's are rows."""
+    if plan.kind == "loop":
+        return n_rows
+    return n_rows // n2 * -(-n2 // plan.rows)
+
+
+def bwd_grid(plan: BwdPlan, n_rows: int, n2: int, n_sm: int,
+             blocks_per_sm: int) -> int:
+    """Blocks of the cooperative launch: one per tile, at most as many as
+    the ``n_sm`` SMs hold at once (``blocks_per_sm`` each), every block
+    resident for the grid sync."""
+    if blocks_per_sm < 1:
+        raise ValueError(f"a backward block of {plan} does not fit an SM")
+    return max(1, min(bwd_tiles(plan, n_rows, n2), n_sm * blocks_per_sm))
 
 
 def _bwd_blocks_per_sm(plan: BwdPlan, dtype: torch.dtype, d: int,
@@ -339,8 +468,9 @@ def _bwd_blocks_per_sm(plan: BwdPlan, dtype: torch.dtype, d: int,
         val = ctypes.c_int(0)
         with torch.cuda.device(device):
             err = LIBRARY.get().rmsnorm_bwd_blocks_per_sm(
-                DTYPES[dtype], KINDS[plan.kind], plan.vec, plan.maxv,
-                plan.tpr, d, ctypes.byref(val))
+                DTYPES[dtype], BWD_KINDS[plan.kind], plan.load == "map",
+                plan.vec, plan.vpt, plan.block, plan.rows, plan.stages, d,
+                ctypes.byref(val))
         LIBRARY.check(err, "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
         _LIMITS[key] = val.value
     return _LIMITS[key]
@@ -352,52 +482,105 @@ def _rows_of(t: torch.Tensor) -> torch.Tensor:
     expanded gradient, for one)."""
     if t.shape[-1] > 1 and t.stride(-1) != 1:
         return t.contiguous()
-    try:
-        row_layout(t)
-    except ValueError:
-        return t.contiguous()
-    return t
+    return t if _folds(t) else t.contiguous()
+
+
+def _dense(t: torch.Tensor) -> bool:
+    """True when ``t``'s elements fill its storage span once each (some
+    order of its dimensions is contiguous): non-overlapping and dense."""
+    want = 1
+    for st, n in sorted((st, n) for n, st in zip(t.shape, t.stride())
+                        if n != 1):
+        if st != want:
+            return False
+        want *= n
+    return True
+
+
+def grad_like(x: torch.Tensor) -> torch.Tensor:
+    """An empty tensor for x's gradient: with x's strides where x is
+    non-overlapping and dense with unit stride along its rows (the heads
+    view ``(B, H, S, D)`` of a ``(B, S, H*D)`` projection, so that
+    autograd's backward of the view is a view, not a copy), else
+    contiguous."""
+    if _dense(x) and (x.shape[-1] <= 1 or x.stride(-1) == 1):
+        return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                                   device=x.device)
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
+def bwd_operands(x: torch.Tensor, dy: torch.Tensor, *vectors: torch.Tensor):
+    """What the backward kernel is handed → (dy, read in place or a
+    contiguous copy where its rows do not fold with x's; dx from
+    :func:`grad_like`; :func:`joint_row_layout` of x, dy and dx; whether x,
+    dy, dx and ``vectors`` (the weight and dw) start on 16 bytes and every
+    row stride is a whole number of 16 bytes)."""
+    if x.shape[-1] > 1 and x.stride(-1) != 1:
+        raise ValueError(f"x must have unit stride in its last dimension, "
+                         f"got strides {x.stride()}")
+    dy = _rows_of(dy)
+    dx = grad_like(x)
+    if not _folds(x, dy, dx):
+        dy = dy.contiguous()             # then x's and dx's dimensions fold
+    layout = joint_row_layout(x, dy, dx)
+    size = x.element_size()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, dx, *vectors)) \
+        and all(st * size % 16 == 0 for sts in layout[2] for st in sts)
+    return dy, dx, layout, aligned
 
 
 def rmsnorm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
                 eps: float = 1e-6):
-    """The gradients of :func:`rmsnorm` → (dx, x's shape, contiguous, x's
-    dtype; dw, the weight's shape and dtype).  x, weight and eps as given
-    to the forward; dy of the output's shape and dtype, at any strides.
-    The device decides as in :func:`rmsnorm`: the backward kernel on CUDA
-    tensors, :func:`ref.rmsnorm_bwd` on CPU ones."""
+    """The gradients of :func:`rmsnorm` → (dx, x's shape and dtype, laid
+    out as :func:`grad_like` says: x's strides where x is non-overlapping
+    and dense, else contiguous; dw, the weight's shape and dtype).  x,
+    weight and eps as given to the forward; dy of the output's shape and
+    dtype, at any strides.  The device decides as in :func:`rmsnorm`: the
+    backward kernel on CUDA tensors (one launch), :func:`ref.rmsnorm_bwd`
+    on CPU ones."""
     if tuple(dy.shape) != tuple(x.shape) or dy.dtype != x.dtype \
             or dy.device != x.device:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device} "
                          f"does not match x {tuple(x.shape)} {x.dtype}")
     if not _on_kernel_device(x, None):
-        return ref.rmsnorm_bwd(x, weight, dy, eps=eps)
-    dy = _rows_of(dy)
+        dx, dw = ref.rmsnorm_bwd(x, weight, dy, eps=eps)
+        out = grad_like(x)
+        return (dx if out.stride() == dx.stride() else out.copy_(dx)), dw
+    return _launch_bwd(x, weight, dy, eps)
+
+
+def _launch_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                eps: float, fault: int = 0):
+    """The backward kernel on CUDA tensors that :func:`rmsnorm_bwd` has
+    matched; called with ``fault`` (``BWD_FAULTS``) by chip_smoke.py to
+    plant one in the ring kernel."""
     d = x.shape[-1]
-    n_rows, (xn1, xn2), (xs0, xs1, xs2) = row_layout(x)
-    _, (dn1, dn2), (ds0, ds1, ds2) = row_layout(dy)
-    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if not weight.is_contiguous():
+        raise ValueError("weight must be contiguous")
     dw = torch.empty((d,), dtype=weight.dtype, device=x.device)
+    dy, dx, (n_rows, (n1, n2), strides), aligned = bwd_operands(
+        x, dy, weight, dw)
     if n_rows == 0 or d == 0:
         return dx, dw.zero_()
-    size = x.element_size()
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, weight, dy, dx, dw)) \
-        and all(st * size % 16 == 0
-                for st in (xs0, xs1, xs2, ds0, ds1, ds2))
+    if n_rows >= 1 << 31:
+        raise ValueError(f"{n_rows} rows: the backward kernels index rows "
+                         f"in 32 bits")
     plan = bwd_plan(d, x.dtype, aligned)
-    per_block = BWD_BLOCK // plan.tpr if plan.kind == "rows" else 1
-    tiles = -(-n_rows // per_block)
-    grid = max(1, min(tiles, _sm_count(x.device)
-                      * _bwd_blocks_per_sm(plan, x.dtype, d, x.device)))
+    if fault and plan.kind != "ring":
+        raise ValueError("faults are planted in the ring kernel only")
+    grid = bwd_grid(plan, n_rows, n2, _sm_count(x.device),
+                    _bwd_blocks_per_sm(plan, x.dtype, d, x.device))
     partial = torch.empty((grid, d), dtype=torch.float32, device=x.device)
+    flat = (ctypes.c_longlong * 9)(*(st for sts in strides for st in sts))
     lib = LIBRARY.get()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.rmsnorm_bwd_launch(
             x.data_ptr(), weight.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            dw.data_ptr(), partial.data_ptr(), n_rows, d, xn1, xn2, xs0,
-            xs1, xs2, dn1, dn2, ds0, ds1, ds2, float(eps), DTYPES[x.dtype],
-            KINDS[plan.kind], plan.vec, plan.maxv, plan.tpr, grid, stream)
+            dw.data_ptr(), partial.data_ptr(), n_rows, d, n1, n2, flat,
+            float(eps), DTYPES[x.dtype], BWD_KINDS[plan.kind],
+            plan.load == "map", plan.vec, plan.vpt, plan.tpr, plan.warps,
+            plan.rows, plan.stages, grid, int(fault), stream)
     LIBRARY.check(err, "rmsnorm backward launch")
     rmsnorm_bwd.launches += 1
     return dx, dw
