@@ -193,13 +193,37 @@ float32 SIMT kernels).  Phases:
       last rows).  Every training forward writes the row statistics and
       every backward takes the tensor-core route; the serving phases
       (g), (k) and (l) write none.
+  (o) training across ranks, after (n), on a one-rank NCCL group
+      (``make_host_mesh(device="cuda")``, destroyed at the end): qwen3-14b
+      at full width cut to ``DP_LAYERS`` of its 40 layers (the deepest
+      that leaves ``DP_FREE_GB`` free at the compressed step's 18 bytes a
+      parameter), B=2 x S=2048 ``SyntheticTokens``, full remat, phase
+      (n)'s AdamW: the uncompressed ``make_train_step`` and the int8
+      error-feedback ``make_compressed_dp_train_step`` from one initial
+      state on the same 8 batches (the first loss bit-equal, both curves
+      falling, the last losses within the reference's 0.35), launches of
+      all four kernels counted in the compressed run, its step timed
+      (CUDA events, the host hidden) in turns with the uncompressed one
+      (uncompressed, compressed, compressed, uncompressed), the
+      compression's device ms (events around it, and its kernels in a
+      profiled step) against its 14-bytes-a-parameter bound, the peak
+      memory, one step under torch's sync debug mode; the ef after a step
+      against (g + ef) - deq bit for bit, which must fail with the ef not
+      carried (planted); the compression's invariants on a leaf of the
+      real gradients (q int8 in [-127, 127], |deq - (g + e)| <= scale/2,
+      the mean sent over 20 repeats within the error feedback's bound,
+      which must fail with the error not carried); and
+      ``make_pipeline_train_step`` with one stage over 4 microbatches
+      through the cut's layers (the layer body, so both forward kernels
+      run), bit for bit against the layers applied to each microbatch in
+      turn.  ``python3 chip_smoke.py --phase o`` runs (a) and (o) alone.
 
 Exits non-zero, printing no result, without a card or when any check
 fails.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists each ported kernel with its launches on the main paths
 (phases (c), (h), (i), (j) and (m) for the executor, phases (g), (k),
-(l) and (n) for RMSNorm and flash attention, phase (n) for their
-backward kernels).
+(l), (n) and (o) for RMSNorm and flash attention, phases (n) and (o)
+for their backward kernels).
 """
 
 from __future__ import annotations
@@ -4401,7 +4425,450 @@ def phase_train(card: str):
         seconds=time.perf_counter() - t_phase)
 
 
-def main() -> int:
+# ---------------------------------------------------------------- phase (o)
+# qwen3-14b's compressed data-parallel step on a one-rank NCCL group.  The
+# cut, reckoned before the first run: at the peak the compressed step holds
+# 18 bytes a parameter (bf16 parameters 2, float32 mu and nu 8, ef 4, the
+# reduced float32 gradients 4) and the bf16 gradient of the leaf being
+# reduced (the unembed, 1.56 GB, reduced last), P(L) = 1.557e9 + 0.3303e9 L
+# parameters: 71.2 GB allocated at 7 layers, 77.2 at 8.  Phase (n2)'s
+# reserved memory stood 6.9 GB above its allocated peak (68.46 GB
+# allocated, 9.7 GB of 85.0 free), so 7 layers leave about 6.9 GB free and
+# 8 about 0.9: 7 is the deepest cut that leaves DP_FREE_GB (PERF.md
+# section 4)
+DP_LAYERS = 7
+DP_FREE_GB = 5.0
+# the steps each run takes on the same batches; the step that runs under
+# the profiler and the one under torch's sync debug mode (neither timed);
+# the steps of the second timing turn
+DP_STEPS, DP_PROFILE_STEP, DP_SYNC_STEP, DP_TURN_STEPS = 8, 3, 5, 3
+# the last losses of the compressed and the uncompressed step, within the
+# reference's bound (tests/test_compressed_dp.py)
+DP_LOSS_TOL = 0.35
+# the one-stage pipeline's microbatches (of one sequence each)
+DP_MICRO = 4
+# bytes a parameter the compression must move: read g (bf16) and e, write
+# e and the payload (float32)
+DP_BYTES_PER_PARAM = 14
+# the leaf of the real gradients the compression's invariants are read on
+DP_LEAF = ("layers", "attn", "wk")
+DP_REPEATS = 20
+# |deq - (g + e)| over scale/2: at most 1 + 3e-5 (g/s rounded to float32
+# moves it by up to 127 ulp of 1, the product q s by as much again)
+DP_HALF_SCALE_LIMIT = 1 + 2 ** -14
+# |mean sent - g| over the error feedback's bound max(scale)/(2 repeats):
+# 5% for the float32 rounding of g + e over the repeats (at most 0.6%);
+# with the error not carried the worst element reads about repeats
+DP_MEAN_LIMIT = 1.05
+
+
+def leaf_at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def range_kernel_ms(trace_path, name: str):
+    """Device ms of the kernels launched inside the ``record_function``
+    ranges called ``name`` in a profiled window (matched to their launches
+    by correlation id) → (ms, kernels)."""
+    events = json.loads(Path(trace_path).read_text()).get("traceEvents", [])
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == name]
+    corr = {e["args"]["correlation"] for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and "correlation" in e.get("args", {})
+            and any(a <= e["ts"] <= b for a, b in spans)}
+    ms, n = 0.0, 0
+    for e in events:
+        if e.get("cat") == "kernel" and e.get("args", {}).get(
+                "correlation") in corr:
+            ms += e["dur"] / 1e3
+            n += 1
+    return ms, n
+
+
+@contextlib.contextmanager
+def timed_compression(out: list):
+    """Within the block, each compressed reduction of the step runs
+    between two CUDA events; ``out`` gets the (start, end) pairs."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.train import dp_compressed
+    real = dp_compressed.error_feedback_allreduce
+
+    def timed(grads, error, group=None):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = real(grads, error, group)
+        end.record()
+        out.append((start, end))
+        return res
+
+    with mock.patch.object(dp_compressed, "error_feedback_allreduce", timed):
+        yield
+
+
+def ef_not_carried():
+    """The planted fault: the step's reduction starts every leaf from zero
+    error feedback, so the old ef is not carried."""
+    from unittest import mock
+
+    from repro_torch.models.common import leaves
+    from repro_torch.train import dp_compressed
+    real = dp_compressed.error_feedback_allreduce
+
+    def dropped(grads, error, group=None):
+        for e in leaves(error):
+            e.zero_()
+        return real(grads, error, group)
+    return mock.patch.object(dp_compressed, "error_feedback_allreduce",
+                             dropped)
+
+
+def dp_run(step_fn, fresh, batches, n_steps, tag, profile=None,
+           sync=None):
+    """``n_steps`` steps of ``step_fn`` from ``fresh()`` on ``batches``
+    (on the card already), each timed by CUDA events with the host hidden
+    (except the profiled and the sync-checked one) → (state, readings)."""
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = fresh()
+    torch.cuda.synchronize()
+    losses, norms, ms, syncs, prof = [], [], [], None, None
+    for i in range(n_steps):
+        if i == profile:
+            res = []
+            wall, busy, n_k, top = profile_window(
+                lambda _: res.append(step_fn(state, batches[i])), 1,
+                OUT / "dp_step_trace.json")
+            state, met = res[0]
+            prof = dict(wall=wall, busy=busy, kernels=n_k, top=top)
+        elif i == sync:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, met = step_fn(state, batches[i])
+                syncs = ""
+            except RuntimeError as e:
+                syncs = str(e).splitlines()[0]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+            check(syncs == "", f"{tag}: the step synchronised with the "
+                               f"host: {syncs}")
+        else:
+            hide_host()()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, met = step_fn(state, batches[i])
+            end.record()
+            end.synchronize()
+            ms.append((i, start.elapsed_time(end)))
+        losses.append(met["loss"])
+        norms.append(met["grad_norm"])
+    torch.cuda.synchronize()
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = dict(losses=[float(v) for v in losses],
+               grad_norms=[float(v) for v in norms],
+               step_ms={i: t for i, t in ms},
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+               free_gb=(total - torch.cuda.max_memory_reserved()) / 1e9,
+               total_gb=total / 1e9, profile=prof, syncs=syncs)
+    timed = [t for i, t in ms if i > 0]
+    out["ms"] = statistics.median(timed) if timed else None
+    log(f"(o) {tag}: losses {[round(v, 4) for v in out['losses']]}, "
+        f"grad_norm {[round(v, 4) for v in out['grad_norms']]}; step ms "
+        f"{ {i: round(t, 1) for i, t in ms} } (median after the first "
+        f"{out['ms']}); peak {out['peak_gb']:.2f} GB allocated, "
+        f"{out['reserved_gb']:.2f} GB reserved of {out['total_gb']:.2f}: "
+        f"{out['free_gb']:.2f} GB free")
+    return state, out
+
+
+def compression_checks(g, e0, fault: bool):
+    """The compression's invariants on one leaf of the real gradients
+    (``g`` bf16, ``e0`` a carried float32 error) → readings: q int8 within
+    [-127, 127]; |deq - (g + e)| over scale/2; ef against gf - deq bit for
+    bit; over DP_REPEATS compressions of g from zero error, |mean sent -
+    g| over the error feedback's bound max(scale)/(2 DP_REPEATS) (the sum
+    sent is DP_REPEATS g - e_last).  With ``fault`` the error is not
+    carried between the repeats."""
+    import torch
+    from repro_torch.optim import compression as comp
+    q, s, e1 = comp.compress_pytree({"w": g}, {"w": e0})
+    q, s, e1 = q["w"], s["w"], e1["w"]
+    gf = g.float() + e0
+    deq = comp.decompress_pytree({"w": q}, {"w": s})["w"]
+    out = dict(
+        q_int8_in_range=bool(q.dtype == torch.int8
+                             and int(q.abs().max()) <= 127),
+        deq_over_half_scale=float((deq.double() - gf.double()).abs().max()
+                                  / (float(s) / 2)),
+        ef_bits_equal=bool(torch.equal(e1, gf - deq)))
+    err = torch.zeros_like(gf)
+    total = torch.zeros(gf.shape, dtype=torch.float64, device=gf.device)
+    s_max = 0.0
+    for _ in range(DP_REPEATS):
+        if fault:
+            err.zero_()
+        q, s, e = comp.compress_pytree({"w": g}, {"w": err})
+        total += comp.decompress_pytree(q, s)["w"].double()
+        err, s_max = e["w"], max(s_max, float(s["w"]))
+    mean_err = float((total / DP_REPEATS - g.double()).abs().max())
+    out.update(mean_err=mean_err, mean_err_abs_limit=2e-2,
+               mean_over_bound=mean_err / (s_max / (2 * DP_REPEATS)),
+               max_abs_g=float(g.float().abs().max()), scale=s_max)
+    return out
+
+
+def ef_step_check(model, step_fn, state, batch):
+    """One compressed step on ``batch`` → whether the DP_LEAF of the new
+    ef equals (g + ef_old) - deq(g + ef_old) bit for bit, g that leaf's
+    gradient on the same parameters and batch (value_and_grad, run first:
+    it is deterministic), and the leaf's largest difference."""
+    import torch
+    from repro_torch.optim import compression as comp
+    from repro_torch.train.step import value_and_grad
+    _, grads = value_and_grad(model, state["params"], batch)
+    g = leaf_at(grads, DP_LEAF).clone()
+    del grads
+    e_old = leaf_at(state["ef"], DP_LEAF).clone()
+    state, _ = step_fn(state, batch)
+    gf = e_old + g
+    s = comp._scale(gf)
+    want = gf - comp._rounded(gf, s).mul_(s)
+    got = leaf_at(state["ef"], DP_LEAF)
+    torch.cuda.synchronize()
+    return state, g, e_old, dict(
+        bits_equal=bool(torch.equal(got, want)),
+        max_diff_over_scale=float((got - want).abs().max() / s))
+
+
+def phase_dp(card: str):
+    """(o) qwen3-14b at full width cut to DP_LAYERS, the compressed
+    data-parallel step on a one-rank NCCL group against the uncompressed
+    step (the main path: launches counted), the ef carried bit for bit with
+    a planted fault, the compression's invariants on a leaf of the real
+    gradients, and the one-stage pipeline against the sequential layers."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import leaves, tree_map
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.pipeline import make_pipeline_train_step
+    from repro_torch.train.dp_compressed import (
+        COMPRESSION_RANGE, init_compressed_state,
+        make_compressed_dp_train_step)
+    from repro_torch.train.step import init_state, make_train_step
+
+    t_phase = time.perf_counter()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    dev = torch.device(DEVICE)
+    check(not dist.is_initialized(), "a process group exists before (o)")
+    mesh = make_host_mesh(device=DEVICE)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    check(dist.get_backend() == backend and tuple(mesh.shape) == (1, 1),
+          f"(o) mesh {tuple(mesh.shape)} on {dist.get_backend()}")
+    full = get_arch(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=DP_LAYERS)
+    check(cfg.d_model == QWEN["d"] and cfg.dtype == torch.bfloat16,
+          f"{TRAIN_ARCH} config changed")
+    model = build_model(cfg, remat_policy="full")
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                          total_steps=DP_STEPS)
+    ds = SyntheticTokens(cfg.vocab, TRAIN_S, TRAIN_B, seed=0)
+    batches = [{k: torch.as_tensor(v).to(dev)
+                for k, v in ds.batch_at(i).items()} for i in range(DP_STEPS)]
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    base_step = make_train_step(model, opt_cfg)
+    dp_step = make_compressed_dp_train_step(model, opt_cfg, mesh)
+    log(f"(o) {TRAIN_ARCH}, {DP_LAYERS} of its {full.n_layers} layers at "
+        f"full width: {cfg.param_count() / 1e9:.3f} B parameters; "
+        f"B={TRAIN_B} S={TRAIN_S}, remat full, AdamW lr {TRAIN_LR} warmup "
+        f"{TRAIN_WARMUP}; mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+        f"on {dist.get_backend()}")
+    # ---- turn 1: the baseline, then the compressed step (the main path:
+    # counts set to 0 just before, read just after)
+    state, base = dp_run(base_step, lambda: init_state(model, gen()),
+                         batches, DP_STEPS, "uncompressed step")
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    del state
+    reset_counts()
+    rk.rmsnorm_bwd.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    for route in fa.flash_attention_bwd.launches_by_route:
+        fa.flash_attention_bwd.launches_by_route[route] = 0
+    events = []
+    with timed_compression(events):
+        state, comp = dp_run(dp_step,
+                             lambda: init_compressed_state(model, gen()),
+                             batches, DP_STEPS, "compressed step",
+                             profile=DP_PROFILE_STEP, sync=DP_SYNC_STEP)
+    launches = counts()
+    bwd_launches = {"rmsnorm_bwd": rk.rmsnorm_bwd.launches,
+                    "flash_attention_bwd": fa.flash_attention_bwd.launches}
+    bwd_by_route = dict(fa.flash_attention_bwd.launches_by_route)
+    # ----
+    n_l, n_s = DP_LAYERS * DP_STEPS, DP_STEPS
+    want = {"flash_attention": 2 * n_l, "rmsnorm": 8 * n_l + n_s,
+            "flash_attention_bwd": n_l, "rmsnorm_bwd": 4 * n_l + n_s}
+    have = {"flash_attention": launches["flash_attention"],
+            "rmsnorm": launches["rmsnorm"], **bwd_launches}
+    log(f"(o) launches in {n_s} compressed steps: {have} (flash attention "
+        f"by route {launches['flash_attention_by_route']}, backward by "
+        f"route {bwd_by_route})")
+    check(have == want and launches["flash_attention_by_route"]["simt"] == 0
+          and bwd_by_route == {"wgmma": n_l, "simt": 0},
+          f"(o) launches {have}, expected {want} on the tensor-core routes")
+    bwd_launches["flash_attention_bwd_by_route"] = bwd_by_route
+    # the compression's device ms: CUDA events around it in the timed
+    # steps, and its kernels in the profiled step's trace
+    comp_ms = [s.elapsed_time(e) for i, (s, e) in enumerate(events)
+               if i in comp["step_ms"] and i > 0]
+    bound = n_params * DP_BYTES_PER_PARAM / MEM_BYTES_PER_S * 1e3
+    prof = comp["profile"]
+    if prof["busy"] is None:
+        traced = (None, 0)
+        log("(o) profiled step: the trace holds no kernel; not measured")
+    else:
+        traced = range_kernel_ms(OUT / "dp_step_trace.json",
+                                 COMPRESSION_RANGE)
+        parts, _ = kernel_parts(OUT / "dp_step_trace.json")
+        prof.update(parts_ms=parts, idle=1 - prof["busy"] / prof["wall"])
+        log(f"(o) profiled compressed step {DP_PROFILE_STEP}: host "
+            f"{prof['wall']:.1f} ms, device busy {prof['busy']:.1f} ms "
+            f"(idle share {prof['idle']:.3f}), {prof['kernels']} kernels; "
+            f"the compression's {traced[1]} kernels {traced[0]} ms; by "
+            f"part: " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+    med = statistics.median(comp_ms)
+    log(f"(o) the compression: {med:.2f} ms a step (events, "
+        f"{[round(v, 2) for v in comp_ms]}), {traced[0]} ms of kernels in "
+        f"the profiled step; bound {bound:.2f} ms ({DP_BYTES_PER_PARAM} "
+        f"bytes a parameter at {MEM_BYTES_PER_S / 1e12:g} TB/s): share "
+        f"{bound / med:.3f}; {card}")
+    # ---- the losses
+    b_l, c_l = base["losses"], comp["losses"]
+    log(f"(o) first loss: compressed {c_l[0]!r}, uncompressed {b_l[0]!r}; "
+        f"last {c_l[-1]:.5f} and {b_l[-1]:.5f} (|difference| "
+        f"{abs(c_l[-1] - b_l[-1]):.5f}, limit {DP_LOSS_TOL})")
+    check(c_l[0] == b_l[0], f"(o) first losses differ: {c_l[0]!r} against "
+                            f"{b_l[0]!r}")
+    check(c_l[-1] < c_l[0] and b_l[-1] < b_l[0],
+          f"(o) a loss curve does not fall: {c_l}, {b_l}")
+    check(abs(c_l[-1] - b_l[-1]) < DP_LOSS_TOL,
+          f"(o) last losses {c_l[-1]} and {b_l[-1]} differ by "
+          f"{DP_LOSS_TOL} or more")
+    check(comp["free_gb"] >= DP_FREE_GB,
+          f"(o) leaves {comp['free_gb']:.2f} GB free, under {DP_FREE_GB:g}")
+    # ---- the ef carried, and the planted fault
+    state, g, e_old, clean = ef_step_check(model, dp_step, state, batches[0])
+    with ef_not_carried():
+        state, _, _, faulty = ef_step_check(model, dp_step, state,
+                                            batches[1])
+    log(f"(o) the ef of {'/'.join(DP_LEAF)} after a step against (g + ef) "
+        f"- deq: {clean}; with the ef not carried (planted): {faulty}")
+    check(clean["bits_equal"] and not faulty["bits_equal"],
+          f"(o) ef check {clean}, with the planted fault {faulty}")
+    leaf = compression_checks(g, e_old, fault=False)
+    leaf_fault = compression_checks(g, e_old, fault=True)
+    log(f"(o) the compression on {'/'.join(DP_LEAF)} ({g.numel()} entries) "
+        f"of the real gradients: {leaf}; with the error not carried "
+        f"between the repeats (planted): mean over bound "
+        f"{leaf_fault['mean_over_bound']:.3f}")
+    check(leaf["q_int8_in_range"] and leaf["ef_bits_equal"]
+          and leaf["deq_over_half_scale"] <= DP_HALF_SCALE_LIMIT
+          and leaf["mean_err"] <= leaf["mean_err_abs_limit"]
+          and leaf["mean_over_bound"] <= DP_MEAN_LIMIT
+          and leaf_fault["mean_over_bound"] > DP_MEAN_LIMIT,
+          f"(o) compression invariants {leaf}, planted {leaf_fault}")
+    del g, e_old
+    # ---- the one-stage pipeline against the sequential layers
+    pos = torch.arange(TRAIN_S, device=dev)
+
+    def layer_fn(x, lp):
+        return model._layer_train(x, lp, pos)
+    layers = state["params"]["layers"]
+    x = torch.randn((DP_MICRO, 1, TRAIN_S, cfg.d_model), generator=gen(),
+                    device=dev, dtype=torch.float32).to(cfg.dtype)
+    reset_counts()
+    with torch.inference_mode():
+        run = make_pipeline_train_step(layer_fn, 1, DP_MICRO, mesh)
+        piped = run(tree_map(lambda t: t.unsqueeze(0), layers), x)
+        pipe_launches = counts()
+        same = []
+        for m in range(DP_MICRO):
+            h = x[m]
+            for i in range(DP_LAYERS):
+                h = layer_fn(h, layer_params(layers, i))
+            same.append(bool(torch.equal(piped[m], h)))
+    log(f"(o) one-stage pipeline, {DP_MICRO} microbatches of (1, {TRAIN_S}, "
+        f"{cfg.d_model}) through {DP_LAYERS} layers: bit-equal to the "
+        f"layers applied to each in turn {same}; launches "
+        f"{ {k: pipe_launches[k] for k in ('flash_attention', 'rmsnorm')} }")
+    check(all(same), f"(o) pipeline against the sequential layers: {same}")
+    check(pipe_launches["flash_attention"] == DP_MICRO * DP_LAYERS
+          and pipe_launches["rmsnorm"] == 4 * DP_MICRO * DP_LAYERS,
+          f"(o) pipeline launches {pipe_launches}")
+    del state, layers, x, piped, h
+    # ---- turn 2 of the times: compressed, then uncompressed
+    state, comp2 = dp_run(dp_step,
+                          lambda: init_compressed_state(model, gen()),
+                          batches, DP_TURN_STEPS,
+                          "compressed step, second turn")
+    del state
+    state, base2 = dp_run(base_step, lambda: init_state(model, gen()),
+                          batches, DP_TURN_STEPS,
+                          "uncompressed step, second turn")
+    del state
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    toks = TRAIN_B * TRAIN_S
+    turns = {"compressed": [comp["ms"], comp2["ms"]],
+             "uncompressed": [base["ms"], base2["ms"]]}
+    log(f"(o) step ms in turns (uncompressed, compressed, compressed, "
+        f"uncompressed): {base['ms']:.1f}, {comp['ms']:.1f}, "
+        f"{comp2['ms']:.1f}, {base2['ms']:.1f}; tokens/s compressed "
+        f"{toks / comp['ms'] * 1e3:.0f}; peak GB allocated "
+        f"{comp['peak_gb']:.2f} and {comp2['peak_gb']:.2f} against "
+        f"{base['peak_gb']:.2f} and {base2['peak_gb']:.2f}; phase (o) "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    return launches, bwd_launches, pipe_launches, dict(
+        layers=DP_LAYERS, params=n_params, step_ms_turns=turns,
+        peak_gb={"compressed": [comp["peak_gb"], comp2["peak_gb"]],
+                 "uncompressed": [base["peak_gb"], base2["peak_gb"]]},
+        free_gb=comp["free_gb"], total_gb=comp["total_gb"],
+        losses={"compressed": c_l, "uncompressed": b_l},
+        compression_ms=med, compression_ms_steps=comp_ms,
+        compression_traced_ms=traced[0], compression_bound_ms=bound,
+        compression_share_of_bound=bound / med, profile=prof,
+        ef_check=clean, ef_check_planted=faulty, leaf_checks=leaf,
+        leaf_checks_planted=leaf_fault, pipeline_bit_equal=all(same),
+        seconds=time.perf_counter() - t_phase)
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phase", choices=("o",), default=None,
+                    help="build the kernels, then run this phase alone "
+                         "(its checks hold; no result lines)")
+    args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
@@ -4417,6 +4884,11 @@ def main() -> int:
     t_start = time.perf_counter()
     max_err: list = []
     card = phase_setup()
+    if args.phase == "o":
+        dp = phase_dp(card)[3]
+        log("(o) readings " + json.dumps(dp))
+        log(f"done in {time.perf_counter() - t_start:.1f} s")
+        return 0
     t_last = [t_start]
 
     def took(phase: str) -> None:
@@ -4463,6 +4935,13 @@ def main() -> int:
     train_launches, bwd_launches, train = phase_train(card)
     took("(n2)")
     paths["(n) qwen3-14b training"] = train_launches
+    dp_launches, dp_bwd, pipe_launches, dp = phase_dp(card)
+    took("(o)")
+    paths["(o) qwen3-14b compressed DP"] = dp_launches
+    paths["(o) one-stage pipeline"] = pipe_launches
+    bwd_by_path = {name: {"(n) qwen3-14b training": bwd_launches[name],
+                          "(o) qwen3-14b compressed DP": dp_bwd[name]}
+                   for name in ("rmsnorm_bwd", "flash_attention_bwd")}
     by_path = {name: {label: n[name] for label, n in paths.items()}
                for name in ("rmsnorm", "flash_attention")}
     fa_by_route = {route: sum(n["flash_attention_by_route"][route]
@@ -4471,6 +4950,7 @@ def main() -> int:
     for name in ("rmsnorm_bwd", "flash_attention_bwd"):
         check(bwd_launches[name] > 0, f"training never launched {name}")
     log("(n) readings " + json.dumps(train))
+    log("(o) readings " + json.dumps(dp))
     # kernels per backward wrapper call and device ms per step, counted in
     # the profiled training step's trace (None where it holds no kernel)
     prof = train["profile"] or {}
@@ -4570,9 +5050,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:38 (backward; no "
                     "Pallas counterpart: the JAX package differentiates its "
                     "plain version)",
-        "launches": bwd_launches["rmsnorm_bwd"],
-        "launches_by_path": {"(n) qwen3-14b training":
-                             bwd_launches["rmsnorm_bwd"]},
+        "launches": sum(bwd_by_path["rmsnorm_bwd"].values()),
+        "launches_by_path": bwd_by_path["rmsnorm_bwd"],
         "kernel_launches_per_call": per_call["RMSNorm backward"],
         "kernel_launches_per_call_by_route": (
             {route: r["kernels_per_call"]
@@ -4617,10 +5096,12 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:98 "
                     "(backward; no Pallas counterpart: the JAX package "
                     "differentiates its plain version)",
-        "launches": bwd_launches["flash_attention_bwd"],
-        "launches_by_path": {"(n) qwen3-14b training":
-                             bwd_launches["flash_attention_bwd"]},
-        "launches_by_route": bwd_launches["flash_attention_bwd_by_route"],
+        "launches": sum(bwd_by_path["flash_attention_bwd"].values()),
+        "launches_by_path": bwd_by_path["flash_attention_bwd"],
+        "launches_by_route": {
+            route: n + dp_bwd["flash_attention_bwd_by_route"][route]
+            for route, n in
+            bwd_launches["flash_attention_bwd_by_route"].items()},
         "kernel_launches_per_call": per_call["attention backward"],
         "match": "bfloat16 (tensor-core route) within 1e-5 max|plain| + "
                  "2^-7 |plain| + 2^-7 plain(|.|) of ref.attention_bwd and "

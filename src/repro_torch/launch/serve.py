@@ -23,6 +23,10 @@ greedy (argmax) decoding, or categorical sampling from a seeded
       --legacy --batch 4 --prompt-len 128 --gen 32
 
 (``--reduced`` for the tiny smoke config, ``--device cpu`` for the CPU.)
+The parameters and the cache are placed by ``param_specs`` and
+``cache_specs`` on ``make_host_mesh(--model-shards)``, as the reference
+places them: on one rank a (1, 1) mesh; a process group of one rank is
+started, and ended on the way out, where none exists.
 """
 
 from __future__ import annotations
@@ -30,13 +34,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.registry import ALL_ARCHS, get_arch, reduced_config
 from repro_torch.device import DeviceLike, target_device
+from repro_torch.launch.mesh import make_host_mesh, place
 from repro_torch.models.registry import build_model
 from repro_torch.train.step import make_serve_step
 
@@ -71,18 +77,21 @@ def _sync(device: torch.device) -> None:
 
 
 @torch.inference_mode()
-def serve_loop(model, params, prompt, gen: int,
-               pick: Picker = greedy) -> ServeResult:
+def serve_loop(model, params, prompt, gen: int, pick: Picker = greedy,
+               place_cache: Optional[Callable] = None) -> ServeResult:
     """Serve ``prompt`` (B, P) token ids on the device of ``params``:
     feed the prompt one token at a time through ``serve_step`` (its KV
     cache holds P + gen positions), then ``gen`` tokens, each picked by
     ``pick`` from the last logits and fed back.  As in the JAX loop, the
     step after the last generated token runs too, so ``logits`` holds
-    P + gen rows."""
+    P + gen rows.  ``place_cache``, if given, places the new cache (the
+    legacy driver's, by ``cache_specs``)."""
     device = params["lm"]["embed"].device
     prompt = torch.as_tensor(np.asarray(prompt), device=device)
     b, plen = prompt.shape
     cache = model.init_cache(b, plen + gen, device=device)
+    if place_cache is not None:
+        cache = place_cache(cache)
     serve_step = make_serve_step(model)
     logits_seen = []
 
@@ -110,18 +119,31 @@ def serve_loop(model, params, prompt, gen: int,
 
 
 def _legacy_main(args) -> ServeResult:
-    """The raw-torch serving loop, random weights from seed 0."""
+    """The raw-torch serving loop, random weights from seed 0, placed on
+    the host mesh of ``args.model_shards`` (default 1)."""
     device = target_device([], args.device)
+    started = not dist.is_initialized()
+    try:
+        return _legacy_run(args, device)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _legacy_run(args, device: torch.device) -> ServeResult:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
     model = build_model(cfg)
-    params = model.init(torch.Generator(device=device).manual_seed(0))
+    mesh = make_host_mesh(getattr(args, "model_shards", 1), device)
+    params = place(model.init(torch.Generator(device=device).manual_seed(0)),
+                   model.param_specs(), mesh)
     prompt = np.random.default_rng(0).integers(
         0, cfg.vocab, (args.batch, args.prompt_len), np.int32)
     pick = greedy if args.temperature <= 0 else sampler(
         args.temperature, torch.Generator(device=device).manual_seed(0))
-    res = serve_loop(model, params, prompt, args.gen, pick)
+    res = serve_loop(model, params, prompt, args.gen, pick,
+                     lambda c: place(c, model.cache_specs(), mesh))
     print(f"arch={args.arch} batch={args.batch} device={device} "
           f"prefill {args.prompt_len} tok in {res.prefill_s:.2f}s | "
           f"decode {args.gen} tok in {res.decode_s:.2f}s "
@@ -171,6 +193,8 @@ def main(argv=None) -> None:
                     help="legacy: batch size; default: max batch")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--model-shards", type=int, default=1,
+                    help="legacy: the host mesh's model axis")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--legacy", action="store_true",
                     help="the raw-torch loop (bypasses the Session)")

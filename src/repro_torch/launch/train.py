@@ -1,5 +1,5 @@
-"""End-to-end training driver: ``repro/launch/train.py``'s command line on
-one CUDA card.
+"""End-to-end training driver: ``repro/launch/train.py``'s command line,
+on one CUDA card.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
       --reduced --steps 200 --batch 8 --seq 128 --ckpt /tmp/ckpt
@@ -9,9 +9,16 @@ body, the flash-attention and RMSNorm kernels forward and backward),
 checkpoint/restart and the straggler watchdog through ``TrainLoop``.
 Without ``--reduced`` the architecture runs at full size: at full width
 only a cut of the deepest models fits one card (see ``chip_smoke.py``).
-``--model-shards`` above 1 and ``--production-mesh`` raise: sharding is
-the third item of ``ROADMAP.md`` section 1.  The CPU is for the tests:
-``main(argv, device="cpu")``.
+
+The mesh is ``make_host_mesh(--model-shards)`` (one rank: a (1, 1) mesh,
+as the reference's on one device) or ``--production-mesh`` (which needs
+256 ranks), and the train state is placed on it by ``state_specs``.  A
+mesh axis above 1 raises: a model axis that shards a tensor waits for
+model-axis execution through DTensor, and a data axis above 1 for its own
+item of ``ROADMAP.md`` section 1 (the multi-rank data path is
+:mod:`repro_torch.train.dp_compressed`).  Where no process group exists,
+the driver starts one of one rank and ends it on its way out.  The CPU
+is for the tests: ``main(argv, device="cpu")``.
 """
 
 from __future__ import annotations
@@ -23,14 +30,23 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.registry import ALL_ARCHS, get_arch, reduced_config
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.device import DeviceLike, target_device
+from repro_torch.launch.mesh import (axis_size, make_host_mesh,
+                                     make_production_mesh, mesh_device,
+                                     place)
 from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.loop import TrainLoop, TrainLoopConfig
-from repro_torch.train.step import init_state, make_train_step
+from repro_torch.train.step import init_state, make_train_step, state_specs
+
+# a data axis above 1 in this driver, named where it raises
+DATA_AXIS_ITEM = ("a data axis above 1 in launch/train.py waits for its "
+                  "item of ROADMAP.md section 1; the multi-rank data path is "
+                  "repro_torch.train.dp_compressed")
 
 
 def main(argv=None, device: DeviceLike = None) -> Dict[str, Any]:
@@ -51,21 +67,30 @@ def main(argv=None, device: DeviceLike = None) -> Dict[str, Any]:
     # segments that grow in place: a step's changing temporaries otherwise
     # strand gigabytes of the card in fragments (read before CUDA's first
     # allocation, so only a fresh process takes it)
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
-    if args.model_shards > 1 or args.production_mesh:
-        raise NotImplementedError(
-            "the port trains on one device: --model-shards above 1 and "
-            "--production-mesh wait for sharding, ROADMAP.md section 1 "
-            "item 3")
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    dev = target_device([], device)
+    started = not dist.is_initialized()
+    try:
+        return _run(args, dev)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
 
+
+def _run(args, dev: torch.device) -> Dict[str, Any]:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
     model = build_model(cfg, remat_policy=args.remat)
-    dev = target_device([], device)
+    mesh = (make_production_mesh(device=dev) if args.production_mesh
+            else make_host_mesh(args.model_shards, dev))
+    if axis_size(mesh, "data") > 1:
+        raise NotImplementedError(DATA_AXIS_ITEM)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(1, args.steps // 10),
                           total_steps=args.steps)
-    state = init_state(model, torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = place(init_state(model, gen), state_specs(model), mesh)
     step_fn = make_train_step(model, opt_cfg)
 
     ds = SyntheticTokens(cfg.vocab, args.seq, args.batch)
@@ -92,9 +117,10 @@ def main(argv=None, device: DeviceLike = None) -> Dict[str, Any]:
                                                           args.steps // 4)),
                      extra_batch=extra or None)
     resumed = loop.try_restore()
-    print(f"arch={args.arch} reduced={args.reduced} device={dev} "
-          f"params={cfg.param_count():,} resumed={resumed} "
-          f"start={loop.start_step}")
+    shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    print(f"arch={args.arch} reduced={args.reduced} mesh={shape} "
+          f"device={mesh_device(mesh)} params={cfg.param_count():,} "
+          f"resumed={resumed} start={loop.start_step}")
     out = loop.run()
     for m in out["metrics"]:
         print(f"  step {m['step']:5d} loss {m['loss']:.4f} "

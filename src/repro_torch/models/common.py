@@ -220,6 +220,46 @@ def remat(body: Callable, policy: str) -> Callable:
     return run
 
 
+# ----------------------------------------------------------- sharding rules
+# The reference's sharding rules as data.  A spec is a tuple with one entry
+# per tensor dimension: the mesh axis that dimension is split over, a tuple
+# of axes, or None (replicated); :func:`repro_torch.launch.mesh.place`
+# places a tree of tensors on a mesh by a tree of specs.
+
+class P(tuple):
+    """``jax.sharding.PartitionSpec`` as a tuple: ``P("data", None)``.  An
+    entry of one axis in a tuple is that axis, as the reference
+    normalises it."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, (
+            a[0] if isinstance(a, tuple) and len(a) == 1 else a
+            for a in axes))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+def logical_to_mesh_axes(multi_pod: bool) -> Dict[str, Any]:
+    batch = ("pod", "data") if multi_pod else ("data",)
+    return {
+        "batch": batch, "vocab": "model", "heads": "model", "kv_heads": None,
+        "ff": "model", "embed": None, "experts": "model", "seq": None,
+        "kv_seq": "data", "layers": None, "ssm_inner": "model",
+    }
+
+
+def spec(*logical: Optional[str], multi_pod: bool = False) -> P:
+    rules = logical_to_mesh_axes(multi_pod)
+    return P(*(None if name is None else rules[name] for name in logical))
+
+
+def stack_spec(tree: Any) -> Any:
+    """Each spec of ``tree`` with the stacked layer axis prepended
+    (replicated), as the reference prepends its scan axis."""
+    return tree_map(lambda s: P(None, *s), tree)
+
+
 # --------------------------------------------------------------- init utils
 
 def dense_init(gen: torch.Generator, shape: Sequence[int],
@@ -292,26 +332,36 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
     return conv(tree, "", "")
 
 
+def _float32_tree(node, path: str, device, what: str):
+    if isinstance(node, dict):
+        return {k: _float32_tree(v, f"{path}/{k}", device, what)
+                for k, v in node.items()}
+    t = array_to_tensor(np.asarray(node), device)
+    if t.dtype != torch.float32:
+        raise ValueError(f"{path}: {t.dtype}, {what} are float32")
+    return t
+
+
 def state_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
                      device=None) -> Dict[str, Any]:
     """The JAX package's train state ``{"params", "opt": {"mu", "nu",
-    "step"}}``, after ``jax.tree.map(np.asarray, state)``, as the port's:
-    the parameters through :func:`params_from_numpy`, the optimizer's
-    float32 moments and int32 step as they are, bit for bit, so both
-    packages can start from one mid-schedule state."""
+    "step"}}`` (and the compressed step's ``"ef"``), after
+    ``jax.tree.map(np.asarray, state)``, as the port's: the parameters
+    through :func:`params_from_numpy`, the optimizer's float32 moments,
+    its int32 step and the float32 error feedback as they are, bit for
+    bit, so both packages can start from one mid-schedule state."""
     opt = tree["opt"]
-
-    def moments(node, path):
-        if isinstance(node, dict):
-            return {k: moments(v, f"{path}/{k}") for k, v in node.items()}
-        t = array_to_tensor(np.asarray(node), device)
-        if t.dtype != torch.float32:
-            raise ValueError(f"{path}: {t.dtype}, moments are float32")
-        return t
     step = array_to_tensor(np.asarray(opt["step"]), device)
     if step.dtype != torch.int32 or step.dim() != 0:
         raise ValueError(f"opt/step: {step.dtype} {tuple(step.shape)}, "
                          f"must be an int32 scalar")
-    return {"params": params_from_numpy(tree["params"], cfg, device),
-            "opt": {"mu": moments(opt["mu"], "opt/mu"),
-                    "nu": moments(opt["nu"], "opt/nu"), "step": step}}
+    out = {"params": params_from_numpy(tree["params"], cfg, device),
+           "opt": {"mu": _float32_tree(opt["mu"], "opt/mu", device,
+                                       "moments"),
+                   "nu": _float32_tree(opt["nu"], "opt/nu", device,
+                                       "moments"),
+                   "step": step}}
+    if "ef" in tree:
+        out["ef"] = _float32_tree(tree["ef"], "ef", device,
+                                  "error feedback leaves")
+    return out

@@ -11,14 +11,14 @@ tensor the hand-written kernel, on a CPU tensor its plain version.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rmsnorm import ops as rn_ops
 from repro_torch.models import overlay_ops
-from repro_torch.models.common import ArchConfig, dense_init
+from repro_torch.models.common import ArchConfig, P, dense_init, spec
 
 
 # ------------------------------------------------------------------- norms
@@ -72,6 +72,18 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, device=None,
         p["q_norm"] = _ones(cfg, hd, device, n_stack)
         p["k_norm"] = _ones(cfg, hd, device, n_stack)
     return p
+
+
+def attention_specs(cfg: ArchConfig, multi_pod: bool = False
+                    ) -> Dict[str, Any]:
+    """The sharding specs of :func:`init_attention`'s tree (unstacked)."""
+    out = {"wq": spec("embed", "heads", multi_pod=multi_pod),
+           "wk": spec("embed", "heads", multi_pod=multi_pod),
+           "wv": spec("embed", "heads", multi_pod=multi_pod),
+           "wo": spec("heads", "embed", multi_pod=multi_pod)}
+    if cfg.qk_norm:
+        out["q_norm"] = out["k_norm"] = spec(None)
+    return out
 
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
@@ -169,6 +181,15 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig,
             "w_down": dense_init(gen, (ff, d), **kw)}
 
 
+def mlp_specs(cfg: ArchConfig, multi_pod: bool = False) -> Dict[str, Any]:
+    """The sharding specs of :func:`init_mlp`'s tree (unstacked)."""
+    up = spec("embed", "ff", multi_pod=multi_pod)
+    down = spec("ff", "embed", multi_pod=multi_pod)
+    if cfg.activation == "swiglu":
+        return {"w_gate": up, "w_up": up, "w_down": down}
+    return {"w_up": up, "w_down": down}
+
+
 def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
         cfg: ArchConfig) -> torch.Tensor:
     if cfg.activation == "swiglu":
@@ -192,6 +213,32 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig,
         "final_norm": torch.ones((cfg.d_model,), dtype=cfg.dtype,
                                  device=device),
     }
+
+
+def lm_specs(multi_pod: bool = False) -> Dict[str, Any]:
+    """The sharding specs of :func:`init_lm`'s tree."""
+    return {"embed": spec("vocab", "embed", multi_pod=multi_pod),
+            "unembed": spec("embed", "vocab", multi_pod=multi_pod),
+            "final_norm": spec(None)}
+
+
+def kv_cache_spec(cfg: ArchConfig, multi_pod: bool, seq_sharded: bool,
+                  model_axis: int, seq_batch_axis: Any = None):
+    """The spec of a stacked KV cache (layers, B, Hkv, seq, hd): heads on
+    'model' where they divide ``model_axis``, else the sequence; with
+    ``seq_sharded`` (long context, batch 1) the sequence across the mesh.
+    ``seq_batch_axis`` is the axis the sequence takes beside sharded heads
+    when ``seq_sharded`` (default: the batch axes)."""
+    batch = ("pod", "data") if multi_pod else "data"
+    heads_ok = cfg.n_kv_heads % model_axis == 0
+    if seq_sharded:
+        if heads_ok:
+            return P(None, None, "model", seq_batch_axis or batch, None)
+        seq = ("pod", "data", "model") if multi_pod else ("data", "model")
+        return P(None, None, None, seq, None)
+    if heads_ok:
+        return P(None, batch, "model", None, None)
+    return P(None, batch, None, "model", None)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

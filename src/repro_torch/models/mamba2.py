@@ -19,8 +19,8 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models import overlay_ops
-from repro_torch.models.common import (ArchConfig, checked_remat_policy,
-                                       dense_init, remat)
+from repro_torch.models.common import (ArchConfig, P, checked_remat_policy,
+                                       dense_init, remat, spec, stack_spec)
 from repro_torch.models.transformer import layer_params
 
 
@@ -49,6 +49,18 @@ def init_mamba_block(gen: torch.Generator, cfg: ArchConfig, device=None,
         "dt_bias": const(0.0, h, torch.float32),
         "norm": const(1.0, di, cfg.dtype),
         "out_proj": dense_init(gen, (di, d), **kw),
+    }
+
+
+def mamba_specs(cfg: ArchConfig, multi_pod: bool = False) -> Dict[str, Any]:
+    """The sharding specs of :func:`init_mamba_block`'s tree (unstacked):
+    the inner width on 'model'."""
+    return {
+        "in_proj": P(None, "model"),
+        "conv_w": P(None, "model"),
+        "A_log": P("model"), "D": P("model"), "dt_bias": P("model"),
+        "norm": P("model"),
+        "out_proj": P("model", None),
     }
 
 
@@ -225,6 +237,11 @@ class MambaLM:
                     "ln": torch.ones((n, cfg.d_model), dtype=cfg.dtype,
                                      device=dev)}}
 
+    def param_specs(self, multi_pod: bool = False) -> Dict[str, Any]:
+        """The sharding specs of :meth:`init`'s tree."""
+        layer = {"mamba": mamba_specs(self.cfg, multi_pod), "ln": spec(None)}
+        return {"lm": L.lm_specs(multi_pod), "layers": stack_spec(layer)}
+
     def _layer_train(self, x, lp):
         h = L.rmsnorm(x, lp["ln"], self.cfg.norm_eps)
         return x + mamba_block(lp["mamba"], h, self.cfg,
@@ -267,6 +284,17 @@ class MambaLM:
             "state": torch.zeros((cfg.n_layers, batch, h, cfg.ssm_head_dim,
                                   n), dtype=torch.float32, device=device),
         }
+
+    def cache_specs(self, multi_pod: bool = False, seq_sharded: bool = False,
+                    model_axis: int = 16) -> Dict[str, Any]:
+        """The sharding specs of :meth:`init_cache`'s tree: the state's
+        heads on 'model'; with ``seq_sharded`` (batch 1) no batch axis."""
+        batch = ("pod", "data") if multi_pod else "data"
+        if seq_sharded:
+            return {"conv": P(None, None, None, "model"),
+                    "state": P(None, None, "model", None, None)}
+        return {"conv": P(None, batch, None, "model"),
+                "state": P(None, batch, "model", None, None)}
 
     def forward_decode(self, params, cache: Dict[str, torch.Tensor],
                        tokens: torch.Tensor, cur_pos: int):

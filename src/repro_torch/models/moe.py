@@ -14,8 +14,8 @@ combine sums each token's ``top_k`` contributions along an axis, never
 with atomic adds, whose bfloat16 sums would change order from run to run.
 No step reads a mask back to the host.
 
-Expert parallelism (the JAX package's ``moe_specs``) waits for the
-sharding item of ``ROADMAP.md``.
+:func:`moe_specs` gives the reference's expert parallelism as data:
+experts over 'model' where they divide it, else each expert's FFN width.
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.models.common import ArchConfig, dense_init
+from repro_torch.models.common import (ArchConfig, P, dense_init, spec,
+                                       stack_spec)
 from repro_torch.models.transformer import DenseLM
 
 
@@ -106,6 +107,16 @@ def moe_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     return _dispatch_groups(x.reshape(1, b * s, d), p, cfg).view(b, s, d)
 
 
+def moe_specs(cfg: ArchConfig, multi_pod: bool = False) -> Dict[str, Any]:
+    """Expert weights: EP over 'model' if divisible, else TP-in-expert."""
+    model_size_hint = 16
+    if cfg.n_experts % model_size_hint == 0:
+        wg = wd = P("model", None, None)
+    else:
+        wg, wd = P(None, None, "model"), P(None, "model", None)
+    return {"router": P(None, None), "w_gate": wg, "w_up": wg, "w_down": wd}
+
+
 class MoeLM(DenseLM):
     """DenseLM with the FFN swapped for the MoE dispatcher.  Decode
     dispatches the batch's tokens as one global group, as the JAX package
@@ -128,6 +139,13 @@ class MoeLM(DenseLM):
             "ln2": torch.ones((n, cfg.d_model), dtype=cfg.dtype, device=dev),
         }
         return {"lm": lm, "layers": layers}
+
+    def param_specs(self, multi_pod: bool = False) -> Dict[str, Any]:
+        """The sharding specs of :meth:`init`'s tree."""
+        layer = {"attn": L.attention_specs(self.cfg, multi_pod),
+                 "moe": moe_specs(self.cfg, multi_pod),
+                 "ln1": spec(None), "ln2": spec(None)}
+        return {"lm": L.lm_specs(multi_pod), "layers": stack_spec(layer)}
 
     def _layer_train(self, x, lp, pos):
         cfg = self.cfg

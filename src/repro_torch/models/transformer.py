@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.common import (ArchConfig, checked_remat_policy,
-                                       remat)
+                                       remat, spec, stack_spec)
 
 
 def layer_params(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -53,6 +53,13 @@ class DenseLM:
             "ln2": torch.ones((n, cfg.d_model), dtype=cfg.dtype, device=dev),
         }
         return {"lm": lm, "layers": layers}
+
+    def param_specs(self, multi_pod: bool = False) -> Dict[str, Any]:
+        """The sharding specs of :meth:`init`'s tree."""
+        layer = {"attn": L.attention_specs(self.cfg, multi_pod),
+                 "mlp": L.mlp_specs(self.cfg, multi_pod),
+                 "ln1": spec(None), "ln2": spec(None)}
+        return {"lm": L.lm_specs(multi_pod), "layers": stack_spec(layer)}
 
     # ------------------------------------------------------------ training
     def _layer_train(self, x, lp, pos):
@@ -104,6 +111,12 @@ class DenseLM:
         dt = dtype or cfg.dtype
         return {"k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def cache_specs(self, multi_pod: bool = False, seq_sharded: bool = False,
+                    model_axis: int = 16) -> Dict[str, Any]:
+        """The sharding specs of :meth:`init_cache`'s tree."""
+        s = L.kv_cache_spec(self.cfg, multi_pod, seq_sharded, model_axis)
+        return {"k": s, "v": s}
 
     def forward_decode(self, params, cache: Dict[str, torch.Tensor],
                        tokens: torch.Tensor, cur_pos: int):

@@ -24,8 +24,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers as L
-from repro_torch.models.common import (ArchConfig, checked_remat_policy,
-                                       remat)
+from repro_torch.models.common import (ArchConfig, P, checked_remat_policy,
+                                       remat, spec, stack_spec)
 from repro_torch.models.transformer import layer_params
 
 # the encoder's frames at whisper's 30-second window
@@ -60,6 +60,16 @@ class EncDecLM:
         return {"lm": L.init_lm(gen, cfg, device=dev),
                 "enc": block(cfg.enc_layers, ("attn",), 2),
                 "dec": block(cfg.n_layers, ("attn", "xattn"), 3)}
+
+    def param_specs(self, multi_pod: bool = False) -> Dict[str, Any]:
+        """The sharding specs of :meth:`init`'s tree."""
+        attn = L.attention_specs(self.cfg, multi_pod)
+        mlp = L.mlp_specs(self.cfg, multi_pod)
+        enc = {"attn": attn, "mlp": mlp, "ln1": spec(None), "ln2": spec(None)}
+        dec = {"attn": attn, "xattn": attn, "mlp": mlp, "ln1": spec(None),
+               "ln2": spec(None), "ln3": spec(None)}
+        return {"lm": L.lm_specs(multi_pod), "enc": stack_spec(enc),
+                "dec": stack_spec(dec)}
 
     # ------------------------------------------------------------ encoder
     def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
@@ -131,6 +141,19 @@ class EncDecLM:
                 "v": torch.zeros(kv, dtype=dt, device=device),
                 "xk": torch.zeros(xkv, dtype=dt, device=device),
                 "xv": torch.zeros(xkv, dtype=dt, device=device)}
+
+    def cache_specs(self, multi_pod: bool = False, seq_sharded: bool = False,
+                    model_axis: int = 16) -> Dict[str, Any]:
+        """The self-attention KV as a dense model's (``seq_sharded`` aside:
+        the reference ignores it here); the 1500-frame cross KV, which
+        'model' does not divide, on the batch axes alone where the heads
+        do not divide either."""
+        s = L.kv_cache_spec(self.cfg, multi_pod, False, model_axis)
+        xs = s
+        if self.cfg.n_kv_heads % model_axis:
+            xs = P(None, ("pod", "data") if multi_pod else "data", None,
+                   None, None)
+        return {"k": s, "v": s, "xk": xs, "xv": xs}
 
     def forward_decode(self, params, cache: Dict[str, torch.Tensor],
                        tokens: torch.Tensor, cur_pos: int):

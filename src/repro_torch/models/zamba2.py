@@ -17,7 +17,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models.common import ArchConfig, remat
+from repro_torch.models.common import ArchConfig, remat, spec
 from repro_torch.models.mamba2 import MambaLM
 from repro_torch.models.transformer import layer_params
 
@@ -53,6 +53,14 @@ class HybridLM(MambaLM):
                             "mlp": L.init_mlp(gen, cfg, device=dev),
                             "ln1": ones(), "ln2": ones()}
         return params
+
+    def param_specs(self, multi_pod: bool = False) -> Dict[str, Any]:
+        """The sharding specs of :meth:`init`'s tree."""
+        out = super().param_specs(multi_pod)
+        out["shared"] = {"attn": L.attention_specs(self.cfg, multi_pod),
+                         "mlp": L.mlp_specs(self.cfg, multi_pod),
+                         "ln1": spec(None), "ln2": spec(None)}
+        return out
 
     # ------------------------------------------------------------ training
     def _shared_block(self, sp, x, pos):
@@ -105,6 +113,17 @@ class HybridLM(MambaLM):
         cache["attn_k"] = torch.zeros(kv, dtype=dt, device=device)
         cache["attn_v"] = torch.zeros(kv, dtype=dt, device=device)
         return cache
+
+    def cache_specs(self, multi_pod: bool = False, seq_sharded: bool = False,
+                    model_axis: int = 16) -> Dict[str, Any]:
+        """Mamba's cache specs, and the sites' KV caches as a dense
+        model's (with ``seq_sharded`` and sharded heads, the sequence on
+        'data' alone, as the reference has it)."""
+        out = super().cache_specs(multi_pod, seq_sharded, model_axis)
+        s = L.kv_cache_spec(self.cfg, multi_pod, seq_sharded, model_axis,
+                            seq_batch_axis="data")
+        out["attn_k"] = out["attn_v"] = s
+        return out
 
     def forward_decode(self, params, cache: Dict[str, torch.Tensor],
                        tokens: torch.Tensor, cur_pos: int):

@@ -6,7 +6,7 @@ The train step is ``repro/train/step.py``'s: the loss and its gradients
 bfloat16 over microbatches, then one clipped AdamW update, applied IN
 PLACE (the port's counterpart of the JAX launcher's donated state).  The
 prefill and serve steps run under ``torch.inference_mode()``.
-``state_specs`` waits for the sharding item of ``ROADMAP.md``.
+``state_specs`` gives the train state's sharding specs.
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
-from repro_torch.models.common import STACKED, leaves, tree_map, unflatten
+from repro_torch.models.common import (STACKED, P, leaves, tree_map,
+                                       unflatten)
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 
 
@@ -141,3 +142,10 @@ def init_state(model, gen: torch.Generator,
     if not opt:
         return {"params": params}
     return {"params": params, "opt": adamw_init(params)}
+
+
+def state_specs(model, multi_pod: bool = False) -> Dict[str, Any]:
+    """The sharding specs of :func:`init_state`'s tree: the optimizer's
+    moments as the parameters, its step replicated."""
+    ps = model.param_specs(multi_pod)
+    return {"params": ps, "opt": {"mu": ps, "nu": ps, "step": P()}}

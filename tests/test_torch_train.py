@@ -167,9 +167,13 @@ def test_launch_train_runs_and_resumes_on_the_cpu(tmp_path, capsys):
     assert out["final_step"] == 5
     assert [m["step"] for m in out["metrics"]] == [4]
     assert "resumed=True start=3" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1"):
-        launch_train.main(args + ["--model-shards", "2"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
+    # one rank: --model-shards shrinks to a (1, 1) mesh, as the reference's
+    # host mesh does on one device; the production mesh needs 256 ranks
+    out = launch_train.main(args + ["--steps", "6", "--model-shards", "2"],
+                            device="cpu")
+    assert out["final_step"] == 6
+    assert "mesh={'data': 1, 'model': 1}" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         launch_train.main(args + ["--production-mesh"], device="cpu")
 
 
