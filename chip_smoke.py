@@ -217,13 +217,39 @@ float32 SIMT kernels).  Phases:
       through the cut's layers (the layer body, so both forward kernels
       run), bit for bit against the layers applied to each microbatch in
       turn.  ``python3 chip_smoke.py --phase o`` runs (a) and (o) alone.
+  (p) tensor, expert and data parallelism through DTensor, after (o):
+      TP_RANKS (4) spawned processes share the card over a gloo group
+      with CUDA tensors and a FileStore (NCCL refuses two ranks on one
+      device; gloo stages each collective through the host), the parent
+      taking each one-rank reading first and freeing it: (p1) qwen3-14b
+      at full width and depth in bfloat16 on a (1, 4) mesh, the ranks
+      drawing the seeded weights in turns, one ``make_prefill_step`` on 4
+      x 4096 tokens and the serve loop (a
+      prompt of TP_PROMPT, TP_GEN steps fed the one-rank run's tokens,
+      each rank's greedy pick read from the vocab-sharded logits and
+      equal, every one, to the argmax of the gathered logits), the
+      logits within ``AGREE_TOL`` of the one-rank run's; (p2)
+      qwen3-moe-235b-a22b at full width cut to TP_MOE_LAYERS (32 experts
+      a rank), its prefill within ``AGREE_TOL_K``; (p3) qwen3-14b at full
+      width cut per mesh (TP_TRAIN_LAYERS), B=2 x S=2048, full remat,
+      TP_TRAIN_STEPS steps on (1, 4) and on (2, 2) at seed 0 and one at
+      seed 1, the first loss, every grad norm and each gradient leaf's
+      norm after the first step within TP_TRAIN_TOL of the one-rank
+      step's; and a planted fault on (1, 4) at seed 1 (a replicated
+      weight's gradient on sharded heads labelled replicated, so q_norm's
+      and k_norm's stay partial sums) must break the leaf limit.  Every
+      rank reports its launches of the four kernels (by route), the
+      shapes they saw (q heads 10 and KV heads 2 at model=4) and its
+      memory, and each kernel must have launched on every rank as on one
+      rank with a quarter of the heads.
+      ``python3 chip_smoke.py --phase p`` runs (a) and (p) alone.
 
 Exits non-zero, printing no result, without a card or when any check
 fails.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists each ported kernel with its launches on the main paths
 (phases (c), (h), (i), (j) and (m) for the executor, phases (g), (k),
-(l), (n) and (o) for RMSNorm and flash attention, phases (n) and (o)
-for their backward kernels).
+(l), (n), (o) and (p) for RMSNorm and flash attention, phases (n), (o)
+and (p) for their backward kernels).
 """
 
 from __future__ import annotations
@@ -3445,12 +3471,14 @@ TRAIN_ARCH = "qwen3-14b"
 # (reserved), read with benchmarks/torch_family_depth.py --family train
 # --no-checkpoint (on an H100: 12 layers 9.71 GB free, 13 layers 5.01)
 TRAIN_LAYERS = 12
-# the cut the checkpoint, the restart and the agreement run at: the
-# machine the card sits in takes at most 45 GiB of writes to its disk in a
-# run, and the train state is 10 bytes a parameter (bf16 parameters,
-# float32 mu and nu): 42.0 GB (39.1 GiB) at 8 layers, 45.3 GB at 9,
-# 55.2 GB at 12
-TRAIN_CKPT_LAYERS = 8
+# the cut the checkpoint and the restart run at: the train state is 10
+# bytes a parameter (bf16 parameters, float32 mu and nu), 22.2 GB at 2
+# layers (42.0 GB at 8 took 136 s to write and restore, a seventh of the
+# script; the machine the card sits in takes at most 45 GiB of writes to
+# its disk in a run)
+TRAIN_CKPT_LAYERS = 2
+# the cut the agreement runs at, where its limits (TRAIN_TOL) were read
+TRAIN_AGREE_LAYERS = 8
 TRAIN_B, TRAIN_S = 2, 2048
 # the loop's steps, the step whose checkpoint the run restarts from, the
 # schedule's warmup, and the step that runs under the profiler
@@ -4346,8 +4374,8 @@ def phase_train(card: str):
     main path: launches counted): TRAIN_LAYERS of its 40 layers for six
     steps (times, memory, a profiled step), then TRAIN_CKPT_LAYERS with a
     checkpoint at TRAIN_CKPT_STEP and a restart from it; then agreement
-    with the plain route at two weight seeds, each limit held against
-    planted faults."""
+    with the plain route at two weight seeds at TRAIN_AGREE_LAYERS, each
+    limit held against planted faults."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.rmsnorm import kernel as rk
@@ -4399,11 +4427,13 @@ def phase_train(card: str):
           f"on the tensor-core routes, every forward writing statistics")
 
     # ---- agreement with both kernels' plain versions, one step from the
-    # weights of two seeds at the checkpoint run's cut; planted faults at
-    # the first
+    # weights of two seeds at TRAIN_AGREE_LAYERS; planted faults at the
+    # first
     tag = runs[-1][2]
     batch = ds.batch_at(0)
-    plain = build_model(model.cfg, remat_policy="full", attn_impl="ref")
+    agree_cfg = dataclasses.replace(model.cfg, n_layers=TRAIN_AGREE_LAYERS)
+    model = build_model(agree_cfg, remat_policy="full")
+    plain = build_model(agree_cfg, remat_policy="full", attn_impl="ref")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     agree = train_readings(model, plain, opt_cfg, batch, 0, faults=True)
@@ -4862,10 +4892,731 @@ def phase_dp(card: str):
         seconds=time.perf_counter() - t_phase)
 
 
+# ------------------------------------------------------ (p) across ranks
+# phase (p): TP_RANKS processes share the one card over a gloo group with
+# CUDA tensors (NCCL refuses two ranks on one device), a FileStore under
+# TP_DIR; the parent takes the one-rank readings, then the ranks run the
+# same work on their shards
+TP_RANKS = 4
+TP_DIR = ROOT / "build" / "chip_smoke_tp"
+# (p1) the serve loop after the prefill step: a prompt of 4 tokens, then
+# 8 greedy steps (each a round trip of 81 small all-reduces); 12 cache
+# positions, which a sequence sharded over 4 ranks divides
+TP_PROMPT, TP_GEN = 4, 8
+# (p1)/(p2) the prefill step's batch, cut from PREFILL_B: gloo stages the
+# 81 all-reduces of its (B, 4096, 5120) bf16 residual stream through the
+# host, 33.4 s a step at B=4 (PERF.md, section 6); the serve loop keeps
+# PREFILL_B
+TP_PREFILL_B = 1
+# (p2) qwen3-moe-235b-a22b cut to this depth: the ranks draw the model in
+# turns, so the card holds the full draw of the last rank beside the four
+# ranks' shards, twice the model's 4.977 GB a layer and 2.49 GB of
+# embeddings: 2 x 32.35 GB at 6 layers plus four processes' contexts
+# leaves about 12 GB of the 80 GB free (7 layers would leave 2 GB)
+TP_MOE_LAYERS = 6
+# (p3) qwen3-14b cut per mesh: a training rank holds 12 bytes a parameter
+# of its shards (bf16 weights and gradients, float32 moments); on (1, 4)
+# the card holds the state once (12 x (1.557 B + 0.33 B a layer), 38.6 GB
+# at 8 layers), on (2, 2) twice (2 layers: 53 GB), beside four processes'
+# activations and logits of B=2 x S=2048 (a few GB each)
+TP_TRAIN_LAYERS = {(1, 4): 8, (2, 2): 2}
+TP_TRAIN_STEPS = 4
+# (p3) seed 0 trains TP_TRAIN_STEPS steps, seed 1 one step
+TP_TRAIN_SEEDS = (0, 1)
+# (p3) limits against the one-rank step on the same batches: the first
+# loss (absolute) and every step's grad norm (relative to the one-rank
+# one), set before the first run; and each gradient leaf's norm after the
+# first step (relative), set between the clean runs' readings and the
+# planted fault's (PERF.md, section 6)
+TP_TRAIN_TOL = {"first_loss": 2e-2, "grad_norm": 2e-2,
+                "leaf_grad_norm": 5e-2}
+# a command the ranks must finish within; a rank still in it a little
+# before prints every thread's stack
+TP_TIMEOUT_S = 420
+
+
+def tp_worker(rank: int, n: int, store: str, device: str, cmds, results):
+    """A rank of phase (p): joins the gloo group, then runs the commands
+    it is sent until "stop", putting (rank, command, readings, error)."""
+    import faulthandler
+    import traceback
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1 if device == "cpu" else 2)
+    dist.init_process_group("gloo", store=dist.FileStore(store, n),
+                            rank=rank, world_size=n)
+    try:
+        while True:
+            cmd, kw = cmds.get()
+            if cmd == "stop":
+                break
+            faulthandler.dump_traceback_later(TP_TIMEOUT_S - 20)
+            try:
+                out = TP_COMMANDS[cmd](rank, device, **kw)
+            except BaseException:
+                results.put((rank, cmd, None, traceback.format_exc()))
+                raise
+            finally:
+                faulthandler.cancel_dump_traceback_later()
+            tp_free(device)     # the command's tensors, cached, go back
+            results.put((rank, cmd, out, None))
+    finally:
+        dist.destroy_process_group()
+
+
+class TpRanks:
+    """The phase's rank processes (spawned, started together), sent
+    commands one at a time; every process ends with the block."""
+
+    def __init__(self, n: int, device: str):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        TP_DIR.mkdir(parents=True, exist_ok=True)
+        store = TP_DIR / f"store_{os.getpid()}"
+        if store.exists():
+            store.unlink()
+        self.n = n
+        self.results = ctx.Queue()
+        self.cmds = [ctx.Queue() for _ in range(n)]
+        self.procs = [ctx.Process(target=tp_worker, daemon=True, args=(
+            r, n, str(store), device, self.cmds[r], self.results))
+            for r in range(n)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, cmd: str, **kw) -> list:
+        """Every rank's readings of ``cmd`` (a failure on any rank, or no
+        answer within TP_TIMEOUT_S, fails the phase)."""
+        import queue
+        for q in self.cmds:
+            q.put((cmd, kw))
+        out = [None] * self.n
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        for _ in range(self.n):
+            try:
+                rank, got, res, err = self.results.get(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise SmokeFailure(f"(p) {cmd}: no answer from every rank "
+                                   f"within {TP_TIMEOUT_S} s")
+            check(err is None, f"(p) {cmd} failed on rank {rank}:\n{err}")
+            out[rank] = res
+        return out
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for q in self.cmds:
+            q.put(("stop", {}))
+        for p in self.procs:
+            p.join(timeout=60)
+        for p in self.procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        return False
+
+
+@contextlib.contextmanager
+def tp_recorded():
+    """Within the block, the shapes the flash-attention and RMSNorm
+    dispatches see: a dict of sets, ``attention`` holding (q heads, key/
+    value heads, sequence, head dim) and ``rmsnorm`` (rank, last dim,
+    heads of a 4-d view)."""
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    seen = {"attention": set(), "rmsnorm": set()}
+    real_fa, real_rn = fa_ops.attention, rn_ops.rmsnorm
+
+    def attention(q, k, v, **kw):
+        seen["attention"].add((q.shape[1], k.shape[1], q.shape[2],
+                               q.shape[3]))
+        return real_fa(q, k, v, **kw)
+
+    def rmsnorm(x, w, eps=1e-6, impl=None):
+        seen["rmsnorm"].add((x.dim(), x.shape[-1],
+                             x.shape[1] if x.dim() == 4 else 0))
+        return real_rn(x, w, eps, impl=impl)
+
+    with mock.patch.object(fa_ops, "attention", attention), \
+            mock.patch.object(rn_ops, "rmsnorm", rmsnorm):
+        yield seen
+
+
+def tp_leaf_norms(grads, prefix: str = "") -> dict:
+    """Each gradient leaf's norm (its "/"-joined path → float), DTensor
+    leaves summed across their shards once (``global_norm`` of the leaf
+    alone; a collective on a mesh)."""
+    from repro_torch.optim.adamw import global_norm
+    if isinstance(grads, dict):
+        out = {}
+        for k in sorted(grads):
+            out.update(tp_leaf_norms(grads[k], f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: float(global_norm({"g": grads}))}
+
+
+@contextlib.contextmanager
+def tp_first_grads():
+    """Within the block, the train step's first update reads its
+    gradients leaf by leaf: the yielded dict gets :func:`tp_leaf_norms`
+    of them."""
+    from unittest import mock
+
+    from repro_torch.train import step as step_mod
+    real, seen = step_mod.adamw_update, {}
+
+    def update(cfg, params, grads, state):
+        if not seen:
+            seen.update(tp_leaf_norms(grads))
+        return real(cfg, params, grads, state)
+    with mock.patch.object(step_mod, "adamw_update", update):
+        yield seen
+
+
+@contextlib.contextmanager
+def tp_fault_grad_labels():
+    """(p3)'s planted fault: a weight's local gradient in a local region
+    labelled with the weight's own placements (``to_local``'s default),
+    so a replicated weight applied to sharded activations, as q_norm and
+    k_norm on the heads, keeps each rank's partial sum as if whole."""
+    from unittest import mock
+
+    from repro_torch.models import common
+    with mock.patch.object(common, "weight_grad",
+                           lambda w, act: tuple(w.placements)):
+        yield
+
+
+def tp_leaf_err(per_rank: list, want: dict):
+    """The largest relative difference of a gradient leaf's norm on any
+    rank from the one-rank run's → (difference, "rank r: leaf")."""
+    worst = (0.0, None)
+    for r, got in enumerate(per_rank):
+        check(sorted(got) == sorted(want),
+              f"(p3) rank {r}: gradient leaves {sorted(got)}")
+        for k, b in want.items():
+            err = abs(got[k] - b) / b if b else abs(got[k])
+            worst = max(worst, (err, f"rank {r}: {k}"),
+                        key=lambda t: t[0])
+    return worst
+
+
+def tp_counts() -> dict:
+    """This process's launches of the four kernels of the path."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    return {"flash_attention": fa.flash_attention.launches,
+            "flash_attention_by_route": dict(
+                fa.flash_attention.launches_by_route),
+            "flash_attention_with_stats": fa.flash_attention.stats_launches,
+            "rmsnorm": rk.rmsnorm.launches,
+            "flash_attention_bwd": fa.flash_attention_bwd.launches,
+            "flash_attention_bwd_by_route": dict(
+                fa.flash_attention_bwd.launches_by_route),
+            "rmsnorm_bwd": rk.rmsnorm_bwd.launches}
+
+
+def tp_reset_counts() -> None:
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    reset_counts()
+    rk.rmsnorm_bwd.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    for route in fa.flash_attention_bwd.launches_by_route:
+        fa.flash_attention_bwd.launches_by_route[route] = 0
+
+
+def tp_log(rank: int, msg: str) -> None:
+    """A progress line from rank 0 of phase (p)."""
+    if rank == 0:
+        log(f"    (p) rank 0: {msg}")
+
+
+def tp_sync(device: str) -> None:
+    import torch
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def tp_memory(device: str) -> dict:
+    """Peak allocated and reserved GB of this process, and the card's free
+    GB now (every process's use counted)."""
+    import torch
+    if device != "cuda":
+        return {"peak_gb": None, "reserved_gb": None, "card_free_gb": None}
+    free, _ = torch.cuda.mem_get_info()
+    return {"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+            "card_free_gb": free / 1e9}
+
+
+def tp_config(arch: str, layers, reduced: bool):
+    import torch
+    from repro_torch.configs.registry import get_arch, reduced_config
+    cfg = get_arch(arch)
+    if reduced:
+        cfg = dataclasses.replace(reduced_config(cfg), dtype=torch.bfloat16)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg
+
+
+def tp_inputs(cfg, b: int, s: int):
+    """The prefill tokens (b, s) and the serve prompt (PREFILL_B,
+    TP_PROMPT) (numpy, seeded): the same on every rank and in the
+    parent."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return (rng.integers(0, cfg.vocab, (b, s)).astype(np.int64),
+            rng.integers(0, cfg.vocab, (PREFILL_B, TP_PROMPT)).astype(
+                np.int64))
+
+
+def tp_free(device: str) -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def tp_serve_rank(rank: int, device: str, *, arch: str, layers, seed: int,
+                  shards: int, b: int, s: int, reduced: bool, out: str,
+                  serve: bool) -> dict:
+    """(p1)/(p2) on one rank: the model placed on make_host_mesh(shards)
+    (the ranks drawing in turns), one prefill step, and with ``serve``
+    the serve loop fed the one-rank run's tokens (``out``'s reference)
+    with greedy picks read from the vocab-sharded logits; rank 0 saves
+    the gathered logits to ``out``."""
+    import torch
+    from repro_torch.launch.mesh import (axis_size, make_host_mesh, place,
+                                         place_in_turns)
+    from repro_torch.launch.serve import greedy, serve_loop
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.common import full
+    from repro_torch.train.step import make_prefill_step
+    tp_free(device)
+    dev = torch.device(device)
+    cfg = tp_config(arch, layers, reduced)
+    model = build_model(cfg)
+    mesh = make_host_mesh(shards, device=device)
+    drawn = {}
+
+    def draw():
+        params = model.init(torch.Generator(device=dev).manual_seed(seed))
+        tp_sync(device)
+        drawn.update(tp_memory(device))
+        return params
+    t0 = time.perf_counter()
+    params = place_in_turns(draw, model.param_specs(), mesh)
+    tp_sync(device)
+    place_s = time.perf_counter() - t0
+    tp_log(rank, f"placed {arch} in {place_s:.1f} s")
+    placed = tp_memory(device)
+    tp_free(device)
+    tokens, prompt = tp_inputs(cfg, b, s)
+    ref = torch.load(out + ".ref", map_location=dev) if serve else None
+    picked, whole = [], []
+
+    def replay(logits, i):
+        picked.append(full(greedy(logits, i)))
+        whole.append(full(logits).argmax(-1))
+        return ref["tokens"][:, i]
+    cache_specs = model.cache_specs(model_axis=axis_size(mesh, "model"))
+    tp_reset_counts()
+    with tp_recorded() as seen:
+        tp_sync(device)
+        t0 = time.perf_counter()
+        logits = make_prefill_step(model)(params, {"tokens": tokens})
+        tp_sync(device)
+        prefill_s = time.perf_counter() - t0
+        tp_log(rank, f"prefill step in {prefill_s:.2f} s")
+        after_prefill = tp_counts()
+        mem = tp_memory(device)
+        res = serve_loop(model, params, prompt, TP_GEN, replay,
+                         lambda c: place(c, cache_specs, mesh)) \
+            if serve else None
+    launches = tp_counts()
+    logits = full(logits)
+    if rank == 0:
+        torch.save({"prefill": logits.cpu(),
+                    "serve": None if res is None else res.logits.cpu(),
+                    "picked": None if res is None
+                    else torch.stack(picked, 1).cpu()}, out)
+    out_d = dict(
+        mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+        local_shapes=tp_local_shapes(params), place_s=place_s,
+        prefill_s=prefill_s,
+        prefill_launches=after_prefill, launches=launches,
+        decode_s=None if res is None else res.decode_s,
+        greedy_picks=sum(t.numel() for t in picked),
+        greedy_not_argmax=sum(int((a != b).sum())
+                              for a, b in zip(picked, whole)),
+        serve_prompt_s=None if res is None else res.prefill_s,
+        attention_shapes=sorted(seen["attention"]),
+        rmsnorm_shapes=sorted(seen["rmsnorm"]),
+        memory_after_draw=drawn, memory_placed=placed,
+        memory_after_prefill=mem, memory=tp_memory(device))
+    return out_d
+
+
+def tp_local_shapes(params) -> dict:
+    """Rank-local shapes of a few leaves of a placed model."""
+    lay = params["layers"]
+    ffn = lay["moe"] if "moe" in lay else lay["mlp"]
+    return {"wq": list(lay["attn"]["wq"].to_local().shape),
+            "w_up": list(ffn["w_up"].to_local().shape),
+            "embed": list(params["lm"]["embed"].to_local().shape)}
+
+
+def tp_train_rank(rank: int, device: str, *, layers: int, seed: int,
+                  shards: int, steps: int, reduced: bool, s: int,
+                  fault: bool = False) -> dict:
+    """(p3) on one rank: qwen3-14b cut to ``layers``, its train state
+    placed on make_host_mesh(shards), ``steps`` train steps (full remat)
+    on SyntheticTokens batches → losses, grad norms, the first step's
+    gradient leaves' norms, step times, launches, shapes, memory.  With
+    ``fault``, under :func:`tp_fault_grad_labels`."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_state, make_train_step
+    tp_free(device)
+    dev = torch.device(device)
+    cfg = tp_config(TRAIN_ARCH, layers, reduced)
+    model = build_model(cfg, remat_policy="full")
+    mesh = make_host_mesh(shards, device=device)
+    t0 = time.perf_counter()
+    state = init_state(model, torch.Generator(device=dev).manual_seed(seed),
+                       mesh=mesh)
+    tp_sync(device)
+    place_s = time.perf_counter() - t0
+    placed = tp_memory(device)
+    tp_free(device)
+    ds = SyntheticTokens(cfg.vocab, s, TRAIN_B, seed=0)
+    step = make_train_step(model, AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TP_TRAIN_STEPS))
+    losses, norms, secs = [], [], []
+    tp_log(rank, f"placed the train state in {place_s:.1f} s")
+    tp_reset_counts()
+    with tp_recorded() as seen, tp_first_grads() as leaf_norms, \
+            (tp_fault_grad_labels() if fault else contextlib.nullcontext()):
+        for i in range(steps):
+            tp_sync(device)
+            t0 = time.perf_counter()
+            state, m = step(state, ds.batch_at(i))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            secs.append(time.perf_counter() - t0)
+            tp_log(rank, f"train step {i} in {secs[-1]:.2f} s")
+    launches = tp_counts()
+    out = dict(mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               place_s=place_s, losses=losses, grad_norms=norms,
+               leaf_norms=leaf_norms,
+               step_s=secs, launches=launches,
+               attention_shapes=sorted(seen["attention"]),
+               rmsnorm_shapes=sorted(seen["rmsnorm"]),
+               memory_placed=placed, memory=tp_memory(device))
+    return out
+
+
+TP_COMMANDS = {"serve": tp_serve_rank, "train": tp_train_rank}
+
+
+def tp_reference_serve(device: str, *, arch: str, layers, seed: int, b: int,
+                       s: int, reduced: bool, out: str, serve: bool) -> dict:
+    """The one-rank run of (p1)/(p2) in this process, saved to ``out``
+    (the prefill's logits, and the serve loop's greedy tokens and
+    logits)."""
+    import torch
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.step import make_prefill_step
+    tp_free(device)
+    dev = torch.device(device)
+    cfg = tp_config(arch, layers, reduced)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    tokens, prompt = tp_inputs(cfg, b, s)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    tp_sync(device)
+    t0 = time.perf_counter()
+    logits = make_prefill_step(model)(params, batch)
+    tp_sync(device)
+    prefill_s = time.perf_counter() - t0
+    res = serve_loop(model, params, prompt, TP_GEN) if serve else None
+    ref = {"prefill": logits.cpu(),
+           "serve": None if res is None else res.logits.cpu(),
+           "tokens": None if res is None
+           else torch.cat([torch.from_numpy(prompt), res.tokens.cpu()],
+                          1)[:, TP_PROMPT:]}
+    torch.save(ref, out + ".ref")
+    mem = tp_memory(device)
+    del params, logits, res
+    tp_free(device)
+    return dict(prefill_s=prefill_s, memory=mem, ref=ref)
+
+
+def tp_reference_train(device: str, *, layers: int, seed: int, steps: int,
+                       reduced: bool, s: int) -> dict:
+    """The one-rank run of (p3) in this process."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_state, make_train_step
+    tp_free(device)
+    dev = torch.device(device)
+    cfg = tp_config(TRAIN_ARCH, layers, reduced)
+    model = build_model(cfg, remat_policy="full")
+    state = init_state(model, torch.Generator(device=dev).manual_seed(seed))
+    ds = SyntheticTokens(cfg.vocab, s, TRAIN_B, seed=0)
+    step = make_train_step(model, AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TP_TRAIN_STEPS))
+    losses, norms, secs = [], [], []
+    with tp_first_grads() as leaf_norms:
+        for i in range(steps):
+            tp_sync(device)
+            t0 = time.perf_counter()
+            state, m = step(state, ds.batch_at(i))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            secs.append(time.perf_counter() - t0)
+    mem = tp_memory(device)
+    del state
+    tp_free(device)
+    return dict(losses=losses, grad_norms=norms, leaf_norms=leaf_norms,
+                step_s=secs, memory=mem)
+
+
+def tp_logit_err(got, want) -> float:
+    return max_abs_err(got.float(), want.float())
+
+
+def tp_check_launches(tag: str, per_rank: list, want: dict,
+                      device: str) -> dict:
+    """Each rank's launches against ``want`` (per rank, tensor-core routes
+    only) → the launches summed over the ranks.  On the CPU (a rehearsal:
+    the plain versions count nothing) a mismatch is printed."""
+    total = {"flash_attention_by_route": {"wgmma": 0, "simt": 0}}
+    for r, got in enumerate(per_rank):
+        have = {k: got[k] for k in want}
+        if device != "cuda" and have != want:
+            log(f"(p) {tag}: rank {r} launched {have} on the CPU")
+            continue
+        check(have == want, f"(p) {tag}: rank {r} launched {have}, "
+                            f"expected {want}")
+        check(got["flash_attention_by_route"]["simt"] == 0
+              and got["flash_attention_bwd_by_route"]["simt"] == 0,
+              f"(p) {tag}: rank {r} took the SIMT route: {got}")
+        for k in ("flash_attention", "flash_attention_with_stats",
+                  "rmsnorm", "flash_attention_bwd", "rmsnorm_bwd"):
+            total[k] = total.get(k, 0) + got[k]
+        for route, k in got["flash_attention_by_route"].items():
+            total["flash_attention_by_route"][route] += k
+    return total
+
+
+def phase_tensor_parallel(card: str, device: str = None,
+                          reduced: bool = False, s: int = None):
+    """(p) qwen3-14b and qwen3-moe-235b-a22b on TP_RANKS ranks sharing the
+    card over gloo: (p1) the prefill step and the serve loop on (1, 4),
+    (p2) the moe prefill step on (1, 4), (p3) training on (1, 4) and
+    (2, 2); each against the one-rank run in this process, every kernel
+    launched on every rank on its shards.  ``device``, ``reduced`` and
+    ``s`` rehearse the phase on the CPU."""
+    import torch
+    device = device or DEVICE
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    s_prefill = s or PREFILL_S
+    s_train = s or TRAIN_S
+    moe_layers = 2 if reduced else TP_MOE_LAYERS
+    train_layers = {m: 2 for m in TP_TRAIN_LAYERS} if reduced \
+        else TP_TRAIN_LAYERS
+    TP_DIR.mkdir(parents=True, exist_ok=True)
+    out, paths, read = {}, {}, {}
+    with TpRanks(TP_RANKS, device) as ranks:
+        log(f"(p) {TP_RANKS} ranks started on one {device} device over a "
+            f"gloo group with {device} tensors")
+        # ---- (p1) qwen3-14b at full width and depth, prefill and serve
+        kw = dict(arch=TRAIN_ARCH, layers=None, seed=0, b=TP_PREFILL_B,
+                  s=s_prefill, reduced=reduced,
+                  out=str(TP_DIR / "p1.pt"), serve=True)
+        one = tp_reference_serve(device, **kw)
+        log(f"    (p1) one-rank run: prefill {one['prefill_s']:.2f} s")
+        per_rank = ranks.run("serve", shards=TP_RANKS, **kw)
+        got = torch.load(kw["out"])
+        ref = one.pop("ref")
+        cfg = tp_config(TRAIN_ARCH, None, reduced)
+        n = cfg.n_layers
+        errs = {"prefill": tp_logit_err(got["prefill"], ref["prefill"]),
+                "serve": tp_logit_err(got["serve"], ref["serve"])}
+        picked_same = int((got["picked"] == ref["tokens"]).sum())
+        steps = TP_PROMPT + TP_GEN
+        want = {"flash_attention": n, "rmsnorm": (4 * n + 1) * (1 + steps),
+                "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+        paths["(p1) qwen3-14b prefill and serve on (1, 4)"] = \
+            tp_check_launches("(p1)", [r["launches"] for r in per_rank],
+                              want, device)
+        not_argmax = [r["greedy_not_argmax"] for r in per_rank]
+        read["p1"] = dict(one_rank=one, ranks=per_rank, logit_err=errs,
+                          greedy_equal=picked_same,
+                          greedy_total=got["picked"].numel(),
+                          greedy_not_argmax=not_argmax)
+        log(f"(p1) {TRAIN_ARCH}, {n} layers at full width, on "
+            f"{per_rank[0]['mesh']}: local shards "
+            f"{per_rank[0]['local_shapes']}; "
+            f"attention shapes (q heads, kv heads, S, D) "
+            f"{per_rank[0]['attention_shapes']}; logits against the one-rank "
+            f"run: prefill {errs['prefill']:.4g}, serve {errs['serve']:.4g} "
+            f"(limit {AGREE_TOL['decode_vs_prefill']}); greedy picks from "
+            f"the sharded logits unequal to the argmax of the gathered "
+            f"logits, by rank, {not_argmax} of "
+            f"{per_rank[0]['greedy_picks']} (must be 0); equal to the "
+            f"one-rank run's {picked_same}/{got['picked'].numel()}; prefill "
+            f"{per_rank[0]['prefill_s']:.2f} s (a first call; one rank "
+            f"{one['prefill_s']:.2f} s), {steps} decode steps "
+            f"{per_rank[0]['serve_prompt_s'] + per_rank[0]['decode_s']:.2f} "
+            f"s; per rank peak GB "
+            f"{[r['memory_after_prefill']['peak_gb'] for r in per_rank]}, "
+            f"card free GB after the draws "
+            f"{[r['memory_after_draw']['card_free_gb'] for r in per_rank]}; "
+            f"{card}")
+        for k, v in errs.items():
+            check(v <= AGREE_TOL["decode_vs_prefill"],
+                  f"(p1) {k} logits differ from the one-rank run by {v}")
+        check(all(r["greedy_picks"] == TP_GEN * PREFILL_B for r in per_rank)
+              and not any(not_argmax),
+              f"(p1) greedy picks from the sharded logits differ from the "
+              f"argmax of the gathered logits: {not_argmax}")
+        from repro_torch.models.layers import local_kv_heads
+        kv = local_kv_heads(cfg, TP_RANKS, 0)
+        hkv_local = cfg.n_kv_heads // TP_RANKS if kv is None else \
+            kv[1] - kv[0]
+        for r, rr in enumerate(per_rank):
+            check(all(a[0] == cfg.n_heads // TP_RANKS and a[1] == hkv_local
+                      for a in rr["attention_shapes"]),
+                  f"(p1) rank {r} attention shapes {rr['attention_shapes']}")
+        # ---- (p2) qwen3-moe-235b-a22b cut, prefill
+        kw = dict(arch=MOE_ARCH, layers=moe_layers, seed=0, b=TP_PREFILL_B,
+                  s=s_prefill, reduced=reduced,
+                  out=str(TP_DIR / "p2.pt"), serve=False)
+        one = tp_reference_serve(device, **kw)
+        one.pop("ref")
+        per_rank = ranks.run("serve", shards=TP_RANKS, **kw)
+        got = torch.load(kw["out"])
+        ref = torch.load(kw["out"] + ".ref")
+        err = tp_logit_err(got["prefill"], ref["prefill"])
+        want = {"flash_attention": moe_layers,
+                "rmsnorm": 4 * moe_layers + 1, "flash_attention_bwd": 0,
+                "rmsnorm_bwd": 0}
+        paths[f"(p2) {MOE_ARCH} prefill on (1, 4)"] = tp_check_launches(
+            "(p2)", [r["launches"] for r in per_rank], want, device)
+        free = [r["memory_after_prefill"]["card_free_gb"] for r in per_rank]
+        read["p2"] = dict(one_rank=one, ranks=per_rank, logit_err=err)
+        log(f"(p2) {MOE_ARCH}, {moe_layers} layers at full width, on "
+            f"{per_rank[0]['mesh']}: local shards "
+            f"{per_rank[0]['local_shapes']}; attention shapes "
+            f"{per_rank[0]['attention_shapes']}; prefill logits against the "
+            f"one-rank run {err:.4g} (limit "
+            f"{AGREE_TOL_K['moe']['decode_vs_prefill']}); prefill "
+            f"{per_rank[0]['prefill_s']:.2f} s (one rank "
+            f"{one['prefill_s']:.2f} s); card free GB after the draws "
+            f"{[r['memory_after_draw']['card_free_gb'] for r in per_rank]}, "
+            f"after the prefill {free}; {card}")
+        check(err <= AGREE_TOL_K["moe"]["decode_vs_prefill"],
+              f"(p2) prefill logits differ from the one-rank run by {err}")
+        # ---- (p3) training on (1, 4) and (2, 2), and the planted fault
+        read["p3"] = {}
+        for mesh_shape, layers in train_layers.items():
+            for seed in TP_TRAIN_SEEDS:
+                steps = TP_TRAIN_STEPS if seed == 0 else 1
+                kw = dict(layers=layers, seed=seed, steps=steps,
+                          reduced=reduced, s=s_train)
+                one = tp_reference_train(device, **kw)
+                runs = [False]
+                if mesh_shape == (1, TP_RANKS) and seed != TP_TRAIN_SEEDS[0]:
+                    runs.append(True)
+                for fault in runs:
+                    per_rank = ranks.run("train", shards=mesh_shape[1],
+                                         fault=fault, **kw)
+                    r0 = per_rank[0]
+                    loss_err = abs(r0["losses"][0] - one["losses"][0])
+                    gn_err = max(abs(a - b) / b for a, b in
+                                 zip(r0["grad_norms"], one["grad_norms"]))
+                    leaf_err, leaf = tp_leaf_err(
+                        [r["leaf_norms"] for r in per_rank],
+                        one["leaf_norms"])
+                    tag = (f"(p3) {mesh_shape} seed {seed}"
+                           + (" planted fault" if fault else ""))
+                    log(f"{tag}: {TRAIN_ARCH} cut to {layers} layers, B="
+                        f"{TRAIN_B} S={s_train}, mesh {r0['mesh']}: losses "
+                        f"{r0['losses']} (one rank {one['losses']}), grad "
+                        f"norms {r0['grad_norms']} (one rank "
+                        f"{one['grad_norms']}); first loss |diff| "
+                        f"{loss_err:.4g}, grad norm largest relative diff "
+                        f"{gn_err:.4g}, a gradient leaf's norm after the "
+                        f"first step largest relative diff {leaf_err:.4g} "
+                        f"({leaf}) (limits {TP_TRAIN_TOL}); step s "
+                        f"{[round(v, 2) for v in r0['step_s']]} (one rank "
+                        f"{[round(v, 3) for v in one['step_s']]}); per rank "
+                        f"peak GB {[r['memory']['peak_gb'] for r in per_rank]}"
+                        f"; attention shapes {r0['attention_shapes']}; "
+                        f"{card}")
+                    read["p3"][tag[5:]] = dict(
+                        layers=layers, one_rank=one, ranks=per_rank,
+                        first_loss_err=loss_err, grad_norm_rel_err=gn_err,
+                        leaf_grad_norm_rel_err=leaf_err, worst_leaf=leaf)
+                    if fault:
+                        check(leaf_err > TP_TRAIN_TOL["leaf_grad_norm"],
+                              f"{tag}: not caught, a gradient leaf's norm "
+                              f"within {leaf_err} ({leaf})")
+                        continue
+                    check(all(r["losses"] == r0["losses"] for r in per_rank),
+                          f"{tag}: the ranks' losses differ")
+                    check(loss_err <= TP_TRAIN_TOL["first_loss"]
+                          and gn_err <= TP_TRAIN_TOL["grad_norm"]
+                          and leaf_err <= TP_TRAIN_TOL["leaf_grad_norm"],
+                          f"{tag}: first loss |diff| {loss_err}, grad norm "
+                          f"relative diff {gn_err}, gradient leaf {leaf} "
+                          f"relative diff {leaf_err}")
+                    if seed == TP_TRAIN_SEEDS[0]:
+                        nl, ns = layers * steps, steps
+                        want = {"flash_attention": 2 * nl,
+                                "rmsnorm": 8 * nl + ns,
+                                "flash_attention_bwd": nl,
+                                "rmsnorm_bwd": 4 * nl + ns}
+                        paths[f"(p3) {TRAIN_ARCH} training on "
+                              f"{mesh_shape}"] = tp_check_launches(
+                            tag, [r["launches"] for r in per_rank], want,
+                            device)
+    if device == "cuda":
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    read["seconds"] = time.perf_counter() - t_phase
+    log(f"(p) took {read['seconds']:.1f} s over gloo with {device} tensors "
+        f"(collectives staged through the host by gloo); {card}")
+    return paths, read
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("o",), default=None,
+    ap.add_argument("--phase", choices=("o", "p"), default=None,
                     help="build the kernels, then run this phase alone "
                          "(its checks hold; no result lines)")
     args = ap.parse_args(argv)
@@ -4887,6 +5638,11 @@ def main(argv=None) -> int:
     if args.phase == "o":
         dp = phase_dp(card)[3]
         log("(o) readings " + json.dumps(dp))
+        log(f"done in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.phase == "p":
+        tp = phase_tensor_parallel(card)[1]
+        log("(p) readings " + json.dumps(tp, default=str))
         log(f"done in {time.perf_counter() - t_start:.1f} s")
         return 0
     t_last = [t_start]
@@ -4939,18 +5695,28 @@ def main(argv=None) -> int:
     took("(o)")
     paths["(o) qwen3-14b compressed DP"] = dp_launches
     paths["(o) one-stage pipeline"] = pipe_launches
+    tp_paths, tp = phase_tensor_parallel(card)
+    took("(p)")
+    paths.update(tp_paths)
     bwd_by_path = {name: {"(n) qwen3-14b training": bwd_launches[name],
-                          "(o) qwen3-14b compressed DP": dp_bwd[name]}
+                          "(o) qwen3-14b compressed DP": dp_bwd[name],
+                          **{label: n[name] for label, n in tp_paths.items()
+                             if n[name]}}
                    for name in ("rmsnorm_bwd", "flash_attention_bwd")}
     by_path = {name: {label: n[name] for label, n in paths.items()}
                for name in ("rmsnorm", "flash_attention")}
     fa_by_route = {route: sum(n["flash_attention_by_route"][route]
                               for n in paths.values())
                    for route in model_launches["flash_attention_by_route"]}
+    for name in ("rmsnorm", "flash_attention", "rmsnorm_bwd",
+                 "flash_attention_bwd"):
+        check(sum(n[name] for n in tp_paths.values()) > 0,
+              f"phase (p) never launched {name}")
     for name in ("rmsnorm_bwd", "flash_attention_bwd"):
         check(bwd_launches[name] > 0, f"training never launched {name}")
     log("(n) readings " + json.dumps(train))
     log("(o) readings " + json.dumps(dp))
+    log("(p) readings " + json.dumps(tp, default=str))
     # kernels per backward wrapper call and device ms per step, counted in
     # the profiled training step's trace (None where it holds no kernel)
     prof = train["profile"] or {}
@@ -4972,7 +5738,10 @@ def main(argv=None) -> int:
                              "(h) runtime seam": runtime_launches,
                              "(i) serving": serving_launches,
                              "(j) verified": verified_launches,
-                             "(m) paper benchmarks": paper_launches},
+                             "(m) paper benchmarks": paper_launches,
+                             "(p) across ranks (not on its path: the "
+                             "models' pointwise datapaths run the overlay "
+                             "DFG as torch ops)": 0},
         "match": "bit-exact",
         "max_abs_err": err,
         "ms": totals["ms"],
@@ -5100,6 +5869,8 @@ def main(argv=None) -> int:
         "launches_by_path": bwd_by_path["flash_attention_bwd"],
         "launches_by_route": {
             route: n + dp_bwd["flash_attention_bwd_by_route"][route]
+            + (sum(p["flash_attention_bwd"] for p in tp_paths.values())
+               if route == "wgmma" else 0)
             for route, n in
             bwd_launches["flash_attention_bwd_by_route"].items()},
         "kernel_launches_per_call": per_call["attention backward"],

@@ -19,7 +19,13 @@ package writes restores in the other.
     manifest, through torch views (no ``ml_dtypes``);
   * restore: each array comes back as a tensor on the device of the leaf it
     replaces in ``like`` (the CPU for a non-tensor leaf);
-  * retention: keeps the last ``keep`` checkpoints.
+  * retention: keeps the last ``keep`` checkpoints;
+  * across ranks (a tree of DTensors): every rank gathers each array whole
+    (a collective), rank 0 alone writes it, the files the same bytes as a
+    one-rank run's at the same state, and the other ranks wait at a
+    barrier; such a save is always blocking.  A restore reads the full
+    arrays on every rank and places each by its ``like`` leaf's
+    placements.
 """
 
 from __future__ import annotations
@@ -35,8 +41,10 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
-from repro_torch.models.common import leaves, unflatten
+from repro_torch.models.common import full, leaves, unflatten
 
 # the .npy header descr the JAX package's np.save writes for bfloat16
 BF16_DESCR = "<V2"
@@ -59,9 +67,30 @@ class CheckpointManager:
         """Snapshot ``tree`` (nested dicts of tensors) at ``step``."""
         self.wait()  # one in-flight save at a time
         flat = leaves(tree)
+        if any(isinstance(x, DTensor) for x in flat):
+            self._save_across_ranks(step, tree, flat)
+            return
         # async: every snapshot now; blocking: each as it is written
         host = (_snapshot(x) for x in flat) if blocking \
             else [_snapshot(x) for x in flat]
+        self._save_host(step, tree, flat, host, blocking)
+
+    def _save_across_ranks(self, step: int, tree: Any, flat: List) -> None:
+        """Every rank gathers each leaf whole as rank 0 writes it; the
+        others wait for the write at a barrier."""
+        host = (_snapshot(x) for x in flat)
+        if dist.get_rank() == 0:
+            try:
+                self._save_host(step, tree, flat, host, blocking=True)
+            finally:
+                dist.barrier()
+        else:
+            for _ in host:
+                pass
+            dist.barrier()
+
+    def _save_host(self, step: int, tree: Any, flat: List, host,
+                   blocking: bool) -> None:
         treedef_repr = unflatten(tree, list(range(len(flat))))
 
         def _write():
@@ -152,7 +181,11 @@ class CheckpointManager:
         out = []
         for t, ref in zip(self._arrays(step, metas), flat_like):
             device = ref.device if isinstance(ref, torch.Tensor) else "cpu"
-            out.append(t.to(device))
+            t = t.to(device)
+            if isinstance(ref, DTensor):
+                t = distribute_tensor(t, ref.device_mesh, ref.placements,
+                                      src_data_rank=None)
+            out.append(t)
         return unflatten(like, out)
 
     def restore_latest(self, like: Any) -> Optional[Tuple[int, Any]]:
@@ -163,7 +196,10 @@ class CheckpointManager:
 
 
 def _snapshot(x: Any) -> torch.Tensor:
-    """A host copy of a leaf, never sharing its storage."""
+    """A host copy of a leaf, never sharing its storage (a DTensor's
+    gathered whole: a collective)."""
+    if isinstance(x, DTensor):
+        x = full(x)
     t = torch.as_tensor(x)
     return t.detach().to("cpu", copy=True)
 

@@ -26,7 +26,11 @@ greedy (argmax) decoding, or categorical sampling from a seeded
 The parameters and the cache are placed by ``param_specs`` and
 ``cache_specs`` on ``make_host_mesh(--model-shards)``, as the reference
 places them: on one rank a (1, 1) mesh; a process group of one rank is
-started, and ended on the way out, where none exists.
+started, and ended on the way out, where none exists.  On several ranks
+(``--model-shards 4`` on 4) every leaf is a DTensor: the heads, the ff
+width and the vocabulary on 'model', the cache's key/value heads there
+where they divide it, else its sequence; greedy picking reads the
+vocab-sharded logits, and rank 0 alone prints.
 """
 
 from __future__ import annotations
@@ -39,26 +43,45 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.registry import ALL_ARCHS, get_arch, reduced_config
 from repro_torch.device import DeviceLike, target_device
-from repro_torch.launch.mesh import make_host_mesh, place
+from repro_torch.launch.mesh import (axis_size, check_family, make_host_mesh,
+                                     place, place_in_turns)
+from repro_torch.models import common as dt
 from repro_torch.models.registry import build_model
-from repro_torch.train.step import make_serve_step
+from repro_torch.train.step import inference, make_serve_step
 
 # picks the next tokens (B,) from next-token logits (B, V) at decode step i
 Picker = Callable[[torch.Tensor, int], torch.Tensor]
 
 
 def greedy(logits: torch.Tensor, step: int) -> torch.Tensor:
-    return logits.argmax(dim=-1)
+    """The first id of the largest logit.  On vocab-sharded logits each
+    rank takes its shard's, and the (value, id) pairs are gathered over
+    the shards (B values each, never the logits)."""
+    if not isinstance(logits, DTensor):
+        return logits.argmax(dim=-1)
+    mesh, dims = logits.device_mesh, dt.mesh_dims(logits, -1)
+    lf = logits.to_local().float()
+    idx = lf.argmax(-1)
+    pair = torch.stack([lf.gather(-1, idx[:, None])[:, 0],
+                        (idx + dt.offset(logits, -1)).float()])[None]
+    pl = dt.with_placement(dt.replicated(mesh), dims, Shard(0))
+    both = dt.gather(dt.from_local(pair, mesh, pl), 0).to_local()
+    best = both[:, 0].argmax(0)              # the first shard holding it
+    tok = both[:, 1].gather(0, best[None])[0].long()
+    out = dt.with_placement(logits.placements, dims, Replicate())
+    return dt.from_local(tok, mesh, out)
 
 
 def sampler(temperature: float, gen: torch.Generator) -> Picker:
     """Categorical sampling at ``temperature`` from ``gen`` (on the logits'
-    device)."""
+    device); sharded logits are gathered whole first, every rank drawing
+    the same ids from its own ``gen`` of the same seed."""
     def pick(logits: torch.Tensor, step: int) -> torch.Tensor:
-        probs = torch.softmax(logits.float() / temperature, dim=-1)
+        probs = torch.softmax(dt.full(logits).float() / temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=gen)[:, 0]
     return pick
 
@@ -76,16 +99,22 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-@torch.inference_mode()
 def serve_loop(model, params, prompt, gen: int, pick: Picker = greedy,
                place_cache: Optional[Callable] = None) -> ServeResult:
+    with inference(params):
+        return _serve_loop(model, params, prompt, gen, pick, place_cache)
+
+
+def _serve_loop(model, params, prompt, gen: int, pick: Picker,
+                place_cache: Optional[Callable]) -> ServeResult:
     """Serve ``prompt`` (B, P) token ids on the device of ``params``:
     feed the prompt one token at a time through ``serve_step`` (its KV
     cache holds P + gen positions), then ``gen`` tokens, each picked by
     ``pick`` from the last logits and fed back.  As in the JAX loop, the
     step after the last generated token runs too, so ``logits`` holds
-    P + gen rows.  ``place_cache``, if given, places the new cache (the
-    legacy driver's, by ``cache_specs``)."""
+    P + gen rows (gathered whole where they are DTensors, after the timed
+    loops).  ``place_cache``, if given, places the new cache (the legacy
+    driver's, by ``cache_specs``)."""
     device = params["lm"]["embed"].device
     prompt = torch.as_tensor(np.asarray(prompt), device=device)
     b, plen = prompt.shape
@@ -113,9 +142,10 @@ def serve_loop(model, params, prompt, gen: int, pick: Picker = greedy,
         logits_seen.append(logits)
     _sync(device)
     t_gen = time.perf_counter() - t0
-    tokens = (torch.cat(out_tokens, dim=1) if out_tokens
-              else prompt.new_zeros((b, 0)))
-    return ServeResult(tokens, torch.stack(logits_seen), t_prefill, t_gen)
+    tokens = (torch.cat([dt.full(t) for t in out_tokens], dim=1)
+              if out_tokens else prompt.new_zeros((b, 0)))
+    return ServeResult(tokens, torch.stack([dt.full(t) for t in logits_seen]),
+                       t_prefill, t_gen)
 
 
 def _legacy_main(args) -> ServeResult:
@@ -136,19 +166,24 @@ def _legacy_run(args, device: torch.device) -> ServeResult:
         cfg = reduced_config(cfg)
     model = build_model(cfg)
     mesh = make_host_mesh(getattr(args, "model_shards", 1), device)
-    params = place(model.init(torch.Generator(device=device).manual_seed(0)),
-                   model.param_specs(), mesh)
+    check_family(cfg.family, mesh)
+    params = place_in_turns(
+        lambda: model.init(torch.Generator(device=device).manual_seed(0)),
+        model.param_specs(), mesh)
     prompt = np.random.default_rng(0).integers(
         0, cfg.vocab, (args.batch, args.prompt_len), np.int32)
     pick = greedy if args.temperature <= 0 else sampler(
         args.temperature, torch.Generator(device=device).manual_seed(0))
+    cache_specs = model.cache_specs(model_axis=axis_size(mesh, "model"))
     res = serve_loop(model, params, prompt, args.gen, pick,
-                     lambda c: place(c, model.cache_specs(), mesh))
-    print(f"arch={args.arch} batch={args.batch} device={device} "
-          f"prefill {args.prompt_len} tok in {res.prefill_s:.2f}s | "
-          f"decode {args.gen} tok in {res.decode_s:.2f}s "
-          f"({args.batch * args.gen / res.decode_s:.1f} tok/s)")
-    print("sample:", res.tokens[0, :16].tolist())
+                     lambda c: place(c, cache_specs, mesh))
+    if dist.get_rank() == 0:
+        print(f"arch={args.arch} batch={args.batch} device={device} "
+              f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+              f"prefill {args.prompt_len} tok in {res.prefill_s:.2f}s | "
+              f"decode {args.gen} tok in {res.decode_s:.2f}s "
+              f"({args.batch * args.gen / res.decode_s:.1f} tok/s)")
+        print("sample:", res.tokens[0, :16].tolist())
     return res
 
 

@@ -1,5 +1,5 @@
 """End-to-end training driver: ``repro/launch/train.py``'s command line,
-on one CUDA card.
+on the CUDA card of each rank.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
       --reduced --steps 200 --batch 8 --seq 128 --ckpt /tmp/ckpt
@@ -10,15 +10,17 @@ checkpoint/restart and the straggler watchdog through ``TrainLoop``.
 Without ``--reduced`` the architecture runs at full size: at full width
 only a cut of the deepest models fits one card (see ``chip_smoke.py``).
 
-The mesh is ``make_host_mesh(--model-shards)`` (one rank: a (1, 1) mesh,
-as the reference's on one device) or ``--production-mesh`` (which needs
-256 ranks), and the train state is placed on it by ``state_specs``.  A
-mesh axis above 1 raises: a model axis that shards a tensor waits for
-model-axis execution through DTensor, and a data axis above 1 for its own
-item of ``ROADMAP.md`` section 1 (the multi-rank data path is
-:mod:`repro_torch.train.dp_compressed`).  Where no process group exists,
-the driver starts one of one rank and ends it on its way out.  The CPU
-is for the tests: ``main(argv, device="cpu")``.
+The mesh is ``make_host_mesh(--model-shards)`` over the world's ranks
+(one rank: a (1, 1) mesh, as the reference's on one device; 8 ranks with
+``--model-shards 4``: (data=2, model=4)) or ``--production-mesh`` (which
+needs 256 ranks).  The parameters are placed on it by ``param_specs``
+(the ranks drawing in turns), the optimizer's state beside them, and each
+batch by ``input_shardings``: on a mesh axis above 1 every leaf is a
+DTensor (tensor and expert parallelism on 'model', data parallelism on
+'data'), and the ssm, hybrid and audio families raise.  Rank 0 alone
+prints and writes the checkpoints.  Where no process group exists, the
+driver starts one of one rank and ends it on its way out.  The CPU is for
+the tests: ``main(argv, device="cpu")`` on every rank.
 """
 
 from __future__ import annotations
@@ -35,18 +37,12 @@ import torch.distributed as dist
 from repro_torch.configs.registry import ALL_ARCHS, get_arch, reduced_config
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.device import DeviceLike, target_device
-from repro_torch.launch.mesh import (axis_size, make_host_mesh,
-                                     make_production_mesh, mesh_device,
-                                     place)
+from repro_torch.launch.mesh import (check_family, make_host_mesh,
+                                     make_production_mesh, mesh_device)
 from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.loop import TrainLoop, TrainLoopConfig
-from repro_torch.train.step import init_state, make_train_step, state_specs
-
-# a data axis above 1 in this driver, named where it raises
-DATA_AXIS_ITEM = ("a data axis above 1 in launch/train.py waits for its "
-                  "item of ROADMAP.md section 1; the multi-rank data path is "
-                  "repro_torch.train.dp_compressed")
+from repro_torch.train.step import init_state, make_train_step
 
 
 def main(argv=None, device: DeviceLike = None) -> Dict[str, Any]:
@@ -85,13 +81,13 @@ def _run(args, dev: torch.device) -> Dict[str, Any]:
     model = build_model(cfg, remat_policy=args.remat)
     mesh = (make_production_mesh(device=dev) if args.production_mesh
             else make_host_mesh(args.model_shards, dev))
-    if axis_size(mesh, "data") > 1:
-        raise NotImplementedError(DATA_AXIS_ITEM)
+    check_family(cfg.family, mesh)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(1, args.steps // 10),
                           total_steps=args.steps)
     gen = torch.Generator(device=dev).manual_seed(0)
-    state = place(init_state(model, gen), state_specs(model), mesh)
+    state = init_state(model, gen, mesh=mesh)
     step_fn = make_train_step(model, opt_cfg)
+    say = print if dist.get_rank() == 0 else (lambda *a, **k: None)
 
     ds = SyntheticTokens(cfg.vocab, args.seq, args.batch)
     extra: Dict[str, Any] = {}
@@ -118,16 +114,16 @@ def _run(args, dev: torch.device) -> Dict[str, Any]:
                      extra_batch=extra or None)
     resumed = loop.try_restore()
     shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    print(f"arch={args.arch} reduced={args.reduced} mesh={shape} "
-          f"device={mesh_device(mesh)} params={cfg.param_count():,} "
-          f"resumed={resumed} start={loop.start_step}")
+    say(f"arch={args.arch} reduced={args.reduced} mesh={shape} "
+        f"device={mesh_device(mesh)} params={cfg.param_count():,} "
+        f"resumed={resumed} start={loop.start_step}")
     out = loop.run()
     for m in out["metrics"]:
-        print(f"  step {m['step']:5d} loss {m['loss']:.4f} "
-              f"gnorm {m['grad_norm']:.3f} {m['dt_s']*1e3:.0f}ms")
+        say(f"  step {m['step']:5d} loss {m['loss']:.4f} "
+            f"gnorm {m['grad_norm']:.3f} {m['dt_s']*1e3:.0f}ms")
     if out["stragglers"]:
-        print(f"  straggler events: {len(out['stragglers'])}")
-    if args.metrics_out:
+        say(f"  straggler events: {len(out['stragglers'])}")
+    if args.metrics_out and dist.get_rank() == 0:
         with open(args.metrics_out, "w") as f:
             json.dump(out, f, indent=1)
     return out

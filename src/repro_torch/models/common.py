@@ -15,16 +15,25 @@ leading layer axis, weights ``(in, out)`` as in ``x @ W``, so
 :func:`params_from_numpy` carries the JAX package's parameters across as a
 plain copy.  Every floating leaf is in the config's dtype except those
 named in :data:`FLOAT32_LEAVES`, which stay float32 whatever it is.
+
+The DTensor seams (the last section) are what the model's layers use
+where a tensor, expert or data parallel mesh meets a kernel or a
+computation written for one rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.placement_types import Placement
 from torch.utils import checkpoint as ckpt
 
 
@@ -258,6 +267,202 @@ def stack_spec(tree: Any) -> Any:
     """Each spec of ``tree`` with the stacked layer axis prepended
     (replicated), as the reference prepends its scan axis."""
     return tree_map(lambda s: P(None, *s), tree)
+
+
+# ------------------------------------------------------------ DTensor seams
+# Tensor, expert and data parallelism through DTensor: what the model's
+# seams need where a hand-written kernel or a computation written for one
+# rank meets ``torch.distributed.tensor.DTensor``.
+#
+# On a mesh with an axis above 1 every parameter, optimizer leaf, cache and
+# batch is a DTensor placed by its spec
+# (:func:`repro_torch.launch.mesh.place`).
+# The matrix products run as DTensor ops (column-parallel products leave
+# their output sharded, row-parallel ones leave a ``Partial`` sum that
+# :func:`reduce` all-reduces, as Megatron lays them out); everything else,
+# the kernels included, runs in a *local region*: the DTensors' local shards
+# go in through ``to_local`` and the result comes back through
+# :func:`from_local` with the placements the region declares.
+#
+# A local region must say where the gradients of its inputs are partial
+# sums.  ``to_local`` labels a gradient with the input's own placements by
+# default, which is wrong for a replicated weight applied to sharded
+# activations: each rank holds only its rows' (or heads') share of the
+# weight's gradient.  :func:`weight_grad` gives the placements for such a
+# weight (``Partial`` wherever the activation is sharded), and the
+# train step's redistribution to the parameter's placements sums them.
+#
+# Gathers go through ``torch.distributed.all_gather_into_tensor``
+# (:func:`gather`, :func:`full`), never DTensor's own all-gather: torch
+# 2.11's functional all-gather, which DTensor calls, crashes the process on
+# gloo with CUDA tensors (the ranks that share one card run on gloo).  The
+# all-reduces and reduce-scatters stay DTensor's.
+
+
+
+Placements = Tuple[Placement, ...]
+
+
+def local(t):
+    """``t``'s local shard where it is a DTensor, else ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def full(t):
+    """``t`` whole on every rank where it is a DTensor (a collective:
+    partial sums all-reduced, shards gathered), else ``t``."""
+    if not isinstance(t, DTensor):
+        return t
+    t = reduce(t)
+    for d in sorted({p.dim % t.ndim for p in t.placements
+                     if isinstance(p, Shard)}):
+        t = gather(t, d)
+    return t.to_local()
+
+
+def replicated(mesh: DeviceMesh) -> Placements:
+    return (Replicate(),) * mesh.ndim
+
+
+def from_local(t: torch.Tensor, mesh: DeviceMesh,
+               placements: Sequence[Placement]) -> DTensor:
+    """``t`` as the local shard of a DTensor (shards of equal size)."""
+    return DTensor.from_local(t, mesh, tuple(placements), run_check=False)
+
+
+def mesh_dims(t, dim: int) -> Tuple[int, ...]:
+    """The mesh dimensions that shard tensor dimension ``dim`` of ``t``
+    (none for a plain tensor)."""
+    if not isinstance(t, DTensor):
+        return ()
+    dim %= t.ndim
+    return tuple(i for i, p in enumerate(t.placements)
+                 if isinstance(p, Shard) and p.dim % t.ndim == dim)
+
+
+def offset(t, dim: int) -> int:
+    """Where this rank's shard of ``t`` starts along ``dim`` (the mesh
+    dimensions that shard it taken left to right, as DTensor does; 0 for
+    a plain tensor)."""
+    if not isinstance(t, DTensor):
+        return 0
+    mesh, start = t.device_mesh, 0
+    size = t.shape[dim]
+    for i in mesh_dims(t, dim):
+        size //= mesh.size(i)
+        start = start * mesh.size(i) + mesh.get_local_rank(i)
+    return start * size
+
+
+def with_placement(pl: Sequence[Placement], dims: Sequence[int],
+                   p: Placement) -> Placements:
+    """``pl`` with the placement of mesh dimensions ``dims`` set to ``p``."""
+    return tuple(p if i in dims else q for i, q in enumerate(pl))
+
+
+def weight_grad(w: DTensor, act: DTensor) -> Placements:
+    """The placements of the local gradient of weight ``w`` in a local
+    region whose activation is ``act``: ``w``'s own shards where it is
+    sharded; else a partial sum where ``act`` is sharded (each rank saw
+    only its rows or heads); else replicated."""
+    return tuple(
+        p if isinstance(p, Shard)
+        else Partial() if isinstance(a, Shard) else Replicate()
+        for p, a in zip(w.placements, act.placements))
+
+
+def local_weight(w, act):
+    """Weight ``w``'s local shard for a local region whose activation is
+    ``act``, its gradient labelled by :func:`weight_grad`; a plain ``w``
+    as it is."""
+    if not isinstance(w, DTensor):
+        return w
+    return w.to_local(grad_placements=weight_grad(w, act))
+
+
+def reduce(t):
+    """``t`` with every ``Partial`` placement summed (an all-reduce over
+    those mesh dimensions); a plain tensor as it is.  The backward is a
+    no-op: the replicated gradient is each partial term's."""
+    if not isinstance(t, DTensor) or not any(
+            isinstance(p, Partial) for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, tuple(
+        Replicate() if isinstance(p, Partial) else p for p in t.placements))
+
+
+def all_reduce(t: torch.Tensor, mesh: DeviceMesh, dims: Sequence[int],
+               op: str = "sum") -> torch.Tensor:
+    """A local tensor reduced by ``op`` ("sum" or "max") over the mesh
+    dimensions ``dims`` → the local result (the same on those ranks).
+    For "sum" the backward passes the gradient through to every term."""
+    if not dims:
+        return t
+    pl = tuple(Partial(op) if i in dims else Replicate()
+               for i in range(mesh.ndim))
+    return from_local(t, mesh, pl).redistribute(
+        mesh, replicated(mesh)).to_local()
+
+
+def gather(t: DTensor, dim: int) -> DTensor:
+    """``t`` whole along ``dim`` on every rank (an all-gather over the mesh
+    dimensions that shard it); in the backward the gradient's partial
+    terms are summed (an all-reduce) and each rank keeps its shard."""
+    mesh, dim = t.device_mesh, dim % t.ndim
+    dims = mesh_dims(t, dim)
+    whole = _Gather.apply(t.to_local(), mesh, dims, dim)
+    return from_local(whole, mesh,
+                      with_placement(t.placements, dims, Replicate()))
+
+
+class _Gather(torch.autograd.Function):
+    """A local shard → the whole tensor along ``dim`` over mesh dimensions
+    ``dims`` (the innermost gathered first); the backward is given the
+    whole, summed gradient and returns this rank's shard of it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh: DeviceMesh, dims, dim: int):
+        ctx.mesh, ctx.dims, ctx.dim = mesh, dims, dim
+        y = x.movedim(dim, 0).contiguous()
+        for i in reversed(dims):
+            out = y.new_empty((mesh.size(i) * y.shape[0], *y.shape[1:]))
+            dist.all_gather_into_tensor(out, y, group=mesh.get_group(i))
+            y = out
+        # in ``x``'s own layout: the kernels take rows of unit stride
+        return y.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, start, n = ctx.mesh, 0, 1
+        for i in ctx.dims:
+            n *= mesh.size(i)
+            start = start * mesh.size(i) + mesh.get_local_rank(i)
+        size = g.shape[ctx.dim] // n
+        return (g.narrow(ctx.dim, start * size, size).contiguous(), None,
+                None, None)
+
+
+def same_placements(fn: Callable, *ts):
+    """``fn`` of DTensors that share one set of placements, run on their
+    local shards → a DTensor of those placements.  For elementwise and
+    other functions that act on each shard alone (the gradients are the
+    shards' own); plain tensors go through ``fn`` as they are."""
+    dts = [t for t in ts if isinstance(t, DTensor)]
+    if not dts:
+        return fn(*ts)
+    pl = dts[0].placements
+    if any(t.placements != pl for t in dts):
+        raise ValueError(f"placements differ: {[t.placements for t in dts]}")
+    out = fn(*(local(t) for t in ts))
+    return from_local(out, dts[0].device_mesh, pl)
+
+
+def as_dtensor(t, mesh: DeviceMesh):
+    """A plain tensor that every rank holds whole as a replicated DTensor;
+    a DTensor as it is."""
+    if isinstance(t, DTensor):
+        return t
+    return from_local(t, mesh, replicated(mesh))
 
 
 # --------------------------------------------------------------- init utils

@@ -16,15 +16,22 @@ No step reads a mask back to the host.
 
 :func:`moe_specs` gives the reference's expert parallelism as data:
 experts over 'model' where they divide it, else each expert's FFN width.
+On DTensors (:func:`moe_mlp`) every rank routes all of its tokens, which
+are replicated over 'model', identically, and runs the batched products of
+its own experts (or its own FFN columns of every expert); each rank's
+combine is a partial sum, all-reduced.  No expert weight moves.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Shard
 
+from repro_torch.models import common as dt
 from repro_torch.models import layers as L
 from repro_torch.models.common import (ArchConfig, P, dense_init, spec,
                                        stack_spec)
@@ -47,14 +54,28 @@ def init_moe_mlp(gen: torch.Generator, cfg: ArchConfig, device=None,
 
 
 def _dispatch_groups(xg: torch.Tensor, p: Dict[str, torch.Tensor],
-                     cfg: ArchConfig) -> torch.Tensor:
+                     cfg: ArchConfig, e0: int = 0,
+                     spread=None) -> torch.Tensor:
     """``n`` dispatch groups at once: xg (n, G, d) → (n, G, d).  Capacity
     is per group, as in the JAX package's ``_dispatch_group``; the groups
     share one expert buffer, group i owning slots [i*C, (i+1)*C) of every
-    expert."""
+    expert.
+
+    ``p``'s expert weights may hold experts ``e0`` onwards only (one
+    rank's experts): the routing is over all ``cfg.n_experts``, the
+    products over those held, and the result is their share.
+
+    ``spread`` (mesh, dims): each group's tokens continue on the ranks of
+    those mesh dimensions (a batch sharded on 'data' dispatched as one
+    group): the capacity is the whole group's, and each token's rank
+    within its expert counts the tokens of the ranks before this one."""
     n, g, d = xg.shape
     k, e = cfg.top_k, cfg.n_experts
-    cap = int(max(1, g * k / e * cfg.capacity_factor))
+    el = p["w_up"].shape[0]                     # the experts held here
+    ranks_before = 1
+    if spread is not None:
+        ranks_before = math.prod(spread[0].size(i) for i in spread[1])
+    cap = int(max(1, g * ranks_before * k / e * cfg.capacity_factor))
 
     probs = torch.softmax(xg.float() @ p["router"], dim=-1)    # (n, G, E)
     w, idx = torch.topk(probs, k, dim=-1, sorted=True)          # (n, G, k)
@@ -67,17 +88,24 @@ def _dispatch_groups(xg: torch.Tensor, p: Dict[str, torch.Tensor],
     experts = torch.arange(e, device=xg.device, dtype=fe.dtype)
     onehot = (fe[:, None, :] == experts[:, None]).to(torch.int32)
     ranks = onehot.cumsum(2, dtype=torch.int32) - onehot
+    if spread is not None:
+        ranks += _tokens_before(onehot.sum(2, dtype=torch.int32),
+                                *spread)[:, :, None]
     slot = ranks.gather(1, fe[:, None, :])[:, 0].long()
     keep = slot < cap
     slot_c = torch.where(keep, slot, cap - 1)
+    if el != e:                                 # another rank's experts
+        keep &= (fe >= e0) & (fe < e0 + el)
     # row of (expert, group, slot) in the (E * n * C, d) buffer
     group = torch.arange(n, device=xg.device)[:, None] * cap
-    row = (fe * (n * cap) + group + slot_c).reshape(-1)
-    spare = e * n * cap                       # where dropped rows are written
+    row = ((fe - e0) * (n * cap) + group + slot_c).reshape(-1)
+    spare = el * n * cap                      # where dropped rows are written
     buf = xg.new_zeros((spare + 1, d))
     buf[torch.where(keep.reshape(-1), row, spare)] = \
         xg.repeat_interleave(k, dim=1).reshape(-1, d)
-    buf = buf[:spare].view(e, n * cap, d)
+    buf = buf[:spare].view(el, n * cap, d)
+    if el != e:
+        row = torch.where(keep.reshape(-1), row, 0)
 
     # expert FFN as batched products over the expert axis; each buffer is
     # dropped as soon as it is used (at qwen3-moe's prefill each is 0.5 to
@@ -94,6 +122,17 @@ def _dispatch_groups(xg: torch.Tensor, p: Dict[str, torch.Tensor],
     return y_tok.view(n, g, k, d).sum(2)
 
 
+def _tokens_before(counts: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """counts (n, E): this rank's tokens per expert → the tokens per expert
+    of the ranks before it along mesh dimensions ``dims`` (gathered)."""
+    pl = dt.with_placement(dt.replicated(mesh), dims, Shard(0))
+    every = dt.gather(dt.from_local(counts[None], mesh, pl), 0).to_local()
+    me = 0
+    for i in dims:
+        me = me * mesh.size(i) + mesh.get_local_rank(i)
+    return every[:me].sum(0, dtype=torch.int32)
+
+
 def moe_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
             grouped: bool = False) -> torch.Tensor:
     """x: (B, S, d) → (B, S, d).
@@ -101,10 +140,40 @@ def moe_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     grouped=False: one global dispatch group (capacity pooled over the
     whole batch).  grouped=True: one dispatch group per sequence (batch
     row), each with its own capacity."""
+    if isinstance(x, DTensor):
+        return _sharded_moe(p, x, cfg, grouped)
+    return _moe_local(p, x, cfg, grouped)
+
+
+def _moe_local(p, x, cfg: ArchConfig, grouped: bool, e0: int = 0,
+               spread=None):
     b, s, d = x.shape
     if grouped:
-        return _dispatch_groups(x, p, cfg)
-    return _dispatch_groups(x.reshape(1, b * s, d), p, cfg).view(b, s, d)
+        return _dispatch_groups(x, p, cfg, e0)
+    return _dispatch_groups(x.reshape(1, b * s, d), p, cfg, e0,
+                            spread).view(b, s, d)
+
+
+def _sharded_moe(p, x: DTensor, cfg: ArchConfig, grouped: bool) -> DTensor:
+    """The MoE FFN on each rank's experts (or FFN columns): x (B, S, d) is
+    replicated on 'model'; each rank's output, and its gradients of x and
+    the router, are partial sums over 'model'.  Ungrouped, a batch sharded
+    on 'data' is still one dispatch group, as on one rank."""
+    mesh = x.device_mesh
+    batch_dims = dt.mesh_dims(x, 0)
+    spread = (mesh, batch_dims) if batch_dims and not grouped else None
+    dims = dt.mesh_dims(p["w_up"], 0) + dt.mesh_dims(p["w_up"], 2)
+    partial = dt.with_placement(x.placements, dims, Partial())
+    lp = {}
+    for name, w in p.items():
+        grad = dt.weight_grad(w, x)
+        if name == "router":
+            grad = dt.with_placement(grad, dims, Partial())
+        lp[name] = w.to_local(grad_placements=grad)
+    xl = x.to_local(grad_placements=partial)
+    y = _moe_local(lp, xl, cfg, grouped, e0=dt.offset(p["w_up"], 0),
+                   spread=spread)
+    return dt.reduce(dt.from_local(y, mesh, partial))
 
 
 def moe_specs(cfg: ArchConfig, multi_pod: bool = False) -> Dict[str, Any]:

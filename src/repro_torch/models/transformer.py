@@ -5,7 +5,9 @@ Parameters keep the JAX package's stacked layout (a leading layer axis on
 every per-layer tensor); where the JAX model scans over that axis, this one
 loops over the layer index in Python.  Training bodies are checkpointed by
 ``remat_policy`` (:func:`repro_torch.models.common.remat`), as the JAX
-model's are ``jax.checkpoint``-ed.
+model's are ``jax.checkpoint``-ed.  On a mesh with an axis above 1 the
+parameters, the cache and the inputs are DTensors and the layers run
+through the seams of :mod:`repro_torch.models.layers`.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.models import common as dt
 from repro_torch.models import layers as L
 from repro_torch.models.common import (ArchConfig, checked_remat_policy,
                                        remat, spec, stack_spec)
@@ -25,6 +28,13 @@ def layer_params(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
     layers over so, to take each layer's gradient on its own)."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
+
+
+def _frontend_first(embeds: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The stub frontend's (B, P, d) embeddings in place of the first P
+    token embeddings of x (B, S, d)."""
+    p = embeds.shape[1]
+    return torch.cat([embeds.to(x.dtype), x[:, p:]], dim=1)
 
 
 class DenseLM:
@@ -85,16 +95,15 @@ class DenseLM:
         patches / audio frames) that REPLACE the first P token embeddings.
         """
         cfg = self.cfg
-        x = params["lm"]["embed"][tokens]                  # (B, S, d)
+        x = L.embed(params["lm"]["embed"], tokens)         # (B, S, d)
         if input_embeds is not None:
-            p = input_embeds.shape[1]
-            x = torch.cat([input_embeds.to(x.dtype), x[:, p:]], dim=1)
+            x = dt.same_placements(_frontend_first, input_embeds, x)
         pos = torch.arange(tokens.shape[1], device=x.device)
         body = remat(self._layer_train, self.remat_policy)
         for i in range(cfg.n_layers):
             x = body(x, layer_params(params["layers"], i), pos)
         if last_only:
-            x = x[:, -1:]
+            x = dt.same_placements(lambda t: t[:, -1:], x)
         x = L.rmsnorm(x, params["lm"]["final_norm"], cfg.norm_eps)
         return x @ params["lm"]["unembed"]
 
@@ -124,7 +133,7 @@ class DenseLM:
         (logits (B, 1, V), cache), with the cache updated IN PLACE (see
         :func:`repro_torch.models.layers.attention_decode`)."""
         cfg = self.cfg
-        x = params["lm"]["embed"][tokens]                  # (B, 1, d)
+        x = L.embed(params["lm"]["embed"], tokens)         # (B, 1, d)
         for i in range(cfg.n_layers):
             x = self._layer_decode(x, layer_params(params["layers"], i),
                                    cache["k"][i], cache["v"][i], cur_pos)

@@ -12,6 +12,11 @@ Where the JAX package returns new arrays (and the launcher donates the old
 ones), :func:`adamw_update` updates the parameters and the state IN PLACE,
 one leaf at a time and each large leaf in slices, so its float32
 temporaries are one slice's, never the whole tree's.
+
+On DTensor leaves (a mesh with an axis above 1) each rank updates its own
+shards in place; the gradients must already be in their parameters'
+placements (``repro_torch.train.step``), and the global norm sums each
+shard's squares once across the ranks.
 """
 
 from __future__ import annotations
@@ -21,7 +26,9 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
+from repro_torch.models import common as dt
 from repro_torch.models.common import leaves, tree_map
 
 # elements of a leaf updated at once: the float32 temporaries of one slice
@@ -55,10 +62,14 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 def adamw_init(params) -> Dict[str, Any]:
     """μ and ν as float32 zeros beside each parameter, and step 0."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
     first = leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    if isinstance(first, DTensor):
+        step = dt.from_local(step, first.device_mesh,
+                             dt.replicated(first.device_mesh))
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32, device=first.device)}
+            "step": step}
 
 
 def _slices(t: torch.Tensor):
@@ -68,11 +79,23 @@ def _slices(t: torch.Tensor):
 
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum over leaves (in :func:`leaves` order) of each leaf's
-    sum of squares in float32, taken a slice at a time."""
-    total = 0
+    sum of squares in float32, taken a slice at a time.  DTensor leaves:
+    each rank sums its shards' squares, leaves sharded alike together, and
+    each such sum is all-reduced over the mesh dimensions that shard them
+    (a replicated leaf counts once) → the same plain tensor on every
+    rank."""
+    groups, mesh = {}, None
     for g in leaves(grads):
-        total = total + sum(torch.sum(torch.square(s.float()))
-                            for s in _slices(g))
+        dims = ()
+        if isinstance(g, DTensor):
+            mesh = g.device_mesh
+            dims = tuple(i for i, p in enumerate(g.placements)
+                         if isinstance(p, Shard))
+        groups[dims] = groups.get(dims, 0) + sum(
+            torch.sum(torch.square(s.float())) for s in _slices(dt.local(g)))
+    total = 0
+    for dims in sorted(groups):
+        total = total + dt.all_reduce(groups[dims], mesh, dims)
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
@@ -92,16 +115,19 @@ def adamw_update(cfg: AdamWConfig, params, grads, state
     tensors on the parameters' device."""
     gn = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gn + 1e-9), max=1.0)
-    step = state["step"] + 1
+    step = dt.local(state["step"]) + 1
     lr = lr_schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step.float()
     b2c = 1 - cfg.b2 ** step.float()
     with torch.no_grad():
         for p, g, mu, nu in zip(leaves(params), leaves(grads),
                                 leaves(state["mu"]), leaves(state["nu"])):
-            for ps, gs, ms, ns in zip(*map(_slices, (p, g, mu, nu))):
+            leaf = [dt.local(t) for t in (p, g, mu, nu)]
+            for ps, gs, ms, ns in zip(*map(_slices, leaf)):
                 _update(cfg, ps, gs, ms, ns, scale, lr, b1c, b2c)
-    state["step"] = step
+    old = state["step"]
+    state["step"] = (dt.from_local(step, old.device_mesh, old.placements)
+                     if isinstance(old, DTensor) else step)
     return params, state, {"lr": lr, "grad_norm": gn, "step": step}
 
 

@@ -277,7 +277,6 @@ def test_the_limits_catch_an_all_reduce_without_the_division(tmp_path):
     assert got["grad_norm"] > LIMITS["grad_norm"], got
 
 
-@pytest.mark.slow
 def test_compressed_dp_matches_uncompressed_convergence(one_rank):
     """tests/test_compressed_dp.py through the port on one rank: both
     curves fall over 30 steps and end within 0.35 of each other."""

@@ -139,17 +139,30 @@ def test_host_mesh_and_place_on_one_rank(no_group):
 
 
 def test_an_axis_above_one_raises_on_two_ranks(tmp_path):
-    """On two gloo ranks: model_shards 1 gives (2, 1) and a batch spec on
-    'data' raises; model_shards 2 gives (1, 2) and the parameters' specs
-    on 'model' raise, naming the next slice; the training launcher raises
-    for its data axis of 2."""
+    """On two gloo ranks: model_shards 1 gives (2, 1) and the batch goes
+    on 'data' (Shard(0)); model_shards 2 gives (1, 2) and the parameters
+    go on 'model' by their specs; every local shard is its slice of the
+    full tensor and ``full_tree`` gives the full tensors back.  An axis
+    above 1 raises only where it cannot place: a dimension it does not
+    divide, an axis a spec names twice.  The training launcher runs on
+    its data axis of 2."""
     spawn(mesh_rank, 2, tmp_path, str(tmp_path / "mesh_%d.json"))
     for r in range(2):
         res = json.loads((tmp_path / f"mesh_{r}.json").read_text())
         assert res["shape_1"] == [2, 1] and res["shape_2"] == [1, 2]
-        assert "model-axis execution through DTensor" in res["batch"]
-        assert "model-axis execution through DTensor" in res["params"]
-        assert "a data axis above 1 in launch/train.py" in res["train"]
+        assert res["batch"] == ["(Shard(dim=0), Replicate())"]
+        assert "(Replicate(), Shard(dim=1))" in res["params"]
+        assert "(Replicate(), Shard(dim=2))" in res["params"]
+        assert "(Replicate(), Replicate())" in res["params"]
+        for what in ("batch", "params"):
+            assert res[f"{what}_shards_match"], what
+            assert res[f"{what}_full_tree_equal"], what
+        assert "does not divide over mesh axes 'model'" in res["odd"]
+        assert "/w" in res["odd"]
+        assert "names mesh axis 'model' twice" in res["twice"]
+        steps, out = res["train"]
+        assert steps == 1 and "mesh={'data': 2, 'model': 1}" in out \
+            if r == 0 else out == ""
 
 
 def test_launch_train_on_a_host_mesh_of_four_model_shards(no_group, capsys):
