@@ -125,12 +125,13 @@ float32 SIMT kernels).  Phases:
       moe family, the SSD decay and the conv taps for the ssm family).
       Phase (e) adds those models' RMSNorm rows (1024, 2048, 4096 and the
       64- and 4-head views) and phase (f) GQA groups 6 and 16 at D 128;
-  (l) the hybrid and audio families, after (k) and in its manner, whole:
-      zamba2-7b (81 Mamba2 layers, d 3584, d_inner 7168, 112 SSM heads of
-      64, state 64, chunk 256, and one shared attention block, 32/32
-      heads of 112, after every sixth layer: 14 sites, each with its own
-      KV cache) and whisper-large-v3 (32 encoder and 32 decoder layers, d
-      1280, 20 heads of 64, vocab 51,866); ``make_prefill_step`` on 4 x
+  (l) the hybrid and audio families, after (k) and in its manner:
+      zamba2-7b cut to ZAMBA_LAYERS (42) of its 81 Mamba2 layers (d 3584,
+      d_inner 7168, 112 SSM heads of 64, state 64, chunk 256, and one
+      shared attention block, 32/32 heads of 112, after every sixth layer:
+      7 sites, each with its own KV cache) and, whole, whisper-large-v3
+      (32 encoder and 32 decoder layers, d 1280, 20 heads of 64, vocab
+      51,866); ``make_prefill_step`` on 4 x
       4096 tokens (zamba2) and on 4 x 1500 float32 frames with 448
       decoder tokens (whisper), the serve loop (4 x (128 + 32); whisper's
       decoder against its zero cross-attention KV, as in the JAX package,
@@ -243,6 +244,18 @@ float32 SIMT kernels).  Phases:
       memory, and each kernel must have launched on every rank as on one
       rank with a quarter of the heads.
       ``python3 chip_smoke.py --phase p`` runs (a) and (p) alone.
+  (q) the dry run, host work in child processes started together, after
+      (p): (q1) qwen3-14b x train_4k and qwen3-moe-235b-a22b x decode_32k
+      through ``python -m repro_torch.launch.dryrun`` on a fake world of
+      256 ranks, their rooflines in the H100's data-sheet rates printed
+      and read back by ``benchmarks/torch_roofline_report.py``; (q2) phase
+      (g)'s prefill (40 layers, 4 x 4096) and phase (n2)'s train step (12
+      layers, B=2 x S=2048) dry-run on a (1, 1) mesh, each term printed,
+      the analytic compute floor held at or below the step time (g) and
+      (n2) measured, beside the roofline's step and the dry run's peak
+      memory over the measured ones.  No kernel runs in (q).
+      ``python3 chip_smoke.py --phase q`` runs (a) and (q) alone ((q2)
+      then prints its terms without the measured times).
 
 Exits non-zero, printing no result, without a card or when any check
 fails.  The last line is ``{"ok": true, "device": {...}}``; the line
@@ -2758,8 +2771,10 @@ def phase_model():
           and int(res.tokens.max()) < cfg.vocab_padded,
           "serve loop gave bad logits or tokens")
 
+    torch.cuda.reset_peak_memory_stats()
     pre_ms, pre_lo, pre_hi = cuda_ms(
         lambda: prefill_step(params, {"tokens": tokens}), reps=3, warm=1)
+    pre_peak = torch.cuda.max_memory_allocated()
     decode_ms = res.decode_s / SERVE_GEN * 1e3
     # a decode step reads every weight but the embedding table, and the
     # KV cache once
@@ -2828,7 +2843,8 @@ def phase_model():
     log(f"(g) peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f}"
         f" GB")
     torch.cuda.empty_cache()
-    return launches, errors
+    # the timed prefill step: ms and the peak allocated (phase (q2))
+    return launches, errors, (pre_ms, pre_peak)
 
 
 # ------------------------------------------------------ (k) moe and ssm
@@ -2885,8 +2901,13 @@ AGREE_TOL_K_F32 = {
 }
 
 # ----------------------------------------------- (l) hybrid and audio
-# zamba2-7b and whisper-large-v3 whole, in phase (k)'s manner
+# zamba2-7b at every width and whisper-large-v3 whole, in phase (k)'s
+# manner.  zamba2 runs ZAMBA_LAYERS of its 81 layers (7 of its 14 shared-
+# block sites): at 81 its host-bound decode loops took 128.4 s, and the
+# script, phase (q)'s 44.5 s included, read 947.3 s against the 900 s it
+# keeps to (PERF.md, section 6)
 ZAMBA_ARCH, WHISPER_ARCH = "zamba2-7b", "whisper-large-v3"
+ZAMBA_LAYERS = 42
 # whisper's prefill: the encoder's 30-second window of 1500 frames (the
 # reference's enc_len) and the decoder's published text context of 448
 WHISPER_FRAMES, WHISPER_TOKENS = 1500, 448
@@ -2902,7 +2923,8 @@ ZAMBA_F32_LAYERS = 12
 ZAMBA_AGREE_S = 256
 # limits of phase (l)'s agreement checks, each between the clean readings
 # at two bfloat16 weight seeds and the smallest planted fault's (PERF.md,
-# section 6).  On an H100 zamba2 read 1.41 and 1.54 (decode vs prefill),
+# section 6).  On an H100 zamba2 (81 layers) read 1.41 and 1.54 (decode vs
+# prefill),
 # 2.14 and 1.97 (decode vs forward), 1.53 and 1.37 (kernel vs plain
 # attention over ZAMBA_AGREE_S tokens) against faults of at least 4.84,
 # 5.47 and 4.53; whisper 0.70 and 0.91, 1.04 and 1.07, and 1.95 and 2.10
@@ -3224,13 +3246,15 @@ def family_config(kind: str):
     """→ (config, how it was cut) of the model phase (k) or (l) runs for
     ``kind``."""
     from repro_torch.configs.registry import get_arch
-    if kind == "moe":
-        full = get_arch(MOE_ARCH)
-        return (dataclasses.replace(full, n_layers=MOE_LAYERS),
-                f"{MOE_LAYERS} of its {full.n_layers} layers, every width as "
+    cut = {"moe": (MOE_ARCH, MOE_LAYERS),
+           "hybrid": (ZAMBA_ARCH, ZAMBA_LAYERS)}
+    if kind in cut:
+        arch, layers = cut[kind]
+        full = get_arch(arch)
+        return (dataclasses.replace(full, n_layers=layers),
+                f"{layers} of its {full.n_layers} layers, every width as "
                 f"published")
-    arch = {"ssm": MAMBA_ARCH, "hybrid": ZAMBA_ARCH,
-            "audio": WHISPER_ARCH}[kind]
+    arch = {"ssm": MAMBA_ARCH, "audio": WHISPER_ARCH}[kind]
     return get_arch(arch), "whole: every layer and width"
 
 
@@ -5613,10 +5637,166 @@ def phase_tensor_parallel(card: str, device: str = None,
     return paths, read
 
 
+# ---------------------------------------------------------------- phase (q)
+# the dry run (repro_torch.launch.dryrun) is host work on fake tensors: each
+# cell runs in a child process of its own (a fake process group, none beside
+# this process's), all started together
+DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
+DRYRUN_CELLS = (("qwen3-14b", "train_4k"),
+                ("qwen3-moe-235b-a22b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 240
+# phase (g)'s prefill step and phase (n2)'s train step as one-rank cells of
+# the same code: (kind, layers, seq, batch)
+DRYRUN_ONE_RANK = {"prefill": ("prefill", QWEN["layers"], PREFILL_S,
+                               PREFILL_B),
+                   "train": ("train", TRAIN_LAYERS, TRAIN_S, TRAIN_B)}
+DRYRUN_ONE_RANK_CHILD = r"""
+import dataclasses, json, sys
+from repro_torch.configs.registry import get_arch
+from repro_torch.launch.dryrun import host_cell
+arch, kind, layers, seq, batch, out = sys.argv[1:]
+cfg = dataclasses.replace(get_arch(arch), n_layers=int(layers))
+with open(out, "w") as f:
+    json.dump(host_cell(cfg, int(seq), int(batch), kind), f)
+"""
+
+
+def dryrun_children() -> dict:
+    """Every dry-run cell of phase (q) at once → {key: its result}; each
+    child's output in DRYRUN_DIR."""
+    import shutil
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmds = {cell: ["-m", "repro_torch.launch.dryrun", "--arch", cell[0],
+                   "--shape", cell[1]] for cell in DRYRUN_CELLS}
+    cmds.update({name: ["-c", DRYRUN_ONE_RANK_CHILD, TRAIN_ARCH, kind,
+                        str(layers), str(seq), str(batch)]
+                 for name, (kind, layers, seq, batch)
+                 in DRYRUN_ONE_RANK.items()})
+    procs = {}
+    try:
+        for key, cmd in cmds.items():
+            stem = "_".join(key) if isinstance(key, tuple) else key
+            out, log_file = DRYRUN_DIR / f"{stem}.json", \
+                open(DRYRUN_DIR / f"{stem}.log", "w")
+            args = cmd + (["--out", str(out)] if cmd[0] == "-m"
+                          else [str(out)])
+            procs[key] = (out, log_file, subprocess.Popen(
+                [sys.executable, *args], stdout=log_file,
+                stderr=subprocess.STDOUT, env=env, cwd=ROOT))
+        deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+        results = {}
+        for key, (out, log_file, proc) in procs.items():
+            rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            log_file.close()
+            check(rc == 0, f"(q) the dry run of {key} exited {rc}: "
+                           + Path(log_file.name).read_text()[-2000:])
+            cells = json.loads(out.read_text())
+            results[key] = cells[0] if isinstance(cells, list) else cells
+        return results
+    finally:
+        for _, log_file, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_file.close()
+
+
+def roofline_terms(r: dict) -> str:
+    return (f"compute {r['compute_s'] * 1e3:.2f} ms, memory "
+            f"{r['memory_s'] * 1e3:.2f} ms, collective "
+            f"{r['collective_s'] * 1e3:.2f} ms: {r['dominant']}, step "
+            f"{r['step_s'] * 1e3:.2f} ms, mfu {r['mfu']:.4f}, useful "
+            f"{r['useful_flops_ratio']:.3f}")
+
+
+def phase_dryrun(measured=None):
+    """(q) the dry run.  (q1) ``DRYRUN_CELLS`` on the fake 256-rank world
+    through ``python -m repro_torch.launch.dryrun``, their rooflines in the
+    H100's rates printed, written to one artifact and read by
+    ``benchmarks/torch_roofline_report.py``.  (q2) phase (g)'s prefill and
+    phase (n2)'s train step dry-run on a (1, 1) mesh: every term printed,
+    and the analytic compute floor (``analytic_hlo_flops`` at the bf16
+    peak) held at or below the step time measured in this run
+    (``measured``: {"prefill"|"train": (ms, peak bytes allocated)}; None
+    where (g) and (n2) did not run, then only printed), beside the
+    roofline's step over the measured time and the dry run's peak memory
+    over the measured peak (the dry run counts the plain attention, which
+    holds S; the kernels do not)."""
+    from repro_torch.launch.mesh import HBM_BW, ICI_BW, PEAK_FLOPS_BF16
+
+    t0 = time.perf_counter()
+    res = dryrun_children()
+    read = {"cells": {}, "one_rank": {}}
+    for arch, shape in DRYRUN_CELLS:
+        c = res[(arch, shape)]
+        check("roofline" in c, f"(q1) {arch} x {shape}: no roofline: {c}")
+        r = c["roofline"]
+        check(c["mesh"] == "16x16" and r["n_devices"] == 256
+              and r["compute_s"] == r["flops_per_device"] / PEAK_FLOPS_BF16
+              and r["memory_s"] == r["bytes_per_device"] / HBM_BW
+              and r["collective_s"] == r["coll_bytes_per_device"] / ICI_BW,
+              f"(q1) {arch} x {shape}: not the H100's rates on 256 ranks: "
+              f"{r}")
+        log(f"(q1) {arch} x {shape} on the fake 16x16 world: "
+            f"{roofline_terms(r)}; {c['bytes_per_device'] / 2**30:.2f} GiB "
+            f"a rank at the peak; traced in {c['lower_s']} s")
+        read["cells"][f"{arch} x {shape}"] = dict(
+            roofline=r, bytes_per_device=c["bytes_per_device"],
+            lower_s=c["lower_s"])
+    art = DRYRUN_DIR / "torch_dryrun_single_pod.json"
+    art.write_text(json.dumps([res[cell] for cell in DRYRUN_CELLS]))
+    report = load_benchmark("torch_roofline_report")
+    rows = report.rows(report.run(DEVICE, art=str(art)))
+    for row in rows:
+        log(f"(q1) {row['name']},{row['us_per_call']:.2f},"
+            f"\"{row['derived']}\"")
+    check([row["name"] for row in rows]
+          == [f"roofline/{a}/{s}" for a, s in DRYRUN_CELLS]
+          and all(row["us_per_call"] == res[cell]["roofline"]["step_s"] * 1e6
+                  for row, cell in zip(rows, DRYRUN_CELLS)),
+          f"(q1) the report's rows {rows}")
+    for name, (kind, layers, seq, batch) in DRYRUN_ONE_RANK.items():
+        c = res[name]
+        r = c["roofline"]
+        floor_s = c["analytic_flops"] / PEAK_FLOPS_BF16
+        line = (f"(q2) {TRAIN_ARCH} {kind} at {layers} layers, B={batch} "
+                f"S={seq}, (1, 1): {roofline_terms(r)}; analytic compute "
+                f"floor {floor_s * 1e3:.1f} ms; dry-run peak "
+                f"{c['bytes_per_device'] / 1e9:.2f} GB")
+        got = dict(roofline=r, floor_s=floor_s,
+                   bytes_per_device=c["bytes_per_device"],
+                   lower_s=c["lower_s"])
+        if measured is None:
+            log(line + "; measured: not in this run (phases (g) and (n2) "
+                       "did not run)")
+        else:
+            ms, peak = measured[name]
+            got.update(measured_s=ms / 1e3, measured_peak=peak,
+                       floor_over_measured=floor_s * 1e3 / ms,
+                       step_over_measured=r["step_s"] * 1e3 / ms,
+                       memory_over_measured=c["bytes_per_device"] / peak)
+            log(line + f"; measured {ms:.1f} ms and {peak / 1e9:.2f} GB "
+                f"allocated at the peak: floor/measured "
+                f"{got['floor_over_measured']:.3f}, step_s/measured "
+                f"{got['step_over_measured']:.3f}, dry-run peak/measured "
+                f"{got['memory_over_measured']:.3f}")
+            check(floor_s * 1e3 <= ms,
+                  f"(q2) {kind}: the analytic compute floor "
+                  f"{floor_s * 1e3:.1f} ms is above the measured {ms:.1f} "
+                  f"ms")
+        read["one_rank"][name] = got
+    read["seconds"] = time.perf_counter() - t0
+    log(f"(q) took {read['seconds']:.1f} s: {len(res)} dry runs on the "
+        f"host, no kernel launched")
+    return read
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("o", "p"), default=None,
+    ap.add_argument("--phase", choices=("o", "p", "q"), default=None,
                     help="build the kernels, then run this phase alone "
                          "(its checks hold; no result lines)")
     args = ap.parse_args(argv)
@@ -5645,6 +5825,10 @@ def main(argv=None) -> int:
         log("(p) readings " + json.dumps(tp, default=str))
         log(f"done in {time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.phase == "q":
+        log("(q) readings " + json.dumps(phase_dryrun()))
+        log(f"done in {time.perf_counter() - t_start:.1f} s")
+        return 0
     t_last = [t_start]
 
     def took(phase: str) -> None:
@@ -5670,17 +5854,18 @@ def main(argv=None) -> int:
     took("(e)")
     fa, fa_errs, fa_shares = phase_flash_attention()
     took("(f)")
-    model_launches, agree_errs = phase_model()
+    model_launches, agree_errs, prefill = phase_model()
     took("(g)")
     for name in ("rmsnorm", "flash_attention"):
         check(model_launches[name] > 0,
               f"the serving path never launched {name}")
     paths = {"(g) qwen3-14b": model_launches}
     families = {}
-    for kind, label in (("moe", f"(k) {MOE_ARCH} ({MOE_LAYERS} layers)"),
-                        ("ssm", f"(k) {MAMBA_ARCH}"),
-                        ("hybrid", f"(l) {ZAMBA_ARCH}"),
-                        ("audio", f"(l) {WHISPER_ARCH}")):
+    for kind, label in (
+            ("moe", f"(k) {MOE_ARCH} ({MOE_LAYERS} layers)"),
+            ("ssm", f"(k) {MAMBA_ARCH}"),
+            ("hybrid", f"(l) {ZAMBA_ARCH} ({ZAMBA_LAYERS} layers)"),
+            ("audio", f"(l) {WHISPER_ARCH}")):
         paths[label], families[label] = phase_family(kind, card)
         took(label)
     log("(k) and (l) readings " + json.dumps(families))
@@ -5698,6 +5883,9 @@ def main(argv=None) -> int:
     tp_paths, tp = phase_tensor_parallel(card)
     took("(p)")
     paths.update(tp_paths)
+    dry = phase_dryrun({"prefill": prefill,
+                        "train": (train["step_ms"], train["peak_gb"] * 1e9)})
+    took("(q)")
     bwd_by_path = {name: {"(n) qwen3-14b training": bwd_launches[name],
                           "(o) qwen3-14b compressed DP": dp_bwd[name],
                           **{label: n[name] for label, n in tp_paths.items()
@@ -5717,6 +5905,7 @@ def main(argv=None) -> int:
     log("(n) readings " + json.dumps(train))
     log("(o) readings " + json.dumps(dp))
     log("(p) readings " + json.dumps(tp, default=str))
+    log("(q) readings " + json.dumps(dry))
     # kernels per backward wrapper call and device ms per step, counted in
     # the profiled training step's trace (None where it holds no kernel)
     prof = train["profile"] or {}

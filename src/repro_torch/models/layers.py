@@ -191,6 +191,8 @@ def _local_heads(fn, q, k, v, p, cfg: ArchConfig, **kw):
     axis.  → the output (B, S, hq * hd) sharded as q."""
     mesh, dims = q.device_mesh, dt.mesh_dims(q, -1)
     shards = math.prod(mesh.size(i) for i in dims)
+    if cfg.n_heads % shards:
+        return _straddled_heads(fn, q, k, v, p, cfg, dims, **kw)
     rank = dt.offset(q, -1) // (q.shape[-1] // shards)
     kv = local_kv_heads(cfg, shards, rank)
     if kv is None:
@@ -205,6 +207,27 @@ def _local_heads(fn, q, k, v, p, cfg: ArchConfig, **kw):
     out = fn(q.to_local(), kl, vl, *norms, cfg, cfg.n_heads // shards, hkv,
              kv_heads=kv, **kw)
     return dt.from_local(out, mesh, q.placements)
+
+
+def _straddled_heads(fn, q, k, v, p, cfg: ArchConfig, dims, **kw):
+    """:func:`_local_heads` where the query heads do not divide 'model'
+    (qwen3-14b's 40 over 16): a rank's columns of q then straddle heads.
+    q, k and v are gathered whole; each rank attends the whole GQA groups
+    that its columns touch and keeps its own columns of the output.  A
+    head that two ranks share is computed by both; each rank's gradient
+    flows from its own output columns only, so the partial sums add up."""
+    mesh, hd = q.device_mesh, cfg.hd
+    width = cfg.n_heads // cfg.n_kv_heads * hd          # one GQA group
+    c0, cols = dt.offset(q, -1), q.to_local().shape[-1]
+    g0, g1 = c0 // width, -(-(c0 + cols) // width)      # the groups touched
+    grad = dt.with_placement(q.placements, dims, Partial())
+    ql, kl, vl = (dt.gather(t, -1).to_local(grad_placements=grad)
+                  for t in (q, k, v))
+    norms = [dt.local_weight(p.get(name), q) for name in ("q_norm", "k_norm")]
+    out = fn(ql[..., g0 * width:g1 * width], kl, vl, *norms, cfg,
+             (g1 - g0) * width // hd, cfg.n_kv_heads, kv_heads=(g0, g1), **kw)
+    lo = c0 - g0 * width
+    return dt.from_local(out[..., lo:lo + cols], mesh, q.placements)
 
 
 def attention_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -292,10 +315,9 @@ def _decode_seq_sharded(q, k_new, v_new, p, cfg: ArchConfig, cache_k,
                         cache_v, cur_pos: int):
     """Decode against a cache whose sequence is sharded on 'model': the
     new token's heads gathered whole, the softmax taken across the
-    ranks' stretches → this rank's query heads (B, 1, hq_l * hd) as a
-    DTensor sharded as q."""
-    hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    mesh, dims = q.device_mesh, dt.mesh_dims(q, -1)
+    ranks' stretches → this rank's columns of the heads (B, 1, hq_l * hd)
+    as a DTensor sharded as q."""
+    hq, hkv, mesh = cfg.n_heads, cfg.n_kv_heads, q.device_mesh
     seq_dims = dt.mesh_dims(cache_k, 2)
     norms = [dt.local(p.get(n)) for n in ("q_norm", "k_norm")]
     qa, ka, va = (dt.gather(t, -1).to_local() for t in (q, k_new, v_new))
@@ -311,10 +333,11 @@ def _decode_seq_sharded(q, k_new, v_new, p, cfg: ArchConfig, cache_k,
     den = dt.all_reduce(e.sum(-1, keepdim=True), mesh, seq_dims)
     num = dt.all_reduce(torch.einsum("bhgqk,bhkd->bhgqd", e, cv.float()),
                         mesh, seq_dims)
-    out = (num / den).reshape(qh.shape).to(qh.dtype)
-    n = hq // math.prod(mesh.size(i) for i in dims)
-    h0 = dt.offset(q, -1) // hd
-    return dt.from_local(_merge_heads(out[:, h0:h0 + n]), mesh, q.placements)
+    out = _merge_heads((num / den).reshape(qh.shape).to(qh.dtype))
+    # this rank's columns (they may straddle heads: 40 over 16)
+    c0 = dt.offset(q, -1)
+    return dt.from_local(out[..., c0:c0 + q.to_local().shape[-1]], mesh,
+                         q.placements)
 
 
 # -------------------------------------------------------------------- MLPs

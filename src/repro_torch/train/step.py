@@ -18,6 +18,7 @@ all-reduced.  The layout needs no reduce-scatter.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
@@ -38,17 +39,25 @@ def place_inputs(model, params, batch: Dict[str, Any], kind: str
                  ) -> Dict[str, torch.Tensor]:
     """A batch (numpy arrays or tensors, whole on every rank) where the
     parameters are: on their device, or as DTensors placed by
-    ``input_shardings(cfg, kind)`` beside DTensor parameters."""
+    ``input_shardings(cfg, kind)`` beside DTensor parameters (over the
+    'pod' axis too where the mesh has one; replicated where the batch does
+    not divide the data axes)."""
     first = leaves(params)[0]
     if not isinstance(first, DTensor):
         return _batch_on(batch, first.device)
-    from repro_torch.launch.mesh import place
+    from repro_torch.launch.mesh import axis_size, place
     from repro_torch.models.registry import input_shardings
-    specs = input_shardings(model.cfg, kind)
+    mesh = first.device_mesh
+    multi_pod = "pod" in mesh.mesh_dim_names
+    specs = input_shardings(model.cfg, kind, multi_pod)
+    rows = next(iter(batch.values())).shape[0]
+    if rows % math.prod(axis_size(mesh, a) for a in
+                        (("pod", "data") if multi_pod else ("data",))):
+        specs = {k: P() for k in specs}     # a thin batch (long_500k's 1)
     return place({k: v if isinstance(v, DTensor)
                   else torch.as_tensor(v).to(first.device)
                   for k, v in batch.items()},
-                 {k: specs[k] for k in batch}, first.device_mesh)
+                 {k: specs[k] for k in batch}, mesh)
 
 
 def _split(node, stacked: bool, slots: List) -> Any:

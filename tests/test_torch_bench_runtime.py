@@ -271,8 +271,9 @@ def test_harness_prints_the_reference_csv(monkeypatch, tmp_path, capsys):
     assert [r["suite"] for r in rows] == ["resource_table"] * 6
     assert [line.split(",")[0] for line in lines[2:]] == \
         [r["name"] for r in rows]
-    # the reference's 16 suites but roofline_report (TPU dry-run artifacts)
-    assert len(harness.SUITES) == 15 and "model_step" in harness.SUITES
+    # the reference's 16 suites, roofline_report reading the port's dry run
+    assert len(harness.SUITES) == 16 and "model_step" in harness.SUITES
+    assert "roofline_report" in harness.SUITES
     assert (ROOT / "BENCH_compile.json").read_bytes() == record
 
 

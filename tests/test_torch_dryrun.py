@@ -1,0 +1,320 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) against the JAX
+package's (``repro.launch.dryrun``), and its report against
+``benchmarks/roofline_report.py``.
+
+Both dry runs run in child interpreters, so no test process holds a
+process group: the port's on fake worlds (a ``"fake"`` process group of
+1, 4 or 256 ranks), the reference's on 4 XLA:CPU devices through
+``tests/torch_dist_pair.py``'s prelude, at the same time.  The cells:
+
+- (a) reduced qwen3-14b on a (2, 2) mesh, train (B=16, S=32, full remat),
+  prefill (B=16, S=32) and decode (B=16, a 64-slot cache): the port's
+  per-device FLOPs, collective payloads by kind and bytes against the
+  reference's ``_lower_cell`` + ``_costs`` + ``analyze``;
+- (b) the train cell at depths 1, 2 and 5: the counts lie on the
+  reference's ``_lin`` line exactly (eager counts every layer);
+- (c) FLOPs at (1, 4) and (4, 1) a quarter of (1, 1)'s, exactly (a
+  global count would not be);
+- (d) qwen3-14b × train_4k on 256 fake ranks through the CLI: the
+  reference's result schema, in the H100's rates;
+- (e) mamba2-370m × train_4k: ``check_family``'s error row, exit 1;
+- (f) the CLI's artifact read by both reports: the same rows;
+- and a thin decode batch (one sequence) on (2, 2), replicated.
+"""
+
+import ast
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+from repro.configs.registry import ALL_ARCHS as REF_ARCHS
+from repro.configs.registry import reduced_config as ref_reduced
+from repro.launch import roofline as ref_rl
+from torch_dist_pair import ROOT, jax_running
+
+REF_DRYRUN = ROOT / "src" / "repro" / "launch" / "dryrun.py"
+ARCH = "qwen3-14b"
+# kind → (seq, batch) of the (2, 2) cells
+CELLS = {"train": (32, 16), "prefill": (32, 16), "decode": (64, 16)}
+DEPTHS = (1, 2, 5)
+
+# (a)'s bounds, each with its reason (readings in PERF.md, section 6):
+# FLOPs against the analytic floor a device.  Below it: the embedding is
+# a gather (the analytic 2·N·D counts its table as a product), the
+# prefill unembeds only the last position, the unembedding is not
+# recomputed under remat.  Above it: the plain attention's full square
+# (the analytic counts the causal half).
+FLOOR_RATIO = (0.70, 1.10)
+# FLOPs against XLA:CPU's count: XLA counts library dots as 0 FLOPs but
+# counts elementwise ops, which FlopCounterMode does not.
+XLA_FLOPS_RATIO = (0.95, 3.0)
+# bytes against XLA's "bytes accessed": eager's unfused traffic (each
+# elementwise op reads and writes its tensors; XLA fuses chains into one
+# pass) and the plain attention's float32 scores.
+BYTES_RATIO = (1.0, 4.0)
+# collective payloads by kind: the same kinds, within a factor of 2.  XLA
+# all-reduces the residual stream in float32 where the port does so in
+# bfloat16 (twice the bytes a call), and merges some of them (the
+# prefill: 3 all-reduces of f32[8,32,64] against the port's 5 of bf16);
+# the port all-reduces each layer's gradients as DTensor redistributes
+# them, XLA in its own groups.
+COLL_RATIO = (0.5, 2.0)
+
+_PORT = r"""
+import contextlib, dataclasses, io, json, sys
+from repro_torch.configs.registry import get_arch, reduced_config
+from repro_torch.launch import dryrun
+
+out_dir = sys.argv[1]
+cells, depths = json.loads(sys.argv[2]), json.loads(sys.argv[3])
+cfg = reduced_config(get_arch(sys.argv[4]))
+
+def trace(shape, cfg, kind):
+    seq, batch = cells[kind]
+    r = dryrun.host_cell(cfg, seq, batch, kind, tuple(shape))
+    c = r["counted"]
+    return dict(flops=c["flops"], bytes=c["bytes"], coll=c["collectives"],
+                roofline=r["roofline"])
+
+res = {"a": {k: trace((2, 2), cfg, k) for k in cells},
+       "b": {L: trace((2, 2), dataclasses.replace(cfg, n_layers=L), "train")
+             for L in depths},
+       "c": {k: {f"{d}x{m}": trace((d, m), cfg, k)["flops"]
+                 for d, m in ((1, 1), (1, 4), (4, 1))} for k in cells}}
+# long_500k's thin batch: one sequence, its cache sequence-sharded
+try:
+    res["thin"] = dryrun.host_cell(
+        reduced_config(get_arch("mixtral-8x22b")), 64, 1, "decode", (2, 2))
+except Exception as e:  # noqa: BLE001 - the test reads it
+    res["thin"] = {"error": f"{type(e).__name__}: {e}"}
+
+def cli(name, *args):
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            dryrun.main([*args, "--out", f"{out_dir}/{name}.json"])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    res[name] = {"code": code, "stdout": out.getvalue()}
+
+cli("d", "--arch", "qwen3-14b", "--shape", "train_4k")
+cli("e", "--arch", "mamba2-370m", "--shape", "train_4k")
+cli("skip", "--arch", "qwen3-14b", "--shape", "long_500k")
+with open(f"{out_dir}/port.json", "w") as f:
+    json.dump(res, f)
+"""
+
+_REF = r"""
+import json, sys
+import jax
+import numpy as np
+jax.devices()          # 4 devices, before repro.launch.dryrun sets 512
+from jax.sharding import Mesh
+from repro.configs.registry import get_arch, reduced_config
+from repro.launch import roofline as rl
+from repro.launch.dryrun import _costs, _lower_cell
+from repro.models.registry import build_model
+
+out, cells = sys.argv[1], json.loads(sys.argv[2])
+cfg = reduced_config(get_arch(sys.argv[3]))
+mesh = Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
+res = {}
+for kind, (seq, batch) in cells.items():
+    model = build_model(cfg, remat_policy="full", attn_impl="ref")
+    compiled = _lower_cell(cfg, model, seq, batch, kind, False,
+                           mesh).compile()
+    f, b, coll = _costs(compiled)
+    roof = rl.analyze(compiled, cfg, seq, batch, kind, 4)
+    res[kind] = dict(flops=f, bytes=b, coll=coll, roofline=roof.to_dict())
+with open(out, "w") as fh:
+    json.dump(res, fh)
+"""
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both packages' dry runs: the port's counts and CLI artifacts, the
+    reference's (2, 2) cells."""
+    d = tmp_path_factory.mktemp("dryrun")
+    cells = json.dumps(CELLS)
+    with jax_running(_REF, 4, str(d / "ref.json"), cells, ARCH):
+        out = subprocess.run(
+            [sys.executable, "-c", _PORT, str(d), cells, json.dumps(DEPTHS),
+             ARCH], capture_output=True, text=True, timeout=600, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    port = json.loads((d / "port.json").read_text())
+    ref = json.loads((d / "ref.json").read_text())
+    return d, port, ref
+
+
+def _within(got, want, bounds):
+    lo, hi = bounds
+    return lo * want <= got <= hi * want
+
+
+@pytest.mark.parametrize("kind", sorted(CELLS))
+def test_flops_against_the_reference_and_its_floor(runs, kind):
+    _, port, ref = runs
+    seq, batch = CELLS[kind]
+    floor = ref_rl.analytic_hlo_flops(ref_reduced(REF_ARCHS[ARCH]), seq,
+                                      batch, kind, "full") / 4
+    got = port["a"][kind]["flops"]
+    assert _within(got, floor, FLOOR_RATIO), (got, floor)
+    assert _within(got, ref[kind]["flops"], XLA_FLOPS_RATIO), \
+        (got, ref[kind]["flops"])
+    # both rooflines take the floor where the count is below it
+    assert ref[kind]["roofline"]["flops_per_device"] == \
+        max(ref[kind]["flops"], floor)
+    assert port["a"][kind]["roofline"]["flops_per_device"] == \
+        max(got, floor)
+
+
+@pytest.mark.parametrize("kind", sorted(CELLS))
+def test_bytes_against_the_reference(runs, kind):
+    _, port, ref = runs
+    got, want = port["a"][kind]["bytes"], ref[kind]["bytes"]
+    assert _within(got, want, BYTES_RATIO), (got, want)
+
+
+@pytest.mark.parametrize("kind", sorted(CELLS))
+def test_collectives_by_kind_against_the_reference(runs, kind):
+    _, port, ref = runs
+    got, want = port["a"][kind]["coll"], ref[kind]["coll"]
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert _within(got[k], want[k], COLL_RATIO), (k, got[k], want[k])
+
+
+def _ref_function(name: str):
+    """A function of the reference's dry run, compiled from its source
+    alone: importing the module would set its XLA_FLAGS and import JAX's
+    512-device world into this process."""
+    tree = ast.parse(REF_DRYRUN.read_text())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == name)
+    ns: dict = {}
+    exec(compile(ast.Module([fn], []), str(REF_DRYRUN), "exec"), ns)
+    return ns[name]
+
+
+def test_counts_lie_on_the_reference_depth_line(runs):
+    _, port, _ = runs
+    lin = _ref_function("_lin")
+    c = {int(k): (v["flops"], v["bytes"], v["coll"])
+         for k, v in port["b"].items()}
+    k1, k2, L = DEPTHS
+    f, by, coll = lin(c[k1], c[k2], k1, k2, L)
+    assert (f, by, coll) == c[L]
+    assert c[k2][0] > c[k1][0]          # the depth is counted at all
+
+
+@pytest.mark.parametrize("kind", sorted(CELLS))
+def test_flops_are_the_shards_own(runs, kind):
+    _, port, _ = runs
+    f = port["c"][kind]
+    assert f["1x4"] == f["1x1"] / 4
+    assert f["4x1"] == f["1x1"] / 4
+
+
+def test_a_thin_batch_decodes_replicated(runs):
+    """A batch the data axes do not divide (long_500k's one sequence) is
+    replicated, as ``input_shardings(batch_size=)`` says; placing it over
+    'data' raised before the dry run found it."""
+    _, port, _ = runs
+    r = port["thin"]
+    assert "error" not in r, r["error"]
+    assert (r["batch"], r["mesh"]) == (1, "2x2")
+    assert r["counted"]["flops"] > 0 and r["roofline"]["step_s"] > 0
+
+
+def _ref_result_keys():
+    """The keys of ``dryrun_cell``'s result dict and its "opts", read from
+    the reference's source."""
+    tree = ast.parse(REF_DRYRUN.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and \
+                getattr(node.targets[0], "id", None) == "result":
+            keys = [k.value for k in node.value.keys]
+            opts = next(v for k, v in zip(node.value.keys, node.value.values)
+                        if k.value == "opts")
+            return keys, [k.value for k in opts.keys]
+    raise AssertionError("no result dict in the reference")
+
+
+def test_full_width_cell_has_the_reference_schema(runs):
+    d, port, _ = runs
+    assert port["d"]["code"] == 0
+    assert "dry-run: 1 compiled, 0 skipped (documented), 0 failed" in \
+        port["d"]["stdout"]
+    [cell] = json.loads((d / "d.json").read_text())
+    keys, opts = _ref_result_keys()
+    assert list(cell) == keys and list(cell["opts"]) == opts
+    ref_roof = ref_rl.Roofline(1.0, 1.0, 1.0, {}, 1.0, 1).to_dict()
+    r = cell["roofline"]
+    assert list(r) == list(ref_roof)
+    assert (cell["mesh"], cell["kind"], cell["seq"], cell["batch"]) == \
+        ("16x16", "train", 4096, 256)
+    assert r["n_devices"] == 256 and cell["compile_s"] == 0.0
+    # the H100's rates, never the TPU's
+    assert r["compute_s"] == r["flops_per_device"] / 989e12
+    assert r["memory_s"] == r["bytes_per_device"] / 3.35e12
+    assert r["collective_s"] == r["coll_bytes_per_device"] / 450e9
+    cfg = REF_ARCHS[ARCH]
+    floor = ref_rl.analytic_hlo_flops(cfg, 4096, 256, "train") / 256
+    assert r["flops_per_device"] >= floor
+    assert r["model_flops_global"] == ref_rl.model_flops(cfg, 4096, 256,
+                                                         "train")
+    assert {"all-reduce", "all-gather"} <= set(r["coll_breakdown"])
+    # the state a rank holds (bf16 parameters, float32 moments) fits in
+    # the peak, which is under the card's 80 GB
+    assert 0 < cell["output_bytes"] < cell["bytes_per_device"] < 80e9
+
+
+def test_ssm_cell_is_the_check_family_error_row(runs):
+    d, port, _ = runs
+    assert port["e"]["code"] == 1
+    [cell] = json.loads((d / "e.json").read_text())
+    assert set(cell) == {"arch", "shape", "error"}
+    assert cell["error"].startswith("NotImplementedError: family 'ssm' on "
+                                    "mesh {'data': 16, 'model': 16}")
+    assert "ROADMAP.md section 1" in cell["error"]
+    assert "dry-run: 0 compiled, 0 skipped (documented), 1 failed" in \
+        port["e"]["stdout"]
+
+
+def test_both_reports_give_the_same_rows(runs, monkeypatch):
+    d, port, _ = runs
+    cells = [json.loads((d / f"{n}.json").read_text())[0]
+             for n in ("d", "e", "skip")]
+    assert "skipped" in cells[2]
+    art = d / "art.json"
+    art.write_text(json.dumps(cells))
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "benchmarks" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+    monkeypatch.syspath_prepend(str(ROOT / "benchmarks"))
+    ref, mine = load("roofline_report"), load("torch_roofline_report")
+    monkeypatch.setattr(ref, "ART", str(art))
+    monkeypatch.setattr(mine, "ART", str(art))
+    rows = mine.rows(mine.run("cpu"))
+    assert rows == ref.run()
+    assert [r["name"] for r in rows] == [
+        "roofline/qwen3-14b/train_4k", "roofline/mamba2-370m/train_4k",
+        "roofline/qwen3-14b/long_500k"]
+    assert rows[1]["derived"].startswith("SKIP: NotImplementedError")
+    # no artifact: the reference's row, naming the port's dry run
+    monkeypatch.setattr(ref, "ART", str(d / "absent.json"))
+    monkeypatch.setattr(mine, "ART", str(d / "absent.json"))
+    [row], [ref_row] = mine.rows(mine.run("cpu")), ref.run()
+    assert row == {**ref_row,
+                   "derived": "run repro_torch.launch.dryrun --all first"}

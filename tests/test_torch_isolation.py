@@ -105,6 +105,41 @@ def test_importing_every_module_loads_no_jax_and_builds_nothing():
     assert (builds, cuda_init, bad) == ("0", "False", "[]")
 
 
+_DRYRUN_PROBE = r"""
+import os, pkgutil, sys
+import repro_torch
+import torch.distributed as dist
+from repro_torch.launch import dryrun, roofline
+mods = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")}
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print({"reached": sorted(mods & {"repro_torch.launch.dryrun",
+                                 "repro_torch.launch.roofline"}),
+       "group": dist.is_initialized(), "xla_flags": "XLA_FLAGS" in os.environ,
+       "bad": bad})
+"""
+
+
+def test_importing_the_dry_run_starts_no_process_group():
+    """The dry run and the roofline are among the modules the scans above
+    reach; importing them loads no JAX, starts no process group (the
+    fake world starts in ``main``/``dryrun_cell``) and sets no
+    ``XLA_FLAGS`` (the JAX package's dry run must, before its import)."""
+    assert {PORT / "launch" / "dryrun.py",
+            PORT / "launch" / "roofline.py"} <= set(_sources())
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = subprocess.run([sys.executable, "-c", _DRYRUN_PROBE],
+                         capture_output=True, text=True, env=env,
+                         timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == str(
+        {"reached": ["repro_torch.launch.dryrun",
+                     "repro_torch.launch.roofline"],
+         "group": False, "xla_flags": False, "bad": []})
+
+
 def _run_smoke(script: Path, cwd: Path):
     return subprocess.run([sys.executable, str(script)], capture_output=True,
                           text=True, timeout=300, cwd=cwd,
