@@ -126,12 +126,12 @@ float32 SIMT kernels).  Phases:
       Phase (e) adds those models' RMSNorm rows (1024, 2048, 4096 and the
       64- and 4-head views) and phase (f) GQA groups 6 and 16 at D 128;
   (l) the hybrid and audio families, after (k) and in its manner:
-      zamba2-7b cut to ZAMBA_LAYERS (42) of its 81 Mamba2 layers (d 3584,
+      zamba2-7b cut to ZAMBA_LAYERS (12) of its 81 Mamba2 layers (d 3584,
       d_inner 7168, 112 SSM heads of 64, state 64, chunk 256, and one
       shared attention block, 32/32 heads of 112, after every sixth layer:
-      7 sites, each with its own KV cache) and, whole, whisper-large-v3
-      (32 encoder and 32 decoder layers, d 1280, 20 heads of 64, vocab
-      51,866); ``make_prefill_step`` on 4 x
+      2 sites, each with its own KV cache) and whisper-large-v3 cut to
+      WHISPER_LAYERS (16) of its 32 encoder and of its 32 decoder layers
+      (d 1280, 20 heads of 64, vocab 51,866); ``make_prefill_step`` on 4 x
       4096 tokens (zamba2) and on 4 x 1500 float32 frames with 448
       decoder tokens (whisper), the serve loop (4 x (128 + 32); whisper's
       decoder against its zero cross-attention KV, as in the JAX package,
@@ -152,6 +152,11 @@ float32 SIMT kernels).  Phases:
       float32 (SIMT), whisper's non-causal Sq != Skv shapes, and times the
       kernel at zamba2's prefill shape q (4, 32, 4096, 112) and at
       whisper's four shapes in turns with ``scaled_dot_product_attention``.
+      (f) and (n1) also hold the split-row
+      RMSNorm (Mamba2's gated norm with its rows over 'model'), forward
+      and backward, against its plain version at mamba2's and zamba2's
+      rows cut 4 ways, with a planted fault (n a block's width), and time
+      one rank's block beside the byte bound.
 
   (m) the paper's benchmarks and the reference's benchmark suite, after
       (l): ``run("cuda")`` of the ten suites of ``benchmarks/`` the port
@@ -223,9 +228,9 @@ float32 SIMT kernels).  Phases:
       with CUDA tensors and a FileStore (NCCL refuses two ranks on one
       device; gloo stages each collective through the host), the parent
       taking each one-rank reading first and freeing it: (p1) qwen3-14b
-      at full width and depth in bfloat16 on a (1, 4) mesh, the ranks
-      drawing the seeded weights in turns, one ``make_prefill_step`` on 4
-      x 4096 tokens and the serve loop (a
+      at full width cut to TP_P1_LAYERS (4) in bfloat16 on a (1, 4)
+      mesh, the ranks drawing the seeded weights in turns, one
+      ``make_prefill_step`` on 1 x 4096 tokens and the serve loop (a
       prompt of TP_PROMPT, TP_GEN steps fed the one-rank run's tokens,
       each rank's greedy pick read from the vocab-sharded logits and
       equal, every one, to the argmax of the gathered logits), the
@@ -242,7 +247,22 @@ float32 SIMT kernels).  Phases:
       rank reports its launches of the four kernels (by route), the
       shapes they saw (q heads 10 and KV heads 2 at model=4) and its
       memory, and each kernel must have launched on every rank as on one
-      rank with a quarter of the heads.
+      rank with a quarter of the heads.  (p4) the ssm, hybrid and audio
+      families on (1, 4) (TP_FAMILIES: mamba2-370m whole, zamba2-7b at 12
+      layers, whisper-large-v3 at 16 + 16): one prefill step at B=1 and the
+      serve loop at seed 0, the prefill at seed 1, the logits within
+      ``AGREE_TOL_P4`` of the one-rank run's, every greedy pick the
+      gathered argmax, each rank's block of the conv cache and the SSM
+      state against the one-rank run's; planted faults (TP_FAMILY_FAULTS:
+      the gated norm without its all-reduce in mamba2's prefill, the
+      conv's channels and decode window at the neighbouring rank's block
+      in mamba2's and zamba2's serve loops, whisper's decode
+      cross-attention on the wrong key/value heads) must break the
+      logits limit, and the conv fault the cache-block limit; one mamba2
+      train step on (1, 4) and (2, 2) within TP_TRAIN_TOL; every rank
+      launches RMSNorm on whole and split rows,
+      flash attention (D 112 and 64, the one-row cross-attention) and,
+      training, both RMSNorm backwards.
       ``python3 chip_smoke.py --phase p`` runs (a) and (p) alone.
   (q) the dry run, host work in child processes started together, after
       (p): (q1) qwen3-14b x train_4k and qwen3-moe-235b-a22b x decode_32k
@@ -260,9 +280,10 @@ float32 SIMT kernels).  Phases:
 Exits non-zero, printing no result, without a card or when any check
 fails.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists each ported kernel with its launches on the main paths
-(phases (c), (h), (i), (j) and (m) for the executor, phases (g), (k),
-(l), (n), (o) and (p) for RMSNorm and flash attention, phases (n), (o)
-and (p) for their backward kernels).
+(phases (c), (h), (i), (j) and (m) for the executor,
+phases (g), (k), (l), (n), (o) and (p) for RMSNorm and flash attention,
+phases (n), (o) and (p) for their backward kernels, (p4) for the
+split-row RMSNorm forward and backward).
 """
 
 from __future__ import annotations
@@ -2228,6 +2249,126 @@ def phase_rmsnorm():
     return totals, errs
 
 
+# the split-row RMSNorm's cases: Mamba2's gated norm over the inner width,
+# its rows cut 4 ways as on a model axis of 4; mamba2-370m's 4 x 4096 rows
+# of 2048 and zamba2-7b's rows of 7168
+SPLIT_WAYS = 4
+SPLIT_CASES = (("mamba2-370m gated norm", (PREFILL_B * PREFILL_S, 2048)),
+               ("zamba2-7b gated norm", (PREFILL_B * PREFILL_S, 7168)))
+
+
+def phase_rmsnorm_split(bwd: bool):
+    """(f), forward, and (n1), backward: the split-row RMSNorm kernels
+    against their plain versions on the card at the gated norm's shapes,
+    each row cut into SPLIT_WAYS column blocks; the blocks' partial sums
+    are added in this process (the all-reduce's part), then each block
+    is applied.  RMS_TOL holds, and a planted fault (``n`` taken as a
+    block's width) must break it.  One rank's block of the zamba2 shape
+    is timed (the row sums and the apply; the backward's dot, dx and dw)
+    beside its plain version and the byte bound; no PyTorch call norms a
+    split row."""
+    import torch
+    from repro_torch.kernels.rmsnorm import kernel, ref
+    phase = "(n1)" if bwd else "(f)"
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    eps = 1e-6
+    errs, fault_errs, out = {}, {}, {}
+    for name, (rows, n) in SPLIT_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            x = randn(gen, (rows, n), dt)
+            w = (randn(gen, (n,), torch.float32) * 0.1 + 1.0).to(dt)
+            dy = randn(gen, (rows, n), dt)
+            blocks = [(b.contiguous(), wb.contiguous(), g.contiguous())
+                      for b, wb, g in zip(x.chunk(SPLIT_WAYS, -1),
+                                          w.chunk(SPLIT_WAYS),
+                                          dy.chunk(SPLIT_WAYS, -1))]
+            total = sum(kernel.split_row_sums(b) for b, _, _ in blocks)
+            total_ref = sum(ref.split_sumsq(b) for b, _, _ in blocks)
+            dot = sum(kernel.split_row_sums(b, wb, g) for b, wb, g in blocks)
+            dot_ref = sum(ref.split_dot(b, wb, g) for b, wb, g in blocks)
+
+            def run(width, plain=False):
+                outs = []
+                for b, wb, g in blocks:
+                    if bwd and plain:
+                        outs.append(ref.rmsnorm_split_bwd(
+                            b, wb, g, total_ref, dot_ref, width, eps))
+                    elif bwd:
+                        outs.append(kernel.split_bwd_apply(
+                            b, wb, g, total, dot, width, eps))
+                    elif plain:
+                        outs.append((ref.rmsnorm_split(b, wb, total_ref,
+                                                       width, eps),))
+                    else:
+                        outs.append((kernel.split_apply(b, wb, total, width,
+                                                        eps),))
+                return [torch.cat([o[j] for o in outs], -1)
+                        for j in range(len(outs[0]))]
+            tol = tol_of(RMS_TOL, dt)
+            want = run(n, plain=True)
+            got = run(n)
+            bad = run(n // SPLIT_WAYS)
+            torch.cuda.synchronize()
+            res = [close_enough(g, w_, tol) for g, w_ in zip(got, want)]
+            err = max(e for _, e in res)
+            ferr = max(close_enough(b_, w_, tol)[1]
+                       for b_, w_ in zip(bad, want))
+            key = f"{name} {str(dt)[6:]}"
+            errs[key], fault_errs[key] = err, ferr
+            log(f"{phase} split-row RMSNorm {'backward' if bwd else 'forward'}"
+                f" {key}, rows of {n} in {SPLIT_WAYS} blocks of "
+                f"{n // SPLIT_WAYS}: max abs err {err:.3g} (tolerance "
+                f"{tol:g}); planted fault (n taken as a block's width) "
+                f"{ferr:.3g}")
+            check(all(ok for ok, _ in res),
+                  f"{phase} split-row RMSNorm != plain at {key}: {err}")
+            check(ferr > tol, f"{phase} split-row RMSNorm: the planted fault "
+                              f"at {key} was not caught ({ferr})")
+            if name.startswith("zamba2") and dt == torch.bfloat16:
+                b, wb, g = blocks[0]
+                if bwd:
+                    def k_fn():
+                        kernel.split_bwd_apply(
+                            b, wb, g, total,
+                            kernel.split_row_sums(b, wb, g), n, eps)
+
+                    def p_fn():
+                        ref.rmsnorm_split_bwd(b, wb, g, total_ref,
+                                              ref.split_dot(b, wb, g), n,
+                                              eps)
+                    tensors = 3                    # x, dy read; dx written
+                else:
+                    def k_fn():
+                        kernel.split_apply(b, wb, kernel.split_row_sums(b),
+                                           n, eps)
+
+                    def p_fn():
+                        ref.rmsnorm_split(b, wb, ref.split_sumsq(b), n, eps)
+                    tensors = 2                    # x read, y written
+                scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                                      device=DEVICE)
+                evict = hide_host(evict=scratch)
+                k_ms = cuda_ms(k_fn, before=evict)[0]
+                p_ms = cuda_ms(p_fn, reps=3, before=evict)[0]
+                del scratch
+                byte_ms = (tensors * b.numel() + b.shape[-1]) \
+                    * b.element_size() / MEM_BYTES_PER_S * 1e3
+                op_ms = (10 if bwd else 4) * b.numel() / F32_OPS_PER_S * 1e3
+                out = dict(ms=k_ms, plain_ms=p_ms, byte_ms=byte_ms,
+                           op_ms=op_ms, bound_ms=max(byte_ms, op_ms),
+                           library_ms=None,
+                           per=f"one rank's block (B*S, {n // SPLIT_WAYS}) "
+                               f"of zamba2-7b's gated norm at B={PREFILL_B},"
+                               f" S={PREFILL_S}, bf16, L2 evicted")
+                log(f"{phase} split-row RMSNorm {'backward' if bwd else ''} "
+                    f"one rank's block ({rows}, {n // SPLIT_WAYS}) bf16: "
+                    f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, byte bound "
+                    f"{byte_ms:.4f} ms (share {byte_ms / k_ms:.3f}); no "
+                    f"PyTorch call norms a split row")
+    out.update(errs=errs, planted_fault_errs=fault_errs)
+    return out
+
+
 def attention_bound_ms(b, hq, sq, skv, d, causal, window, itemsize,
                        hkv=QWEN["hkv"]):
     """→ (ms to move q, k, v and out once, ms for 4*D operations per
@@ -2867,9 +3008,11 @@ MOE_NO_DROP = 16.0
 # layers, 0.215 clean against 0.159 faulty on an H100); over 256 the fault
 # drops a quarter of the last row's keys, not a sixteenth
 MOE_AGREE_S = 256
-# mamba2's agreement run: a prompt of 480 and 32 generated tokens make 512,
-# two SSD chunks of 256, so the forward side crosses a chunk boundary
-MAMBA_AGREE_PROMPT = 480
+# mamba2's agreement run: a prompt of 224 and 32 generated tokens make 256,
+# one SSD chunk (480, two chunks, before (p4) needed the time: with the
+# random init's A_log of 0 nothing of a state crosses a chunk at full
+# size, and tests/test_torch_mamba2.py holds the carry on the CPU)
+MAMBA_AGREE_PROMPT = 224
 # qwen3-moe's float32 agreement run, cut further to fit (9.95 GB a layer)
 MOE_F32_LAYERS = 4
 # limits of phase (k)'s agreement checks, each set between the clean
@@ -2901,13 +3044,19 @@ AGREE_TOL_K_F32 = {
 }
 
 # ----------------------------------------------- (l) hybrid and audio
-# zamba2-7b at every width and whisper-large-v3 whole, in phase (k)'s
+# zamba2-7b and whisper-large-v3 at every width, in phase (k)'s
 # manner.  zamba2 runs ZAMBA_LAYERS of its 81 layers (7 of its 14 shared-
 # block sites): at 81 its host-bound decode loops took 128.4 s, and the
 # script, phase (q)'s 44.5 s included, read 947.3 s against the 900 s it
 # keeps to (PERF.md, section 6)
 ZAMBA_ARCH, WHISPER_ARCH = "zamba2-7b", "whisper-large-v3"
-ZAMBA_LAYERS = 42
+# 12 layers (2 of its 14 sites), to make room for (p4): at 42 (7 sites)
+# it took 72.5-75.6 s (PERF.md, section 4)
+ZAMBA_LAYERS = 12
+# whisper-large-v3 cut to 16 + 16 of its 32 + 32 layers, every width as
+# published, to make room for (p4)'s planted faults: whole, it took
+# 70.4 s (PERF.md, section 4)
+WHISPER_LAYERS = 16
 # whisper's prefill: the encoder's 30-second window of 1500 frames (the
 # reference's enc_len) and the decoder's published text context of 448
 WHISPER_FRAMES, WHISPER_TOKENS = 1500, 448
@@ -2934,10 +3083,40 @@ ZAMBA_AGREE_S = 256
 # as mamba2 does: their float32 readings, 1e-4 to 5e-4, are 10 to 30
 # times qwen3-14b's.  Each limit sits near the geometric mean of the
 # larger clean reading and the smallest fault's
-AGREE_TOL_K["hybrid"] = {"decode_vs_prefill": 2.75, "decode_vs_forward": 3.5,
-                         "kernel_vs_plain_attention": 2.5}
+# At ZAMBA_LAYERS = 12 (2 sites) zamba2's clean readings are 0.25 and
+# 0.2266, 0.3262 and 0.5234, 0.2188 and 0.1641, and its smallest planted
+# faults 2.367, 2.797 and 1.412 (the last keys dropped) on an H100: the
+# limits sit near the geometric means again.  whisper's limits were set
+# whole; at WHISPER_LAYERS (16 + 16) it read 0.148 and 0.195, 0.227 and
+# 0.252, 0.500 and 0.537 against faults of at least 6.52, 7.41 and 6.38
+# (float32 2.6e-05 to 9.3e-05 against 5.85 and more): still between them
+AGREE_TOL_K["hybrid"] = {"decode_vs_prefill": 0.75, "decode_vs_forward": 1.2,
+                         "kernel_vs_plain_attention": 0.55}
 AGREE_TOL_K["audio"] = {"decode_vs_prefill": 2.0, "decode_vs_forward": 2.5,
                         "kernel_vs_plain_attention": 3.5}
+# phase (p4)'s limits per family, beside AGREE_TOL_K's (whose every key
+# check_limits holds against phases (k) and (l)): the ranks' logits
+# against the one-rank run's ("ranks_vs_one_rank"), and each rank's block
+# of the conv cache and the SSM state after the serve loop against the
+# one-rank run's, relative to its largest value ("cache_blocks"); set as
+# phase (k)'s: above two weight seeds' clean readings and below every
+# planted fault's (PERF.md, section 6).  On an H100 mamba2 (48 layers)
+# read 0.8165 (prefill) and 1.383 (serve) at seed 0, 0.6523 at seed 1
+# (TP_SHORT_S), against planted faults of 5.227 (the norm) and 5.656 and
+# 6.609 (the conv); its blocks 0.2515 (conv) and 0.1552 (state) against
+# 1.271 with the conv fault.  It is held to phase (k)'s limit for the
+# family.  zamba2 at 12 layers read 0.1914, 0.7285 and 0.2432, blocks
+# 0.0858 and 0.0624, against the conv fault's 3.086 and 5.391, blocks
+# 1.196.  whisper at 16 + 16 layers read 0.5957, 0.6836 and 0.6328
+# (whole: 2.652, 3.535 and 2.020, its 160 row-parallel sums each rounded
+# to bfloat16; in float32 9.9e-05 and 6.7e-04, so the bfloat16 readings
+# are rounding) against the cross-attention fault's 6.703.  Each limit
+# sits between the larger clean reading and the smallest fault's
+AGREE_TOL_P4 = {"ssm": {"ranks_vs_one_rank":
+                        AGREE_TOL_K["ssm"]["decode_vs_prefill"],
+                        "cache_blocks": 0.5},
+                "hybrid": {"ranks_vs_one_rank": 1.5, "cache_blocks": 0.2},
+                "audio": {"ranks_vs_one_rank": 1.5}}
 # in float32 zamba2 at 12 layers read 1.8e-04, 3.3e-04 and 6.5e-05 and
 # whisper 1.2e-04, 1.7e-04 and 4.5e-04 on an H100, against faults of 0.29
 # and more
@@ -3030,14 +3209,22 @@ def cross_kv_filled(model, params, frames, shift: int = 0):
     decoder layer's own ``xattn.wk``/``wv``: the keys and values
     ``layers.attention(memory=)`` computes.  Harness code, not a model
     feature: the model's cache starts as zeros, as in the JAX package.
-    ``shift`` 1 plants a fault: layer l takes layer l + 1's projections."""
+    ``shift`` 1 plants a fault: layer l takes layer l + 1's projections.
+    Beside DTensor parameters ((p4)'s ranks) the memory and the
+    projections are gathered whole (collectives: every rank calls it),
+    and the filled cache is placed as the serve loop places it."""
     from unittest import mock
-    import torch
+    from repro_torch.models.common import full, leaves
     from repro_torch.models.transformer import layer_params
+    from repro_torch.train.step import inference, place_inputs
+    from torch.distributed.tensor import DTensor
     cfg = model.cfg
     real = model.init_cache
-    with torch.inference_mode():
-        memory = model.encode(params, frames)
+    with inference(params):
+        if isinstance(leaves(params)[0], DTensor):     # (p4)'s ranks
+            frames = place_inputs(model, params, {"input_embeds": frames},
+                                  "prefill")["input_embeds"]
+        memory = full(model.encode(params, frames))
     b, e, _ = memory.shape
 
     def init_cache(batch, seq, dtype=None, device=None):
@@ -3046,7 +3233,7 @@ def cross_kv_filled(model, params, frames, shift: int = 0):
             xp = layer_params(params["dec"],
                               (i + shift) % cfg.n_layers)["xattn"]
             for name, w in (("xk", xp["wk"]), ("xv", xp["wv"])):
-                cache[name][i] = (memory @ w).view(
+                cache[name][i] = (memory @ full(w)).view(
                     b, e, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
         return cache
     return mock.patch.object(model, "init_cache", init_cache)
@@ -3247,15 +3434,19 @@ def family_config(kind: str):
     ``kind``."""
     from repro_torch.configs.registry import get_arch
     cut = {"moe": (MOE_ARCH, MOE_LAYERS),
-           "hybrid": (ZAMBA_ARCH, ZAMBA_LAYERS)}
+           "hybrid": (ZAMBA_ARCH, ZAMBA_LAYERS),
+           "audio": (WHISPER_ARCH, WHISPER_LAYERS)}
     if kind in cut:
         arch, layers = cut[kind]
         full = get_arch(arch)
-        return (dataclasses.replace(full, n_layers=layers),
-                f"{layers} of its {full.n_layers} layers, every width as "
-                f"published")
-    arch = {"ssm": MAMBA_ARCH, "audio": WHISPER_ARCH}[kind]
-    return get_arch(arch), "whole: every layer and width"
+        enc = (f"{min(layers, full.enc_layers)} + " if full.enc_layers
+               else "")
+        return (dataclasses.replace(full, n_layers=layers, enc_layers=min(
+                    layers, full.enc_layers)),
+                f"{enc}{layers} of its "
+                + (f"{full.enc_layers} + " if full.enc_layers else "")
+                + f"{full.n_layers} layers, every width as published")
+    return get_arch(MAMBA_ARCH), "whole: every layer and width"
 
 
 def family_launches(kind: str, cfg):
@@ -3496,11 +3687,12 @@ TRAIN_ARCH = "qwen3-14b"
 # --no-checkpoint (on an H100: 12 layers 9.71 GB free, 13 layers 5.01)
 TRAIN_LAYERS = 12
 # the cut the checkpoint and the restart run at: the train state is 10
-# bytes a parameter (bf16 parameters, float32 mu and nu), 22.2 GB at 2
-# layers (42.0 GB at 8 took 136 s to write and restore, a seventh of the
-# script; the machine the card sits in takes at most 45 GiB of writes to
-# its disk in a run)
-TRAIN_CKPT_LAYERS = 2
+# bytes a parameter (bf16 parameters, float32 mu and nu), 18.9 GB at 1
+# layer (42.0 GB at 8 took 136 s to write and restore, a seventh of the
+# script; 22.2 GB at 2 took 68-69 s, cut to make room for (p4); the
+# machine the card sits in takes at most 45 GiB of writes to its disk in
+# a run)
+TRAIN_CKPT_LAYERS = 1
 # the cut the agreement runs at, where its limits (TRAIN_TOL) were read
 TRAIN_AGREE_LAYERS = 8
 TRAIN_B, TRAIN_S = 2, 2048
@@ -4417,6 +4609,7 @@ def phase_train(card: str):
     # ---- the main path: counts set to 0 just before, read just after
     reset_counts()
     rk.rmsnorm_bwd.launches = 0
+    rk.rmsnorm_split.launches = rk.rmsnorm_split_bwd.launches = 0
     fa.flash_attention_bwd.launches = 0
     for route in fa.flash_attention_bwd.launches_by_route:
         fa.flash_attention_bwd.launches_by_route[route] = 0
@@ -4764,6 +4957,7 @@ def phase_dp(card: str):
     del state
     reset_counts()
     rk.rmsnorm_bwd.launches = 0
+    rk.rmsnorm_split.launches = rk.rmsnorm_split_bwd.launches = 0
     fa.flash_attention_bwd.launches = 0
     for route in fa.flash_attention_bwd.launches_by_route:
         fa.flash_attention_bwd.launches_by_route[route] = 0
@@ -4936,15 +5130,19 @@ TP_PREFILL_B = 1
 # turns, so the card holds the full draw of the last rank beside the four
 # ranks' shards, twice the model's 4.977 GB a layer and 2.49 GB of
 # embeddings: 2 x 32.35 GB at 6 layers plus four processes' contexts
-# leaves about 12 GB of the 80 GB free (7 layers would leave 2 GB)
-TP_MOE_LAYERS = 6
+# leaves about 12 GB of the 80 GB free (7 layers would leave 2 GB); 2
+# since (p4) needed the time
+TP_MOE_LAYERS = 2
 # (p3) qwen3-14b cut per mesh: a training rank holds 12 bytes a parameter
 # of its shards (bf16 weights and gradients, float32 moments); on (1, 4)
 # the card holds the state once (12 x (1.557 B + 0.33 B a layer), 38.6 GB
 # at 8 layers), on (2, 2) twice (2 layers: 53 GB), beside four processes'
-# activations and logits of B=2 x S=2048 (a few GB each)
-TP_TRAIN_LAYERS = {(1, 4): 8, (2, 2): 2}
-TP_TRAIN_STEPS = 4
+# activations and logits of B=2 x S=2048 (a few GB each); (1, 4) at 2
+# layers (8 before (p4) needed the time)
+TP_TRAIN_LAYERS = {(1, 4): 2, (2, 2): 2}
+# two, so that a grad norm is read after a sharded AdamW update (4 before
+# (p4) needed the time)
+TP_TRAIN_STEPS = 2
 # (p3) seed 0 trains TP_TRAIN_STEPS steps, seed 1 one step
 TP_TRAIN_SEEDS = (0, 1)
 # (p3) limits against the one-rank step on the same batches: the first
@@ -4954,6 +5152,37 @@ TP_TRAIN_SEEDS = (0, 1)
 # planted fault's (PERF.md, section 6)
 TP_TRAIN_TOL = {"first_loss": 2e-2, "grad_norm": 2e-2,
                 "leaf_grad_norm": 5e-2}
+# (p1) qwen3-14b cut to this depth (40 before (p4) needed the time: its
+# 20.4 s of draws and 10.6 s prefill at 40 layers)
+TP_P1_LAYERS = 4
+# (p4) the ssm, hybrid and audio families on (1, 4): mamba2-370m whole,
+# zamba2-7b cut to 12 of 81 layers (two attention sites), whisper-large-v3
+# cut to 16 + 16 of its 32 + 32 layers (whole, its 12 decode steps took
+# 11.1-18.7 s and the script 933.7 s against its 900); one prefill step at
+# B=1 (whisper 1500 frames and 448 tokens) and the serve loop at seed 0,
+# the prefill alone at seed 1 (TP_SHORT_S); mamba2 trained one step on
+# (1, 4) and (2, 2) at TP_SSM_TRAIN_LAYERS
+TP_FAMILIES = (("ssm", "mamba2-370m", None), ("hybrid", "zamba2-7b", 12),
+               ("audio", "whisper-large-v3", 16))
+TP_SSM_TRAIN_LAYERS = 6
+# (p4)'s planted faults at seed 0: name → (what it does, the families it
+# is planted in, whether it runs the serve loop).  "norm": the gated norm
+# over the rank's columns alone (no all-reduce of the rows' sums of
+# squares), in a prefill; "conv": each rank's conv channels taken at the
+# neighbouring rank's block of the packed projection, so that in the serve
+# loop the decode also writes that block's window into the rank's block
+# of the conv cache; "xattn": whisper's decode cross-attention on the
+# rank's key/value heads rolled by one, so each query head reads another
+# head's keys and values
+TP_FAMILY_FAULTS = {
+    "norm": ("gated norm over the rank's columns alone", ("ssm",), False),
+    "conv": ("conv channels and decode window at the neighbouring rank's "
+             "block", ("ssm", "hybrid"), True),
+    "xattn": ("decode cross-attention on the wrong key/value heads",
+              ("audio",), True)}
+# (p4)'s prefill-only runs of the Mamba2 families (seed 1 and the norm
+# fault) read a sequence of this many tokens, 4 chunks of 256
+TP_SHORT_S = 1024
 # a command the ranks must finish within; a rank still in it a little
 # before prints every thread's stack
 TP_TIMEOUT_S = 420
@@ -5048,16 +5277,18 @@ class TpRanks:
 
 @contextlib.contextmanager
 def tp_recorded():
-    """Within the block, the shapes the flash-attention and RMSNorm
-    dispatches see: a dict of sets, ``attention`` holding (q heads, key/
-    value heads, sequence, head dim) and ``rmsnorm`` (rank, last dim,
-    heads of a 4-d view)."""
+    """Within the block, the shapes the flash-attention, RMSNorm and
+    split-row RMSNorm dispatches see: a dict of sets, ``attention``
+    holding (q heads, key/value heads, sequence, head dim), ``rmsnorm``
+    (rank, last dim, heads of a 4-d view) and ``rmsnorm_split`` (the
+    rank's columns, the whole row's)."""
     from unittest import mock
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as rn_ops
-    seen = {"attention": set(), "rmsnorm": set()}
+    seen = {"attention": set(), "rmsnorm": set(), "rmsnorm_split": set()}
     real_fa, real_rn = fa_ops.attention, rn_ops.rmsnorm
+    real_split = rn_ops.rmsnorm_split
 
     def attention(q, k, v, **kw):
         seen["attention"].add((q.shape[1], k.shape[1], q.shape[2],
@@ -5069,8 +5300,13 @@ def tp_recorded():
                              x.shape[1] if x.dim() == 4 else 0))
         return real_rn(x, w, eps, impl=impl)
 
+    def rmsnorm_split(x, w, eps, n, all_reduce, impl=None):
+        seen["rmsnorm_split"].add((x.shape[-1], n))
+        return real_split(x, w, eps, n, all_reduce, impl=impl)
+
     with mock.patch.object(fa_ops, "attention", attention), \
-            mock.patch.object(rn_ops, "rmsnorm", rmsnorm):
+            mock.patch.object(rn_ops, "rmsnorm", rmsnorm), \
+            mock.patch.object(rn_ops, "rmsnorm_split", rmsnorm_split):
         yield seen
 
 
@@ -5134,7 +5370,7 @@ def tp_leaf_err(per_rank: list, want: dict):
 
 
 def tp_counts() -> dict:
-    """This process's launches of the four kernels of the path."""
+    """This process's launches of the path's kernels."""
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.rmsnorm import kernel as rk
     return {"flash_attention": fa.flash_attention.launches,
@@ -5145,7 +5381,9 @@ def tp_counts() -> dict:
             "flash_attention_bwd": fa.flash_attention_bwd.launches,
             "flash_attention_bwd_by_route": dict(
                 fa.flash_attention_bwd.launches_by_route),
-            "rmsnorm_bwd": rk.rmsnorm_bwd.launches}
+            "rmsnorm_bwd": rk.rmsnorm_bwd.launches,
+            "rmsnorm_split": rk.rmsnorm_split.launches,
+            "rmsnorm_split_bwd": rk.rmsnorm_split_bwd.launches}
 
 
 def tp_reset_counts() -> None:
@@ -5153,6 +5391,7 @@ def tp_reset_counts() -> None:
     from repro_torch.kernels.rmsnorm import kernel as rk
     reset_counts()
     rk.rmsnorm_bwd.launches = 0
+    rk.rmsnorm_split.launches = rk.rmsnorm_split_bwd.launches = 0
     fa.flash_attention_bwd.launches = 0
     for route in fa.flash_attention_bwd.launches_by_route:
         fa.flash_attention_bwd.launches_by_route[route] = 0
@@ -5183,13 +5422,16 @@ def tp_memory(device: str) -> dict:
 
 
 def tp_config(arch: str, layers, reduced: bool):
+    """``arch`` (reduced, in bfloat16, for a rehearsal), cut to ``layers``
+    where given."""
     import torch
     from repro_torch.configs.registry import get_arch, reduced_config
     cfg = get_arch(arch)
     if reduced:
         cfg = dataclasses.replace(reduced_config(cfg), dtype=torch.bfloat16)
-    if layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if layers is not None:     # an encoder-decoder's both stacks
+        cfg = dataclasses.replace(cfg, n_layers=layers, enc_layers=min(
+            layers, cfg.enc_layers))
     return cfg
 
 
@@ -5305,8 +5547,8 @@ def tp_local_shapes(params) -> dict:
 
 def tp_train_rank(rank: int, device: str, *, layers: int, seed: int,
                   shards: int, steps: int, reduced: bool, s: int,
-                  fault: bool = False) -> dict:
-    """(p3) on one rank: qwen3-14b cut to ``layers``, its train state
+                  fault: bool = False, arch: str = TRAIN_ARCH) -> dict:
+    """(p3) and (p4) on one rank: ``arch`` (qwen3-14b) cut to ``layers``, its train state
     placed on make_host_mesh(shards), ``steps`` train steps (full remat)
     on SyntheticTokens batches → losses, grad norms, the first step's
     gradient leaves' norms, step times, launches, shapes, memory.  With
@@ -5319,7 +5561,7 @@ def tp_train_rank(rank: int, device: str, *, layers: int, seed: int,
     from repro_torch.train.step import init_state, make_train_step
     tp_free(device)
     dev = torch.device(device)
-    cfg = tp_config(TRAIN_ARCH, layers, reduced)
+    cfg = tp_config(arch, layers, reduced)
     model = build_model(cfg, remat_policy="full")
     mesh = make_host_mesh(shards, device=device)
     t0 = time.perf_counter()
@@ -5352,11 +5594,220 @@ def tp_train_rank(rank: int, device: str, *, layers: int, seed: int,
                step_s=secs, launches=launches,
                attention_shapes=sorted(seen["attention"]),
                rmsnorm_shapes=sorted(seen["rmsnorm"]),
+               rmsnorm_split_shapes=sorted(seen["rmsnorm_split"]),
                memory_placed=placed, memory=tp_memory(device))
     return out
 
 
-TP_COMMANDS = {"serve": tp_serve_rank, "train": tp_train_rank}
+
+def tp_frames(cfg):
+    """(p4)'s whisper frames (PREFILL_B, WHISPER_FRAMES, d) float32
+    (numpy, seeded): the prefill takes the first, the serve loop's cross
+    KV all of them."""
+    import numpy as np
+    return np.random.default_rng(1).standard_normal(
+        (PREFILL_B, WHISPER_FRAMES, cfg.d_model)).astype(np.float32)
+
+
+@contextlib.contextmanager
+def tp_family_fault(fault, cfg):
+    """(p4)'s planted faults (TP_FAMILY_FAULTS) in a run of ``cfg``:
+    "norm" hands the split-row RMSNorm an all-reduce that sums nothing;
+    "conv" rolls the conv's channels of the gathered packed projection by
+    one rank's block; "xattn" rolls the key/value heads of the decode
+    cross-attention by one head."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.models import layers, mamba2
+    if fault is None:
+        yield
+        return
+    if fault == "norm":
+        real = rn_ops.rmsnorm_split
+
+        def alone(x, w, eps, n, all_reduce, impl=None):
+            return real(x, w, eps, n, lambda t: t, impl=impl)
+        patch = mock.patch.object(rn_ops, "rmsnorm_split", alone)
+    elif fault == "conv":
+        real_whole = mamba2._whole
+        di, _, n = mamba2.ssm_dims(cfg)
+
+        def shifted(t, dims):
+            out = real_whole(t, dims)
+            if out.shape[-1] == di + 2 * n:         # the conv's output
+                return out
+            cw = (di + 2 * n) // (out.shape[-1] // t.to_local().shape[-1])
+            return torch.cat([out[..., :di],
+                              out[..., di:di + 2 * n].roll(-cw, -1),
+                              out[..., di + 2 * n:]], -1)
+        patch = mock.patch.object(mamba2, "_whole", shifted)
+    else:
+        real_cross = layers._cross_heads
+
+        def rolled(q, k, v, cfg_, hq, attn_impl):
+            return real_cross(q, k.roll(1, 1), v.roll(1, 1), cfg_, hq,
+                              attn_impl)
+        patch = mock.patch.object(layers, "_cross_heads", rolled)
+    with patch:
+        yield
+
+
+def tp_block_err(cache, want: dict) -> dict:
+    """Each rank-local block of the conv cache and the SSM state against
+    the same slice of the one-rank run's → name → max abs err over the
+    one-rank tensor's largest |value| (its scale)."""
+    from repro_torch.models.common import local, offset
+    out = {}
+    for name in ("conv", "state"):
+        t = cache[name]
+        lt = local(t)
+        idx = tuple(slice(offset(t, d), offset(t, d) + lt.shape[d])
+                    for d in range(lt.dim()))
+        out[name] = max_abs_err(lt.float().cpu(), want[name][idx].float()) \
+            / float(want[name].float().abs().max())
+    return out
+
+
+def tp_family_rank(rank: int, device: str, *, kind: str, arch: str, layers,
+                   seed: int, shards: int, b: int, s: int, reduced: bool,
+                   out: str, serve: bool, fault=None) -> dict:
+    """(p4) on one rank: ``arch`` placed on make_host_mesh(shards), one
+    prefill step (with whisper's frames), and with ``serve`` the serve
+    loop fed the one-rank run's tokens (whisper's cross KV filled from the
+    encoder's memory), the greedy picks read from the vocab-sharded
+    logits, and for the Mamba2 families each rank's block of the conv
+    cache and the SSM state held against the one-rank run's; rank 0 saves
+    the gathered logits to ``out``.  ``fault`` plants one of
+    TP_FAMILY_FAULTS."""
+    import torch
+    from repro_torch.launch.mesh import (axis_size, make_host_mesh, place,
+                                         place_in_turns)
+    from repro_torch.launch.serve import greedy, serve_loop
+    from repro_torch.models.common import full
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.step import make_prefill_step
+    tp_free(device)
+    dev = torch.device(device)
+    cfg = tp_config(arch, layers, reduced)
+    model = build_model(cfg)
+    mesh = make_host_mesh(shards, device=device)
+    t0 = time.perf_counter()
+    params = place_in_turns(
+        lambda: model.init(torch.Generator(device=dev).manual_seed(seed)),
+        model.param_specs(), mesh)
+    tp_sync(device)
+    place_s = time.perf_counter() - t0
+    tp_log(rank, f"placed {arch} in {place_s:.1f} s")
+    tp_free(device)
+    tokens, prompt = tp_inputs(cfg, b, s)
+    batch = {"tokens": tokens}
+    frames = None
+    if kind == "audio":
+        frames = torch.from_numpy(tp_frames(cfg)).to(dev)
+        batch["input_embeds"] = frames[:b].cpu().numpy()
+    ref = torch.load(out + ".ref", map_location="cpu") if serve else None
+    picked, whole, held = [], [], {}
+
+    def replay(logits, i):
+        picked.append(full(greedy(logits, i)))
+        whole.append(full(logits).argmax(-1))
+        return ref["tokens"][:, i].to(dev)
+
+    def place_cache(c):
+        held["cache"] = place(c, model.cache_specs(
+            model_axis=axis_size(mesh, "model")), mesh)
+        return held["cache"]
+    tp_reset_counts()
+    res = None
+    with tp_recorded() as seen, tp_family_fault(fault, cfg):
+        tp_sync(device)
+        t0 = time.perf_counter()
+        logits = make_prefill_step(model)(params, batch)
+        tp_sync(device)
+        prefill_s = time.perf_counter() - t0
+        tp_log(rank, f"{arch} prefill step in {prefill_s:.2f} s")
+        after_prefill = tp_counts()
+        if serve:
+            with (cross_kv_filled(model, params, frames) if frames is not None
+                  else contextlib.nullcontext()):
+                res = serve_loop(model, params, prompt, TP_GEN, replay,
+                                 place_cache)
+    launches = tp_counts()
+    logits = full(logits)
+    blocks = tp_block_err(held["cache"], ref["cache"]) \
+        if serve and kind in ("ssm", "hybrid") else None
+    if rank == 0:
+        torch.save({"prefill": logits.cpu(),
+                    "serve": None if res is None else res.logits.cpu(),
+                    "picked": None if res is None
+                    else torch.stack(picked, 1).cpu()}, out)
+    return dict(
+        mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), place_s=place_s,
+        prefill_s=prefill_s, prefill_launches=after_prefill,
+        launches=launches,
+        decode_s=None if res is None else res.decode_s,
+        serve_prompt_s=None if res is None else res.prefill_s,
+        greedy_picks=sum(t.numel() for t in picked),
+        greedy_not_argmax=sum(int((a != b_).sum())
+                              for a, b_ in zip(picked, whole)),
+        cache_block_err=blocks,
+        attention_shapes=sorted(seen["attention"]),
+        rmsnorm_shapes=sorted(seen["rmsnorm"]),
+        rmsnorm_split_shapes=sorted(seen["rmsnorm_split"]),
+        memory=tp_memory(device))
+
+
+def tp_family_reference(device: str, *, kind: str, arch: str, layers,
+                        seed: int, b: int, s: int, reduced: bool, out: str,
+                        serve: bool) -> dict:
+    """The one-rank run of (p4) in this process, saved to ``out``.ref: the
+    prefill's logits, and the serve loop's greedy tokens, logits and (the
+    Mamba2 families) its conv cache and SSM state."""
+    import torch
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.step import make_prefill_step
+    tp_free(device)
+    dev = torch.device(device)
+    cfg = tp_config(arch, layers, reduced)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    tokens, prompt = tp_inputs(cfg, b, s)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    frames = None
+    if kind == "audio":
+        frames = torch.from_numpy(tp_frames(cfg)).to(dev)
+        batch["input_embeds"] = frames[:b]
+    tp_sync(device)
+    t0 = time.perf_counter()
+    logits = make_prefill_step(model)(params, batch)
+    tp_sync(device)
+    prefill_s = time.perf_counter() - t0
+    res, held = None, {}
+    if serve:
+        with (cross_kv_filled(model, params, frames) if frames is not None
+              else contextlib.nullcontext()):
+            res = serve_loop(model, params, prompt, TP_GEN,
+                             place_cache=lambda c: held.setdefault("c", c))
+    ref = {"prefill": logits.cpu(),
+           "serve": None if res is None else res.logits.cpu(),
+           "tokens": None if res is None
+           else torch.cat([torch.from_numpy(prompt), res.tokens.cpu()],
+                          1)[:, TP_PROMPT:],
+           "cache": {k: held["c"][k].cpu() for k in ("conv", "state")}
+           if serve and kind in ("ssm", "hybrid") else None}
+    torch.save(ref, out + ".ref")
+    mem = tp_memory(device)
+    del params, logits, res, held
+    tp_free(device)
+    return dict(prefill_s=prefill_s, memory=mem, ref=ref)
+
+
+TP_COMMANDS = {"serve": tp_serve_rank, "train": tp_train_rank,
+               "family": tp_family_rank}
 
 
 def tp_reference_serve(device: str, *, arch: str, layers, seed: int, b: int,
@@ -5394,8 +5845,9 @@ def tp_reference_serve(device: str, *, arch: str, layers, seed: int, b: int,
 
 
 def tp_reference_train(device: str, *, layers: int, seed: int, steps: int,
-                       reduced: bool, s: int) -> dict:
-    """The one-rank run of (p3) in this process."""
+                       reduced: bool, s: int,
+                       arch: str = TRAIN_ARCH) -> dict:
+    """The one-rank run of (p3) and (p4)'s training in this process."""
     import torch
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.models.registry import build_model
@@ -5403,7 +5855,7 @@ def tp_reference_train(device: str, *, layers: int, seed: int, steps: int,
     from repro_torch.train.step import init_state, make_train_step
     tp_free(device)
     dev = torch.device(device)
-    cfg = tp_config(TRAIN_ARCH, layers, reduced)
+    cfg = tp_config(arch, layers, reduced)
     model = build_model(cfg, remat_policy="full")
     state = init_state(model, torch.Generator(device=dev).manual_seed(seed))
     ds = SyntheticTokens(cfg.vocab, s, TRAIN_B, seed=0)
@@ -5446,11 +5898,185 @@ def tp_check_launches(tag: str, per_rank: list, want: dict,
               and got["flash_attention_bwd_by_route"]["simt"] == 0,
               f"(p) {tag}: rank {r} took the SIMT route: {got}")
         for k in ("flash_attention", "flash_attention_with_stats",
-                  "rmsnorm", "flash_attention_bwd", "rmsnorm_bwd"):
+                  "rmsnorm", "flash_attention_bwd", "rmsnorm_bwd",
+                  "rmsnorm_split", "rmsnorm_split_bwd"):
             total[k] = total.get(k, 0) + got[k]
         for route, k in got["flash_attention_by_route"].items():
             total["flash_attention_by_route"][route] += k
     return total
+
+
+def tp_family_launches(kind: str, cfg, steps: int) -> dict:
+    """The launches a rank makes in (p4)'s prefill step and ``steps``
+    decode steps of ``cfg`` (whole rows, split rows, attention), none
+    backward."""
+    n = cfg.n_layers
+    out = {"flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+           "rmsnorm_split_bwd": 0}
+    if kind == "audio":
+        # the prefill, the harness's encoder run that fills the serve
+        # loop's cross KV (cross_kv_filled), the decode steps
+        e = cfg.enc_layers
+        return dict(out, rmsnorm_split=0,
+                    flash_attention=e + 2 * n + e + n * steps,
+                    rmsnorm=2 * e + 3 * n + 1 + 2 * e + (3 * n + 1) * steps)
+    sites = -(-n // cfg.attn_every) if kind == "hybrid" else 0
+    return dict(out, rmsnorm_split=n * (1 + steps), flash_attention=sites,
+                rmsnorm=(n + 2 * sites + 1) * (1 + steps))
+
+
+def tp_families(ranks, card: str, device: str, reduced: bool,
+                s_prefill: int, s_train: int):
+    """(p4) mamba2-370m, zamba2-7b (cut) and whisper-large-v3 on (1, 4)
+    against the one-rank run in this process: the prefill step's logits
+    at two weight seeds and the serve loop's at seed 0 within
+    ``AGREE_TOL_P4[kind]["ranks_vs_one_rank"]``, every greedy pick the
+    gathered argmax, each rank's block of the conv cache and the SSM
+    state within ``...["cache_blocks"]``; the planted faults
+    (TP_FAMILY_FAULTS) outside the logits limit, and the conv fault
+    outside the cache-block limit; one mamba2 train step on (1, 4) and
+    (2, 2) within TP_TRAIN_TOL; every kernel launched on every rank,
+    counted → (launches summed over the ranks by path, readings).  The
+    limits are held after every reading is taken and printed."""
+    import torch
+    paths, read, failures = {}, {}, []
+
+    def hold(cond: bool, msg: str) -> None:
+        if not cond:
+            failures.append(msg)
+    steps = TP_PROMPT + TP_GEN
+    for kind, arch, layers in TP_FAMILIES:
+        layers = None if reduced else layers
+        # whisper's decoder tokens; the Mamba2 families' prefill-only runs
+        # at TP_SHORT_S
+        s = s_prefill if reduced or kind != "audio" else WHISPER_TOKENS
+        s_short = s if reduced or kind == "audio" else TP_SHORT_S
+        cfg = tp_config(arch, layers, reduced)
+        limit = AGREE_TOL_P4[kind]["ranks_vs_one_rank"]
+        block_limit = AGREE_TOL_P4[kind].get("cache_blocks")
+        runs = [(0, True, None, s)]
+        runs += [(0, serve, f, s if serve else s_short)
+                 for f, (_, kinds, serve) in TP_FAMILY_FAULTS.items()
+                 if kind in kinds]
+        runs.append((1, False, None, s_short))
+        out = read[kind] = {"layers": cfg.n_layers, "runs": {}}
+        refs = {}           # the one-rank run of each (seed, serve, seq)
+        for seed, serve, fault, seq in runs:
+            kw = dict(kind=kind, arch=arch, layers=layers, seed=seed,
+                      b=TP_PREFILL_B, s=seq, reduced=reduced, serve=serve,
+                      out=str(TP_DIR / f"p4_{kind}_{seed}_{seq}_{serve}.pt"))
+            if (seed, serve, seq) not in refs:
+                one = tp_family_reference(device, **kw)
+                refs[seed, serve, seq] = (one, one.pop("ref"))
+            one, ref = refs[seed, serve, seq]
+            per_rank = ranks.run("family", shards=TP_RANKS, fault=fault,
+                                 **kw)
+            got = torch.load(kw["out"])
+            errs = {"prefill": tp_logit_err(got["prefill"], ref["prefill"])}
+            if serve:
+                errs["serve"] = tp_logit_err(got["serve"], ref["serve"])
+            r0 = per_rank[0]
+            tag = (f"(p4) {arch} ({cfg.n_layers} layers) S={seq} "
+                   f"seed {seed}"
+                   + (f", planted fault '{TP_FAMILY_FAULTS[fault][0]}'"
+                      if fault else ""))
+            run = out["runs"][tag[5:]] = dict(logit_err=errs, one_rank=one,
+                                              ranks=per_rank)
+            if serve:
+                run["greedy_equal_one_rank"] = int(
+                    (got["picked"] == ref["tokens"]).sum())
+            blocks = [r["cache_block_err"] for r in per_rank]
+            worst = max(max(b.values()) for b in blocks) \
+                if serve and blocks[0] else None
+            run["cache_block_err"] = worst
+            not_argmax = [r["greedy_not_argmax"] for r in per_rank]
+            log(f"{tag} on {r0['mesh']}: logits against the one-rank run "
+                f"{errs} (limit {limit}), logit scale (max |one rank|) "
+                f"{float(ref['prefill'].float().abs().max()):.3g}; "
+                + (f"conv cache and SSM state, each rank's block, {blocks} "
+                   f"(limit {block_limit}); " if worst is not None else "")
+                + (f"greedy picks unequal to the gathered argmax by rank "
+                   f"{not_argmax} of {r0['greedy_picks']}, equal to the "
+                   f"one-rank run's {run['greedy_equal_one_rank']}; "
+                   if serve else "")
+                + f"shapes: attention {r0['attention_shapes']}, RMSNorm "
+                f"{r0['rmsnorm_shapes']}, split rows "
+                f"{r0['rmsnorm_split_shapes']}; prefill "
+                f"{r0['prefill_s']:.2f} s (one rank {one['prefill_s']:.2f} s)"
+                + (f", {steps} decode steps "
+                   f"{r0['serve_prompt_s'] + r0['decode_s']:.2f} s"
+                   if serve else "") + f"; {card}")
+            if fault:
+                hold(max(errs.values()) > limit,
+                     f"{tag}: not caught, logits within {errs}")
+                if worst is not None:
+                    hold(worst > block_limit,
+                         f"{tag}: not caught, each rank's cache block within "
+                         f"{worst}")
+                continue
+            for k, v in errs.items():
+                hold(v <= limit,
+                     f"{tag}: {k} logits differ from the one-rank run by {v}")
+            if not serve:
+                continue
+            hold(all(r["greedy_picks"] == TP_GEN * PREFILL_B
+                     for r in per_rank) and not any(not_argmax),
+                 f"{tag}: greedy picks differ from the gathered argmax: "
+                 f"{not_argmax}")
+            if worst is not None:
+                hold(worst <= block_limit,
+                     f"{tag}: a rank's cache block differs by {worst} of "
+                     f"the one-rank block's largest value")
+            paths[f"(p4) {arch} prefill and serve on (1, 4)"] = \
+                tp_check_launches(tag, [r["launches"] for r in per_rank],
+                                  tp_family_launches(kind, cfg, steps),
+                                  device)
+    # one mamba2 train step on (1, 4) and (2, 2)
+    layers = 2 if reduced else TP_SSM_TRAIN_LAYERS
+    read["train"] = {}
+    for mesh_shape in ((1, TP_RANKS), (2, TP_RANKS // 2)):
+        kw = dict(arch=MAMBA_ARCH, layers=layers, seed=0, steps=1,
+                  reduced=reduced, s=s_train)
+        one = tp_reference_train(device, **kw)
+        per_rank = ranks.run("train", shards=mesh_shape[1], **kw)
+        r0 = per_rank[0]
+        loss_err = abs(r0["losses"][0] - one["losses"][0])
+        gn_err = abs(r0["grad_norms"][0] - one["grad_norms"][0]) \
+            / one["grad_norms"][0]
+        leaf_err, leaf = tp_leaf_err([r["leaf_norms"] for r in per_rank],
+                                     one["leaf_norms"])
+        tag = f"(p4) {MAMBA_ARCH} training on {mesh_shape}"
+        log(f"{tag}: {layers} layers, B={TRAIN_B} S={s_train}, mesh "
+            f"{r0['mesh']}: loss {r0['losses']} (one rank {one['losses']}),"
+            f" grad norm {r0['grad_norms']} (one rank {one['grad_norms']}); "
+            f"loss |diff| {loss_err:.4g}, grad norm relative diff "
+            f"{gn_err:.4g}, a gradient leaf's norm largest relative diff "
+            f"{leaf_err:.4g} ({leaf}) (limits {TP_TRAIN_TOL}); step s "
+            f"{[round(v, 2) for v in r0['step_s']]} (one rank "
+            f"{[round(v, 3) for v in one['step_s']]}); split rows "
+            f"{r0['rmsnorm_split_shapes']}; {card}")
+        read["train"][str(mesh_shape)] = dict(
+            one_rank=one, ranks=per_rank, first_loss_err=loss_err,
+            grad_norm_rel_err=gn_err, leaf_grad_norm_rel_err=leaf_err,
+            worst_leaf=leaf)
+        hold(all(r["losses"] == r0["losses"] for r in per_rank),
+             f"{tag}: the ranks' losses differ")
+        hold(loss_err <= TP_TRAIN_TOL["first_loss"]
+             and gn_err <= TP_TRAIN_TOL["grad_norm"]
+             and leaf_err <= TP_TRAIN_TOL["leaf_grad_norm"],
+             f"{tag}: loss |diff| {loss_err}, grad norm relative diff "
+             f"{gn_err}, gradient leaf {leaf} relative diff {leaf_err}")
+        n = layers
+        paths[tag] = tp_check_launches(tag, [r["launches"] for r in per_rank],
+                                       {"rmsnorm": 2 * n + 1,
+                                        "rmsnorm_split": 2 * n,
+                                        "rmsnorm_bwd": n + 1,
+                                        "rmsnorm_split_bwd": n,
+                                        "flash_attention": 0,
+                                        "flash_attention_bwd": 0}, device)
+    # every reading is printed before any limit fails the phase
+    check(not failures, "; ".join(failures))
+    return paths, read
 
 
 def phase_tensor_parallel(card: str, device: str = None,
@@ -5478,15 +6104,15 @@ def phase_tensor_parallel(card: str, device: str = None,
         log(f"(p) {TP_RANKS} ranks started on one {device} device over a "
             f"gloo group with {device} tensors")
         # ---- (p1) qwen3-14b at full width and depth, prefill and serve
-        kw = dict(arch=TRAIN_ARCH, layers=None, seed=0, b=TP_PREFILL_B,
-                  s=s_prefill, reduced=reduced,
+        kw = dict(arch=TRAIN_ARCH, layers=2 if reduced else TP_P1_LAYERS,
+                  seed=0, b=TP_PREFILL_B, s=s_prefill, reduced=reduced,
                   out=str(TP_DIR / "p1.pt"), serve=True)
         one = tp_reference_serve(device, **kw)
         log(f"    (p1) one-rank run: prefill {one['prefill_s']:.2f} s")
         per_rank = ranks.run("serve", shards=TP_RANKS, **kw)
         got = torch.load(kw["out"])
         ref = one.pop("ref")
-        cfg = tp_config(TRAIN_ARCH, None, reduced)
+        cfg = tp_config(TRAIN_ARCH, kw["layers"], reduced)
         n = cfg.n_layers
         errs = {"prefill": tp_logit_err(got["prefill"], ref["prefill"]),
                 "serve": tp_logit_err(got["serve"], ref["serve"])}
@@ -5502,7 +6128,7 @@ def phase_tensor_parallel(card: str, device: str = None,
                           greedy_equal=picked_same,
                           greedy_total=got["picked"].numel(),
                           greedy_not_argmax=not_argmax)
-        log(f"(p1) {TRAIN_ARCH}, {n} layers at full width, on "
+        log(f"(p1) {TRAIN_ARCH}, {n} of its 40 layers at full width, on "
             f"{per_rank[0]['mesh']}: local shards "
             f"{per_rank[0]['local_shapes']}; "
             f"attention shapes (q heads, kv heads, S, D) "
@@ -5629,6 +6255,13 @@ def phase_tensor_parallel(card: str, device: str = None,
                               f"{mesh_shape}"] = tp_check_launches(
                             tag, [r["launches"] for r in per_rank], want,
                             device)
+        # ---- (p4) the ssm, hybrid and audio families
+        t4 = time.perf_counter()
+        p4_paths, read["p4"] = tp_families(ranks, card, device, reduced,
+                                           s_prefill, s_train)
+        paths.update(p4_paths)
+        read["p4"]["seconds"] = time.perf_counter() - t4
+        log(f"(p4) took {read['p4']['seconds']:.1f} s")
     if device == "cuda":
         torch.cuda.memory._set_allocator_settings("expandable_segments:False")
     read["seconds"] = time.perf_counter() - t_phase
@@ -5853,6 +6486,7 @@ def main(argv=None) -> int:
     rms, rms_errs = phase_rmsnorm()
     took("(e)")
     fa, fa_errs, fa_shares = phase_flash_attention()
+    split_fwd = phase_rmsnorm_split(bwd=False)
     took("(f)")
     model_launches, agree_errs, prefill = phase_model()
     took("(g)")
@@ -5865,13 +6499,15 @@ def main(argv=None) -> int:
             ("moe", f"(k) {MOE_ARCH} ({MOE_LAYERS} layers)"),
             ("ssm", f"(k) {MAMBA_ARCH}"),
             ("hybrid", f"(l) {ZAMBA_ARCH} ({ZAMBA_LAYERS} layers)"),
-            ("audio", f"(l) {WHISPER_ARCH}")):
+            ("audio", f"(l) {WHISPER_ARCH} ({WHISPER_LAYERS} + "
+                      f"{WHISPER_LAYERS} layers)")):
         paths[label], families[label] = phase_family(kind, card)
         took(label)
     log("(k) and (l) readings " + json.dumps(families))
     paper_launches, paper = phase_paper_benchmarks(card)
     took("(m)")
     rms_bwd, fa_bwd, bwd_errs = phase_backward_kernels()
+    split_bwd = phase_rmsnorm_split(bwd=True)
     took("(n1)")
     train_launches, bwd_launches, train = phase_train(card)
     took("(n2)")
@@ -5897,9 +6533,13 @@ def main(argv=None) -> int:
                               for n in paths.values())
                    for route in model_launches["flash_attention_by_route"]}
     for name in ("rmsnorm", "flash_attention", "rmsnorm_bwd",
-                 "flash_attention_bwd"):
+                 "flash_attention_bwd", "rmsnorm_split",
+                 "rmsnorm_split_bwd"):
         check(sum(n[name] for n in tp_paths.values()) > 0,
               f"phase (p) never launched {name}")
+    split_by_path = {name: {label: n[name] for label, n in tp_paths.items()
+                            if n[name]}
+                     for name in ("rmsnorm_split", "rmsnorm_split_bwd")}
     for name in ("rmsnorm_bwd", "flash_attention_bwd"):
         check(bwd_launches[name] > 0, f"training never launched {name}")
     log("(n) readings " + json.dumps(train))
@@ -5928,9 +6568,10 @@ def main(argv=None) -> int:
                              "(i) serving": serving_launches,
                              "(j) verified": verified_launches,
                              "(m) paper benchmarks": paper_launches,
-                             "(p) across ranks (not on its path: the "
-                             "models' pointwise datapaths run the overlay "
-                             "DFG as torch ops)": 0},
+                             "(k), (l) and (p) models (not on their "
+                             "path: the models' pointwise datapaths, the "
+                             "Mamba2 gate among them, run the overlay DFG "
+                             "as torch ops, as the JAX package's do)": 0},
         "match": "bit-exact",
         "max_abs_err": err,
         "ms": totals["ms"],
@@ -6001,6 +6642,54 @@ def main(argv=None) -> int:
         "at_zamba2_prefill_shape": fa["zamba2_shape"],
         "at_whisper_shapes": fa["whisper_shapes"],
         "model_agreement_max_abs_err": agree_errs,
+    }, {
+        "name": "rmsnorm_split",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm/kernel.py:38 (its rows "
+                    "split over 'model': Mamba2's gated norm, whose sum of "
+                    "squares the reference's XLA all-reduces)",
+        "launches": sum(split_by_path["rmsnorm_split"].values()),
+        "launches_by_path": split_by_path["rmsnorm_split"],
+        "kernel_launches_per_call": 2,
+        "match": "elementwise within tol + tol |plain| of the plain "
+                 "version (tol 1e-4 float32, 3e-2 bfloat16), rows of 2048 "
+                 "and 7168 in 4 blocks; the planted fault (n a block's "
+                 "width) caught",
+        "max_abs_err": max(split_fwd["errs"].values()),
+        "errs": split_fwd["errs"],
+        "planted_fault_errs": split_fwd["planted_fault_errs"],
+        "ms": split_fwd["ms"],
+        "plain_ms": split_fwd["plain_ms"],
+        "bound_ms": split_fwd["bound_ms"],
+        "bound_by": "bytes" if split_fwd["byte_ms"] >= split_fwd["op_ms"]
+                    else "operations",
+        "library_ms": None,
+        "per": split_fwd["per"],
+    }, {
+        "name": "rmsnorm_split_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm/kernel.py:38 (backward of "
+                    "the split rows; no Pallas counterpart: the JAX package "
+                    "differentiates its plain version)",
+        "launches": sum(split_by_path["rmsnorm_split_bwd"].values()),
+        "launches_by_path": split_by_path["rmsnorm_split_bwd"],
+        "kernel_launches_per_call": 3,
+        "match": "dx and dw elementwise within tol + tol |plain| of the "
+                 "plain backward (tol 1e-4 float32, 3e-2 bfloat16; dw sums "
+                 "16,384 rows, so its largest values reach the hundreds); "
+                 "the planted fault caught",
+        "max_abs_err": max(split_bwd["errs"].values()),
+        "errs": split_bwd["errs"],
+        "planted_fault_errs": split_bwd["planted_fault_errs"],
+        "ms": split_bwd["ms"],
+        "plain_ms": split_bwd["plain_ms"],
+        "bound_ms": split_bwd["bound_ms"],
+        "bound_by": "bytes" if split_bwd["byte_ms"] >= split_bwd["op_ms"]
+                    else "operations",
+        "library_ms": None,
+        "per": split_bwd["per"],
     }, {
         "name": "rmsnorm_bwd",
         "route": "cuda",

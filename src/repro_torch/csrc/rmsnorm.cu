@@ -1042,3 +1042,257 @@ extern "C" int rmsnorm_bwd_blocks_per_sm(int dtype, int kind, int map,
                                         stages, d, blocks_per_sm);
   return (int)cudaErrorInvalidValue;
 }
+
+// ------------------------------------------------------------ split rows
+//
+// A row cut into column blocks, one a rank: Mamba2's gated norm runs over
+// the inner width, which 'model' shards, so a rank holds d = n / tp columns
+// of each row of n.  The norm then takes three steps, the middle one a
+// collective the caller makes (an all-reduce of one float32 a row):
+//   1. `rmsnorm_split_rows` writes the block's partial sum of each row,
+//      sum(x^2) (forward) or sum(w * dy * x) (backward), in float32;
+//   2. the partials are summed over the ranks, the row's total;
+//   3. `rmsnorm_split_apply` writes y = (x * inv) * w with
+//      inv = 1 / sqrt(total / n + eps), n the whole row's width, in float32
+//      rounded once; the backward's `rmsnorm_split_dx` writes
+//      dx = (w * dy) * inv - x * (inv^3 * dot / n) and each chunk of rows'
+//      partial dw = sum(dy * x * inv), which `rmsnorm_split_dw` sums over
+//      the chunks in chunk order (bit-equal run to run).
+// Rows are contiguous (n_rows x d).  Simple SIMT kernels: a warp a row for
+// the sums, one 16-byte vector (or one element where the rows are not
+// whole vectors) a thread for the apply, a thread a column for dx and dw.
+// Each reads its inputs once and writes its output once: bound by device
+// memory.  Plain versions: ref.py's split_sumsq, split_dot, rmsnorm_split
+// and rmsnorm_split_bwd.
+
+namespace {
+
+constexpr int SPLIT_BLOCK = 256;
+
+// mode 0: sum(x^2); mode 1: sum(w * dy * x); one warp a row
+template <typename T, int VEC, int MODE>
+__global__ void __launch_bounds__(SPLIT_BLOCK) rmsnorm_split_rows(
+    const T* __restrict__ x, const T* __restrict__ w,
+    const T* __restrict__ dy, float* __restrict__ out, long long n_rows,
+    int d) {
+  using P = Pack<T, VEC>;
+  const int lane = threadIdx.x % 32;
+  const long long row =
+      (long long)blockIdx.x * (SPLIT_BLOCK / 32) + threadIdx.x / 32;
+  if (row >= n_rows) return;
+  const int nv = d / VEC;
+  const P* xr = reinterpret_cast<const P*>(x + row * d);
+  const P* gr = reinterpret_cast<const P*>(dy + (MODE ? row * d : 0));
+  const P* wr = reinterpret_cast<const P*>(w);
+  float s = 0.0f;
+  for (int v = lane; v < nv; v += 32) {
+    const P p = xr[v];
+    if (MODE == 0) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float f = to_f(p.v[j]);
+        s = fmaf(f, f, s);
+      }
+    } else {
+      const P g = gr[v], wp = wr[v];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        s = fmaf(to_f(wp.v[j]) * to_f(g.v[j]), to_f(p.v[j]), s);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane == 0) out[row] = s;
+}
+
+// y = (x * inv) * w, a vector of VEC elements a thread, grid-stride
+template <typename T, int VEC>
+__global__ void __launch_bounds__(SPLIT_BLOCK) rmsnorm_split_apply(
+    const T* __restrict__ x, const T* __restrict__ w,
+    const float* __restrict__ total, T* __restrict__ y, long long n_rows,
+    int d, int n, float eps) {
+  using P = Pack<T, VEC>;
+  const int nv = d / VEC;
+  const long long count = n_rows * nv;
+  const P* xp = reinterpret_cast<const P*>(x);
+  const P* wp = reinterpret_cast<const P*>(w);
+  P* yp = reinterpret_cast<P*>(y);
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < count; i += (long long)gridDim.x * blockDim.x) {
+    const long long row = i / nv;
+    const float inv = 1.0f / sqrtf(total[row] / (float)n + eps);
+    const P p = xp[i], q = wp[i - row * nv];
+    P o;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      o.v[j] = from_f<T>((to_f(p.v[j]) * inv) * to_f(q.v[j]));
+    yp[i] = o;
+  }
+}
+
+// dx of rows [blockIdx.y * chunk, ...) at column c, and the chunk's partial
+// dw of column c in partial[blockIdx.y * d + c]
+template <typename T>
+__global__ void __launch_bounds__(SPLIT_BLOCK) rmsnorm_split_dx(
+    const T* __restrict__ x, const T* __restrict__ w,
+    const T* __restrict__ dy, const float* __restrict__ total,
+    const float* __restrict__ dot, T* __restrict__ dx,
+    float* __restrict__ partial, long long n_rows, int d, int n, float eps,
+    int chunk) {
+  const int c = blockIdx.x * SPLIT_BLOCK + threadIdx.x;
+  if (c >= d) return;
+  const long long r0 = (long long)blockIdx.y * chunk;
+  const long long r1 = min(n_rows, r0 + chunk);
+  const float wc = to_f(w[c]);
+  float acc = 0.0f;
+  for (long long r = r0; r < r1; ++r) {
+    const float inv = 1.0f / sqrtf(total[r] / (float)n + eps);
+    const float xv = to_f(x[r * d + c]), g = to_f(dy[r * d + c]);
+    dx[r * d + c] =
+        from_f<T>(wc * g * inv - xv * (inv * inv * inv * dot[r] / (float)n));
+    acc = fmaf(g * xv, inv, acc);
+  }
+  partial[(long long)blockIdx.y * d + c] = acc;
+}
+
+// dw[c] = the chunks' partials of column c summed in chunk order
+template <typename T>
+__global__ void __launch_bounds__(SPLIT_BLOCK) rmsnorm_split_dw(
+    const float* __restrict__ partial, T* __restrict__ dw, int d,
+    int chunks) {
+  const int c = blockIdx.x * SPLIT_BLOCK + threadIdx.x;
+  if (c >= d) return;
+  float s = 0.0f;
+  for (int k = 0; k < chunks; ++k) s += partial[(long long)k * d + c];
+  dw[c] = from_f<T>(s);
+}
+
+template <typename T>
+int split_rows(const void* x, const void* w, const void* dy, float* out,
+               long long n_rows, int d, int vec, int mode, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const T* gt = static_cast<const T*>(dy);
+  const long long grid = (n_rows + SPLIT_BLOCK / 32 - 1) / (SPLIT_BLOCK / 32);
+  if (grid > INT32_MAX || (vec != 1 && vec != V) || d % vec ||
+      (mode != 0 && mode != 1))
+    return (int)cudaErrorInvalidValue;
+  if (vec == V) {
+    if (mode == 0)
+      rmsnorm_split_rows<T, V, 0><<<(int)grid, SPLIT_BLOCK, 0, s>>>(
+          xt, wt, gt, out, n_rows, d);
+    else
+      rmsnorm_split_rows<T, V, 1><<<(int)grid, SPLIT_BLOCK, 0, s>>>(
+          xt, wt, gt, out, n_rows, d);
+  } else {
+    if (mode == 0)
+      rmsnorm_split_rows<T, 1, 0><<<(int)grid, SPLIT_BLOCK, 0, s>>>(
+          xt, wt, gt, out, n_rows, d);
+    else
+      rmsnorm_split_rows<T, 1, 1><<<(int)grid, SPLIT_BLOCK, 0, s>>>(
+          xt, wt, gt, out, n_rows, d);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int split_apply(const void* x, const void* w, const float* total, void* y,
+                long long n_rows, int d, int n, float eps, int vec, int grid,
+                cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  T* yt = static_cast<T*>(y);
+  if (grid <= 0 || (vec != 1 && vec != V) || d % vec)
+    return (int)cudaErrorInvalidValue;
+  if (vec == V)
+    rmsnorm_split_apply<T, V><<<grid, SPLIT_BLOCK, 0, s>>>(
+        xt, wt, total, yt, n_rows, d, n, eps);
+  else
+    rmsnorm_split_apply<T, 1><<<grid, SPLIT_BLOCK, 0, s>>>(
+        xt, wt, total, yt, n_rows, d, n, eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int split_bwd(const void* x, const void* w, const void* dy,
+              const float* total, const float* dot, void* dx, void* dw,
+              float* partial, long long n_rows, int d, int n, float eps,
+              int chunk, cudaStream_t s) {
+  if (chunk <= 0) return (int)cudaErrorInvalidValue;
+  const long long chunks = (n_rows + chunk - 1) / chunk;
+  if (chunks > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((d + SPLIT_BLOCK - 1) / SPLIT_BLOCK, (unsigned)chunks);
+  rmsnorm_split_dx<T><<<grid, SPLIT_BLOCK, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(dy), total, dot, static_cast<T*>(dx), partial,
+      n_rows, d, n, eps, chunk);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  rmsnorm_split_dw<T><<<(d + SPLIT_BLOCK - 1) / SPLIT_BLOCK, SPLIT_BLOCK, 0,
+                        s>>>(partial, static_cast<T*>(dw), d, (int)chunks);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The split row's partial sums: mode 0 writes each row's sum(x^2), mode 1
+// its sum(w * dy * x), float32, into `out` (n_rows); x and dy are
+// (n_rows, d) contiguous, w is (d,); `vec` is 16 / sizeof(dtype) where
+// every pointer starts on 16 bytes and d is whole vectors, else 1.
+extern "C" int rmsnorm_split_rows_launch(const void* x, const void* w,
+                                         const void* dy, void* out,
+                                         long long n_rows, int d, int dtype,
+                                         int vec, int mode,
+                                         void* stream_ptr) {
+  cudaStream_t s = (cudaStream_t)stream_ptr;
+  float* o = static_cast<float*>(out);
+  if (n_rows <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return split_rows<float>(x, w, dy, o, n_rows, d, vec, mode,
+                                           s);
+  if (dtype == 1)
+    return split_rows<__nv_bfloat16>(x, w, dy, o, n_rows, d, vec, mode, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// y (n_rows, d) = x normed by each row's `total` (float32, summed over the
+// whole row of `n`) times w; `grid` blocks of 256 threads walk the vectors.
+extern "C" int rmsnorm_split_apply_launch(const void* x, const void* w,
+                                          const void* total, void* y,
+                                          long long n_rows, int d, int n,
+                                          float eps, int dtype, int vec,
+                                          int grid, void* stream_ptr) {
+  cudaStream_t s = (cudaStream_t)stream_ptr;
+  const float* t = static_cast<const float*>(total);
+  if (n_rows <= 0 || d <= 0 || n < d) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return split_apply<float>(x, w, t, y, n_rows, d, n, eps, vec, grid, s);
+  if (dtype == 1)
+    return split_apply<__nv_bfloat16>(x, w, t, y, n_rows, d, n, eps, vec,
+                                      grid, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split row's backward: dx (n_rows, d) and dw (d,) from x, w, dy and
+// the rows' `total` and `dot` (float32, summed over the whole row of `n`);
+// `partial` is float32 scratch of ceil(n_rows / chunk) x d.  Two launches.
+extern "C" int rmsnorm_split_bwd_launch(const void* x, const void* w,
+                                        const void* dy, const void* total,
+                                        const void* dot, void* dx, void* dw,
+                                        void* partial, long long n_rows,
+                                        int d, int n, float eps, int dtype,
+                                        int chunk, void* stream_ptr) {
+  cudaStream_t s = (cudaStream_t)stream_ptr;
+  const float* t = static_cast<const float*>(total);
+  const float* g = static_cast<const float*>(dot);
+  float* p = static_cast<float*>(partial);
+  if (n_rows <= 0 || d <= 0 || n < d) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return split_bwd<float>(x, w, dy, t, g, dx, dw, p, n_rows, d, n, eps,
+                            chunk, s);
+  if (dtype == 1)
+    return split_bwd<__nv_bfloat16>(x, w, dy, t, g, dx, dw, p, n_rows, d, n,
+                                    eps, chunk, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -25,6 +25,15 @@ device.  Each library is built at its first launch
 (:class:`repro_torch.cuda_build.CudaLibrary`).  :func:`launch_plan` and
 :func:`bwd_plan` decide how the kernels split the rows; the CPU tests
 check them.
+
+:func:`rmsnorm_split` norms a row cut into column blocks, one a rank
+(Mamba2's gated norm over the inner width on 'model'): a launch writes
+the block's partial ``Σx²`` of each row, the caller's ``all_reduce`` sums
+the partials over the ranks, and a second launch applies the whole row's
+mean; its backward (:func:`rmsnorm_split_bwd`) does the same with
+``Σ(w·dy·x)``.  The device decides as for :func:`rmsnorm`, and
+``rmsnorm_split.launches`` / ``rmsnorm_split_bwd.launches`` count the
+calls that took the kernels.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -51,7 +60,15 @@ LIBRARY = CudaLibrary("rmsnorm", {
         [_P] * 6 + [_LL, _I, _LL, _LL, ctypes.POINTER(_LL), ctypes.c_float]
         + [_I] * 11 + [_P], ctypes.c_int),
     "rmsnorm_bwd_blocks_per_sm": (
-        [_I] * 9 + [ctypes.POINTER(_I)], ctypes.c_int)})
+        [_I] * 9 + [ctypes.POINTER(_I)], ctypes.c_int),
+    "rmsnorm_split_rows_launch": (
+        [_P] * 4 + [_LL, _I, _I, _I, _I, _P], ctypes.c_int),
+    "rmsnorm_split_apply_launch": (
+        [_P] * 4 + [_LL, _I, _I, ctypes.c_float, _I, _I, _I, _P],
+        ctypes.c_int),
+    "rmsnorm_split_bwd_launch": (
+        [_P] * 8 + [_LL, _I, _I, ctypes.c_float, _I, _I, _P],
+        ctypes.c_int)})
 
 # dtype codes of the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -587,3 +604,174 @@ def _launch_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
 
 
 rmsnorm_bwd.launches = 0
+
+
+# ----------------------------------------------------------- split rows
+
+# the chunk of rows a block of the split backward walks for dx and its
+# partial dw, at least SPLIT_CHUNK and few enough for SPLIT_MAX_CHUNKS
+SPLIT_CHUNK, SPLIT_MAX_CHUNKS = 32, 1024
+
+
+def _split_args(x: torch.Tensor, weight: torch.Tensor, what: str):
+    """x's rows contiguous, the vector width the kernels can take, x's
+    row count and width; raises for operands no split kernel takes."""
+    if x.dtype not in DTYPES or weight.dtype != x.dtype:
+        raise ValueError(f"{what}: x and weight must both be float32 or "
+                         f"both bfloat16, got {x.dtype} and {weight.dtype}")
+    if tuple(weight.shape) != (x.shape[-1],):
+        raise ValueError(f"{what}: weight {tuple(weight.shape)} does not "
+                         f"match x {tuple(x.shape)}")
+    x = x.contiguous()
+    d = x.shape[-1]
+    return x, d, x.numel() // max(d, 1)
+
+
+def _split_vec(d: int, *ts: torch.Tensor) -> int:
+    vec = 16 // ts[0].element_size()
+    ok = d % vec == 0 and all(t.data_ptr() % 16 == 0 for t in ts)
+    return vec if ok else 1
+
+
+def split_row_sums(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
+                   dy: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The block's partial sum of each row on the card, float32 of x's
+    shape without its last dimension: ``Σx²``, or with ``weight`` and
+    ``dy`` ``Σ(w·dy·x)``.  One launch."""
+    w = weight if weight is not None else x.new_empty((x.shape[-1],))
+    x, d, n_rows = _split_args(x, w, "split row sums")
+    mode = 0 if dy is None else 1
+    g = x if dy is None else dy.contiguous()
+    out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    if n_rows == 0 or d == 0:
+        return out.zero_()
+    vec = _split_vec(d, x, w, g)
+    with torch.cuda.device(x.device):
+        err = LIBRARY.get().rmsnorm_split_rows_launch(
+            x.data_ptr(), w.data_ptr(), g.data_ptr(), out.data_ptr(),
+            n_rows, d, DTYPES[x.dtype], vec, mode,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    LIBRARY.check(err, "rmsnorm split row sums")
+    return out
+
+
+def split_apply(x: torch.Tensor, weight: torch.Tensor, total: torch.Tensor,
+                n: int, eps: float) -> torch.Tensor:
+    """The block ``x`` normed by its rows' ``total`` (``Σx²`` of the whole
+    row of ``n``) times ``weight``, on the card.  One launch."""
+    x, d, n_rows = _split_args(x, weight, "split apply")
+    total = total.contiguous()
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if n_rows == 0 or d == 0:
+        return y
+    vec = _split_vec(d, x, weight, y)
+    grid = max(1, min(-(-n_rows * d // vec // 256),
+                      _sm_count(x.device) * 16))
+    with torch.cuda.device(x.device):
+        err = LIBRARY.get().rmsnorm_split_apply_launch(
+            x.data_ptr(), weight.data_ptr(), total.data_ptr(), y.data_ptr(),
+            n_rows, d, n, float(eps), DTYPES[x.dtype], vec, grid,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    LIBRARY.check(err, "rmsnorm split apply")
+    return y
+
+
+def split_bwd_apply(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                    total: torch.Tensor, dot: torch.Tensor, n: int,
+                    eps: float):
+    """dx of the block and dw of its columns (summed over its rows) from
+    the rows' ``total`` and ``dot`` over the whole row of ``n``, on the
+    card.  Two launches: dx with each chunk's partial dw, then dw."""
+    x, d, n_rows = _split_args(x, weight, "split backward")
+    dy, total, dot = dy.contiguous(), total.contiguous(), dot.contiguous()
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    dw = torch.empty((d,), dtype=weight.dtype, device=x.device)
+    if n_rows == 0 or d == 0:
+        return dx, dw.zero_()
+    chunk = max(SPLIT_CHUNK, -(-n_rows // SPLIT_MAX_CHUNKS))
+    partial = torch.empty((-(-n_rows // chunk), d), dtype=torch.float32,
+                          device=x.device)
+    with torch.cuda.device(x.device):
+        err = LIBRARY.get().rmsnorm_split_bwd_launch(
+            x.data_ptr(), weight.data_ptr(), dy.data_ptr(), total.data_ptr(),
+            dot.data_ptr(), dx.data_ptr(), dw.data_ptr(), partial.data_ptr(),
+            n_rows, d, n, float(eps), DTYPES[x.dtype], chunk,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    LIBRARY.check(err, "rmsnorm split backward")
+    return dx, dw
+
+
+def rmsnorm_split(x: torch.Tensor, weight: torch.Tensor, eps: float, n: int,
+                  all_reduce: Callable[[torch.Tensor], torch.Tensor],
+                  impl: Optional[str] = None) -> torch.Tensor:
+    """RMSNorm of the column block ``x`` (..., d) of rows of ``n``
+    elements, the block's ``weight`` (d,): ``all_reduce`` sums a float32
+    tensor of one value a row over the blocks (the ranks).  → the block
+    of the normed rows, x's shape and dtype.  Differentiable; the device
+    decides as in :func:`rmsnorm` (``impl`` None, "ref" or "kernel")."""
+    if impl not in (None, "ref", "kernel"):
+        raise ValueError(f"unknown rmsnorm impl {impl!r}")
+    if weight.device != x.device:
+        raise ValueError(f"x on {x.device}, weight on {weight.device}")
+    _split_args(x, weight, "rmsnorm_split")
+    kernel = impl != "ref" and _on_kernel_device(x, impl)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return _RMSNormSplit.apply(x, weight, eps, n, all_reduce, kernel)
+    return _split_forward(x, weight, eps, n, all_reduce, kernel)[0]
+
+
+rmsnorm_split.launches = 0
+
+
+def _split_forward(x, weight, eps, n, all_reduce, kernel: bool):
+    """→ (y, the rows' totals): the kernels, or the plain versions."""
+    if not kernel:
+        total = all_reduce(ref.split_sumsq(x))
+        return ref.rmsnorm_split(x, weight, total, n, eps), total
+    total = all_reduce(split_row_sums(x))
+    y = split_apply(x, weight, total, n, eps)
+    rmsnorm_split.launches += 1
+    return y, total
+
+
+def rmsnorm_split_bwd(x: torch.Tensor, weight: torch.Tensor,
+                      dy: torch.Tensor, total: torch.Tensor, eps: float,
+                      n: int, all_reduce: Callable[[torch.Tensor],
+                                                   torch.Tensor],
+                      kernel: Optional[bool] = None):
+    """The gradients of :func:`rmsnorm_split` given its rows' ``total`` →
+    (dx of the block, dw of the block's columns over this rank's rows):
+    the rows' ``Σ(w·dy·x)`` summed by ``all_reduce``, then dx and dw.  The
+    kernels on a CUDA tensor, the plain versions on a CPU one."""
+    if kernel is None:
+        kernel = _on_kernel_device(x, None)
+    if not kernel:
+        dot = all_reduce(ref.split_dot(x, weight, dy))
+        return ref.rmsnorm_split_bwd(x, weight, dy, total, dot, n, eps)
+    dot = all_reduce(split_row_sums(x, weight, dy))
+    out = split_bwd_apply(x, weight, dy, total, dot, n, eps)
+    rmsnorm_split_bwd.launches += 1
+    return out
+
+
+rmsnorm_split_bwd.launches = 0
+
+
+class _RMSNormSplit(torch.autograd.Function):
+    """The split row's forward and backward of one route: the kernels on
+    a CUDA tensor, the plain versions on a CPU one (or asked for)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps, n, all_reduce, kernel):
+        y, total = _split_forward(x, weight, eps, n, all_reduce, kernel)
+        ctx.save_for_backward(x, weight, total)
+        ctx.eps, ctx.n, ctx.all_reduce, ctx.kernel = eps, n, all_reduce, \
+            kernel
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, total = ctx.saved_tensors
+        dx, dw = rmsnorm_split_bwd(x, weight, dy, total, ctx.eps, ctx.n,
+                                   ctx.all_reduce, kernel=ctx.kernel)
+        return dx, dw, None, None, None, None

@@ -34,3 +34,47 @@ def rmsnorm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
     dx = gw * inv - xf * c
     dw = (gf * xf * inv).reshape(-1, d).sum(dim=0)
     return dx.to(x.dtype), dw.to(weight.dtype)
+
+
+# ------------------------------------------------------------ split rows
+# A row cut into column blocks, one a rank (Mamba2's gated norm over the
+# inner width on 'model'): each block's partial sum is taken alone, the
+# partials are summed across the blocks (an all-reduce), and the block is
+# normed with the whole row's mean.  ``n`` is the whole row's width.
+
+def split_sumsq(x: torch.Tensor) -> torch.Tensor:
+    """The block's partial ``Σx²`` of each row, float32, x's shape
+    without its last dimension."""
+    xf = x.float()
+    return (xf * xf).sum(dim=-1)
+
+
+def rmsnorm_split(x: torch.Tensor, weight: torch.Tensor, total: torch.Tensor,
+                  n: int, eps: float = 1e-6) -> torch.Tensor:
+    """The block ``x`` (..., d) of rows of ``n`` normed by the row's
+    ``total`` (``Σx²`` over the whole row, float32), times the block's
+    ``weight`` (d,), in float32, rounded once to x's dtype."""
+    inv = (total[..., None] / n + eps) ** -0.5
+    return (x.float() * inv * weight.float()).to(x.dtype)
+
+
+def split_dot(x: torch.Tensor, weight: torch.Tensor,
+              dy: torch.Tensor) -> torch.Tensor:
+    """The block's partial ``Σ(w·dy·x)`` of each row, float32."""
+    return (dy.float() * weight.float() * x.float()).sum(dim=-1)
+
+
+def rmsnorm_split_bwd(x: torch.Tensor, weight: torch.Tensor,
+                      dy: torch.Tensor, total: torch.Tensor,
+                      dot: torch.Tensor, n: int, eps: float = 1e-6):
+    """The gradients of :func:`rmsnorm_split` on the block, given the
+    row's ``total`` and ``dot`` (both summed over the whole row) → (dx of
+    the block, dw of the block's columns summed over this block's rows).
+    With ``r = (total/n + eps)^-1/2``: ``dx = w·dy·r − x·r³·dot/n``,
+    ``dw = Σ_rows dy·x·r``, in float32."""
+    d = x.shape[-1]
+    xf, gf = x.float(), dy.float()
+    inv = (total[..., None] / n + eps) ** -0.5
+    dx = gf * weight.float() * inv - xf * (inv ** 3 * dot[..., None] / n)
+    dw = (gf * xf * inv).reshape(-1, d).sum(dim=0)
+    return dx.to(x.dtype), dw.to(weight.dtype)

@@ -50,10 +50,8 @@ of the traced step (its state built and placed included) and
 is ``MemTracker``'s peak, ``output_bytes`` the step's results on the
 rank.
 
-The ssm, hybrid and audio families raise on a model axis above 1
-(:func:`repro_torch.launch.mesh.check_family`): their cells are error
-rows, and ``--all`` then exits 1, as the JAX package's does for any cell
-that raises.  Importing this module starts no process group: the world
+A cell that raises is an error row, and ``--all`` then exits 1, as the
+JAX package's does.  Importing this module starts no process group: the world
 starts in :func:`main` and :func:`dryrun_cell` (:func:`fake_world`), and
 neither runs beside a group that is not fake.
 """
@@ -79,7 +77,7 @@ from torch.utils._pytree import tree_flatten
 from repro_torch.configs.registry import (ALL_ARCHS, SHAPES, get_arch,
                                           shape_applicable)
 from repro_torch.launch import roofline as rl
-from repro_torch.launch.mesh import (check_family, make_production_mesh,
+from repro_torch.launch.mesh import (check_widths, make_production_mesh,
                                      place)
 from repro_torch.models.registry import (build_model, input_shardings,
                                          input_specs)
@@ -309,7 +307,7 @@ def dryrun_cell(arch: str, shape: str, multi_pod: bool = False,
     with fake_world(512 if multi_pod else 256):
         mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
         n_dev = mesh.size()
-        check_family(cfg.family, mesh)
+        check_widths(cfg, mesh)
         opts = dict(remat_policy=remat, attn_impl=attn_impl,
                     ssd_dtype=ssd_dtype, moe_grouped=moe_grouped,
                     parallel_block=parallel_block)
@@ -357,7 +355,7 @@ def host_cell(cfg, seq: int, batch: int, kind: str,
     with fake_world(n):
         mesh = DeviceMesh("cpu", torch.arange(n).reshape(mesh_shape),
                           mesh_dim_names=("data", "model"))
-        check_family(cfg.family, mesh)
+        check_widths(cfg, mesh)
         model = build_model(cfg, remat_policy=remat, attn_impl="ref")
         tr = trace_cell(cfg, model, seq, batch, kind, mesh,
                         grad_accum=grad_accum)

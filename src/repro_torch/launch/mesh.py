@@ -10,9 +10,8 @@ JAX package's is on one device.
 :func:`place` puts a tree of tensors on a mesh by its specs: plain tensors
 on the mesh's device where every axis has size 1, else a DTensor for every
 leaf (see the DTensor seams of :mod:`repro_torch.models.common`);
-:func:`full_tree` gathers them back whole.  The ssm, hybrid and audio families shard the SSM inner
-width, which waits for its own slice (:data:`SSM_MODEL_AXIS_ITEM`):
-:func:`check_family` raises for them on a mesh axis above 1.
+:func:`full_tree` gathers them back whole.  :func:`check_widths` refuses
+a Mamba2 block whose widths 'model' does not divide, naming the width.
 
 Functions, so importing this module starts no process group.  Where none
 exists, :func:`make_host_mesh` starts a group of one rank (NCCL on a CUDA
@@ -44,13 +43,6 @@ from repro_torch.models.common import full
 PEAK_FLOPS_BF16 = 989e12        # FLOP/s
 HBM_BW = 3.35e12                # B/s
 ICI_BW = 450e9                  # B/s per direction of the card's NVLink
-
-# the families whose specs shard the SSM inner width (mamba_specs), and
-# the ROADMAP.md item their model axis waits for
-DEFERRED_FAMILIES = ("ssm", "hybrid", "audio")
-SSM_MODEL_AXIS_ITEM = ("a mesh axis above 1 for the ssm, hybrid and audio "
-                       "families waits for 'the model axis of the ssm, "
-                       "hybrid and audio families' in ROADMAP.md section 1")
 
 
 def _start_one_rank(device: torch.device) -> None:
@@ -121,14 +113,24 @@ def is_sharded(mesh: DeviceMesh) -> bool:
     return mesh.size() > 1
 
 
-def check_family(family: str, mesh: DeviceMesh) -> None:
-    """Raise NotImplementedError, naming the ROADMAP.md item, for a family
-    whose model axis is not ported yet on a mesh with an axis above 1."""
-    if family in DEFERRED_FAMILIES and is_sharded(mesh):
-        raise NotImplementedError(
-            f"family {family!r} on mesh "
-            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}: "
-            f"{SSM_MODEL_AXIS_ITEM}")
+def check_widths(cfg, mesh: DeviceMesh) -> None:
+    """Raise ValueError, naming the width, where a Mamba2 block of ``cfg``
+    (the ssm and hybrid families) has heads, conv channels or a packed
+    projection that the mesh's 'model' axis does not divide: each rank
+    takes whole heads, a block of the conv's channels and a block of the
+    packed columns (:func:`repro_torch.models.mamba2.mamba_block`)."""
+    if cfg.family not in ("ssm", "hybrid") or \
+            "model" not in (mesh.mesh_dim_names or ()):
+        return
+    tp = axis_size(mesh, "model")
+    di = cfg.ssm_expand * cfg.d_model
+    h, n = di // cfg.ssm_head_dim, cfg.ssm_state
+    for what, width in (("heads", h), ("conv channels di + 2n", di + 2 * n),
+                        ("packed projection 2di + 2n + h",
+                         2 * di + 2 * n + h)):
+        if width % tp:
+            raise ValueError(f"{cfg.arch_id}: {what} = {width} does not "
+                             f"divide over 'model' = {tp}")
 
 
 def placements(spec, mesh: DeviceMesh, path: str = "") -> tuple:

@@ -47,7 +47,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.registry import ALL_ARCHS, get_arch, reduced_config
 from repro_torch.device import DeviceLike, target_device
-from repro_torch.launch.mesh import (axis_size, check_family, make_host_mesh,
+from repro_torch.launch.mesh import (axis_size, check_widths, make_host_mesh,
                                      place, place_in_turns)
 from repro_torch.models import common as dt
 from repro_torch.models.registry import build_model
@@ -166,7 +166,7 @@ def _legacy_run(args, device: torch.device) -> ServeResult:
         cfg = reduced_config(cfg)
     model = build_model(cfg)
     mesh = make_host_mesh(getattr(args, "model_shards", 1), device)
-    check_family(cfg.family, mesh)
+    check_widths(cfg, mesh)
     params = place_in_turns(
         lambda: model.init(torch.Generator(device=device).manual_seed(0)),
         model.param_specs(), mesh)

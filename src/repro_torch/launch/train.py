@@ -17,7 +17,8 @@ needs 256 ranks).  The parameters are placed on it by ``param_specs``
 (the ranks drawing in turns), the optimizer's state beside them, and each
 batch by ``input_shardings``: on a mesh axis above 1 every leaf is a
 DTensor (tensor and expert parallelism on 'model', data parallelism on
-'data'), and the ssm, hybrid and audio families raise.  Rank 0 alone
+'data'), every family included (a Mamba2 block whose widths 'model'
+does not divide raises, naming the width).  Rank 0 alone
 prints and writes the checkpoints.  Where no process group exists, the
 driver starts one of one rank and ends it on its way out.  The CPU is for
 the tests: ``main(argv, device="cpu")`` on every rank.
@@ -37,7 +38,7 @@ import torch.distributed as dist
 from repro_torch.configs.registry import ALL_ARCHS, get_arch, reduced_config
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.device import DeviceLike, target_device
-from repro_torch.launch.mesh import (check_family, make_host_mesh,
+from repro_torch.launch.mesh import (check_widths, make_host_mesh,
                                      make_production_mesh, mesh_device)
 from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import AdamWConfig
@@ -81,7 +82,7 @@ def _run(args, dev: torch.device) -> Dict[str, Any]:
     model = build_model(cfg, remat_policy=args.remat)
     mesh = (make_production_mesh(device=dev) if args.production_mesh
             else make_host_mesh(args.model_shards, dev))
-    check_family(cfg.family, mesh)
+    check_widths(cfg, mesh)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(1, args.steps // 10),
                           total_steps=args.steps)
     gen = torch.Generator(device=dev).manual_seed(0)

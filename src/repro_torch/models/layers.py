@@ -35,14 +35,24 @@ from repro_torch.models.common import ArchConfig, P, dense_init, spec
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
             impl: Optional[str] = None) -> torch.Tensor:
-    """The RMSNorm kernel's dispatch; a DTensor ``x`` (rows whole on every
-    rank) is normed shard by shard, the weight's gradient a partial sum
-    wherever ``x`` is sharded."""
-    y = rn_ops.rmsnorm(dt.local(x), dt.local_weight(weight, x), eps,
-                       impl=impl)
+    """The RMSNorm kernel's dispatch; a DTensor ``x`` with rows whole on
+    every rank is normed shard by shard, the weight's gradient a partial
+    sum wherever ``x`` is sharded.  A DTensor ``x`` whose last dimension
+    is sharded (Mamba2's gated norm, the inner width on 'model', its
+    weight sharded alike) takes the split-row mode: each rank's partial
+    ``Σx²`` of a row is all-reduced over those mesh dimensions (one
+    float32 a row), and the rank norms its columns."""
     if not isinstance(x, DTensor):
-        return y
-    return dt.from_local(y, x.device_mesh, x.placements)
+        return rn_ops.rmsnorm(x, weight, eps, impl=impl)
+    mesh, dims = x.device_mesh, dt.mesh_dims(x, -1)
+    w = dt.local_weight(weight, x)
+    if dims:
+        y = rn_ops.rmsnorm_split(
+            x.to_local(), w, eps, x.shape[-1],
+            lambda t: dt.all_reduce(t, mesh, dims), impl=impl)
+    else:
+        y = rn_ops.rmsnorm(x.to_local(), w, eps, impl=impl)
+    return dt.from_local(y, mesh, x.placements)
 
 
 # -------------------------------------------------------------------- rope
@@ -247,7 +257,11 @@ def attention_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
     divide 'model' (each rank decodes its heads), else each rank's stretch
     of the sequence: then every rank takes all heads of the new token,
     writes it where its stretch holds ``cur_pos``, and the softmax runs
-    across the stretches (max and sums all-reduced)."""
+    across the stretches (max and sums all-reduced).  A cache with its
+    heads on 'model' and its sequence on 'data' as well (zamba2's long
+    context) does both: each rank decodes its heads over its stretch,
+    writes the new token only where its stretch holds ``cur_pos``, and
+    the softmax runs across the stretches."""
     q, k_new, v_new = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if not isinstance(q, DTensor):
         out = _decode_heads(q, k_new, v_new, p.get("q_norm"),
@@ -255,13 +269,66 @@ def attention_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
                             cfg.n_kv_heads, cache_k=cache_k, cache_v=cache_v,
                             cur_pos=cur_pos)
     elif dt.mesh_dims(cache_k, 1):
+        seq_dims = dt.mesh_dims(cache_k, 2)
         out = _local_heads(_decode_heads, q, k_new, v_new, p, cfg,
                            cache_k=cache_k.to_local(),
-                           cache_v=cache_v.to_local(), cur_pos=cur_pos)
+                           cache_v=cache_v.to_local(), cur_pos=cur_pos,
+                           s0=dt.offset(cache_k, 2),
+                           seq=(cache_k.device_mesh, seq_dims)
+                           if seq_dims else None)
     else:
         out = _decode_seq_sharded(q, k_new, v_new, p, cfg, cache_k, cache_v,
                                   cur_pos)
     return dt.reduce(out @ p["wo"]), cache_k, cache_v
+
+
+def cross_attention_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                           xk: torch.Tensor, xv: torch.Tensor,
+                           cfg: ArchConfig,
+                           attn_impl: Optional[str] = None) -> torch.Tensor:
+    """One decoder token x (B, 1, d) against a precomputed cross-attention
+    KV ``xk``/``xv`` (B, Hkv, Sm, hd): the flash-attention dispatch, not
+    causal, nothing rotated → (B, 1, d).
+
+    On DTensors through the head seams: where the cache's heads are on
+    'model' each rank attends its own heads; where every rank holds every
+    head, each rank takes the key/value heads its query heads read; where
+    the query heads straddle the shards (whisper's 20 over 16) each rank
+    attends the whole GQA groups that its columns of the gathered q touch
+    and keeps its own columns, as :func:`_straddled_heads` does."""
+    q = x @ p["wq"]
+    if not isinstance(q, DTensor):
+        return _cross_heads(q, xk, xv, cfg, cfg.n_heads, attn_impl) @ p["wo"]
+    mesh, dims = q.device_mesh, dt.mesh_dims(q, -1)
+    shards = math.prod(mesh.size(i) for i in dims)
+    kl, vl = dt.local(xk), dt.local(xv)
+    if cfg.n_heads % shards == 0:
+        if not dt.mesh_dims(xk, 1):
+            rank = dt.offset(q, -1) // (q.shape[-1] // shards)
+            lo, hi = local_kv_heads(cfg, shards, rank) or (
+                rank * cfg.n_kv_heads // shards,
+                (rank + 1) * cfg.n_kv_heads // shards)
+            kl, vl = kl[:, lo:hi], vl[:, lo:hi]
+        out = _cross_heads(q.to_local(), kl, vl, cfg, cfg.n_heads // shards,
+                           attn_impl)
+    else:
+        width = cfg.n_heads // cfg.n_kv_heads * cfg.hd   # one GQA group
+        c0, cols = dt.offset(q, -1), q.to_local().shape[-1]
+        g0, g1 = c0 // width, -(-(c0 + cols) // width)
+        qa = dt.gather(q, -1).to_local()[..., g0 * width:g1 * width]
+        out = _cross_heads(qa, kl[:, g0:g1], vl[:, g0:g1], cfg,
+                           (g1 - g0) * width // cfg.hd, attn_impl)
+        lo = c0 - g0 * width
+        out = out[..., lo:lo + cols]
+    return dt.reduce(dt.from_local(out, mesh, q.placements) @ p["wo"])
+
+
+def _cross_heads(q, k, v, cfg: ArchConfig, hq: int, attn_impl):
+    """q (B, 1, hq * hd) against the heads k, v (B, Hkv, Sm, hd) → (B, 1,
+    hq * hd)."""
+    out = fa_ops.attention(_split_heads(q, hq, cfg.hd), k, v, causal=False,
+                           impl=attn_impl)
+    return _merge_heads(out)
 
 
 def _decode_new(q, k_new, v_new, q_norm, k_norm, cfg: ArchConfig, hq: int,
@@ -283,16 +350,37 @@ def _decode_new(q, k_new, v_new, q_norm, k_norm, cfg: ArchConfig, hq: int,
 
 def _decode_heads(q, k_new, v_new, q_norm, k_norm, cfg: ArchConfig,
                   hq: int, hkv: int, *, cache_k, cache_v, cur_pos: int,
-                  kv_heads=None):
-    """One rank's decode over its heads and its whole cache → (B, 1,
-    hq * hd); the cache written in place."""
+                  kv_heads=None, s0: int = 0, seq=None):
+    """One rank's decode over its heads → (B, 1, hq * hd); the cache
+    written in place.  The cache holds positions ``s0`` onwards; with
+    ``seq`` (mesh, mesh dimensions) it is this rank's stretch of a
+    sequence sharded over those dimensions, the new token written only
+    where the stretch holds ``cur_pos`` and the softmax taken across the
+    stretches."""
     q, k_new, v_new = _decode_new(q, k_new, v_new, q_norm, k_norm, cfg, hq,
                                   hkv, cur_pos)
-    cache_k[:, :, cur_pos] = k_new[:, :, 0].to(cache_k.dtype)
-    cache_v[:, :, cur_pos] = v_new[:, :, 0].to(cache_v.dtype)
-    pr = torch.softmax(_decode_scores(q, cache_k, 0, cur_pos, cfg), dim=-1)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", pr, cache_v.float())
+    if seq is None or s0 <= cur_pos < s0 + cache_k.shape[2]:
+        cache_k[:, :, cur_pos - s0] = k_new[:, :, 0].to(cache_k.dtype)
+        cache_v[:, :, cur_pos - s0] = v_new[:, :, 0].to(cache_v.dtype)
+    logits = _decode_scores(q, cache_k, s0, cur_pos, cfg)
+    if seq is None:
+        pr = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhgqk,bhkd->bhgqd", pr, cache_v.float())
+    else:
+        out = _softmax_across(logits, cache_v, *seq)
     return _merge_heads(out.reshape(q.shape).to(q.dtype))
+
+
+def _softmax_across(logits, cache_v, mesh, dims):
+    """softmax(logits) @ cache_v where the keys are spread over the mesh
+    dimensions ``dims``, each rank holding a stretch: the max and both
+    sums all-reduced → (B, Hkv, group, 1, hd) float32."""
+    m = dt.all_reduce(logits.amax(-1, keepdim=True), mesh, dims, "max")
+    e = torch.exp(logits - m)
+    den = dt.all_reduce(e.sum(-1, keepdim=True), mesh, dims)
+    num = dt.all_reduce(torch.einsum("bhgqk,bhkd->bhgqd", e,
+                                     cache_v.float()), mesh, dims)
+    return num / den
 
 
 def _decode_scores(q, cache_k, s0: int, cur_pos: int, cfg: ArchConfig):
@@ -328,12 +416,8 @@ def _decode_seq_sharded(q, k_new, v_new, p, cfg: ArchConfig, cache_k,
         ck[:, :, cur_pos - s0] = kh[:, :, 0].to(ck.dtype)
         cv[:, :, cur_pos - s0] = vh[:, :, 0].to(cv.dtype)
     logits = _decode_scores(qh, ck, s0, cur_pos, cfg)
-    m = dt.all_reduce(logits.amax(-1, keepdim=True), mesh, seq_dims, "max")
-    e = torch.exp(logits - m)
-    den = dt.all_reduce(e.sum(-1, keepdim=True), mesh, seq_dims)
-    num = dt.all_reduce(torch.einsum("bhgqk,bhkd->bhgqd", e, cv.float()),
-                        mesh, seq_dims)
-    out = _merge_heads((num / den).reshape(qh.shape).to(qh.dtype))
+    out = _softmax_across(logits, cv, mesh, seq_dims)
+    out = _merge_heads(out.reshape(qh.shape).to(qh.dtype))
     # this rank's columns (they may straddle heads: 40 over 16)
     c0 = dt.offset(q, -1)
     return dt.from_local(out[..., c0:c0 + q.to_local().shape[-1]], mesh,

@@ -8,15 +8,21 @@ The JAX package contracts its three- and four-operand einsums in an order
 of XLA's choosing; here each is written out as a chain of matrix products
 so that no intermediate larger than the (B, C, H, L, L) decay matrix is
 built.
+
+On a mesh with an axis above 1 (DTensors) the block runs on each rank's
+share of the inner width: :func:`_sharded_block`.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Shard
 
+from repro_torch.models import common as dt
 from repro_torch.models import layers as L
 from repro_torch.models import overlay_ops
 from repro_torch.models.common import (ArchConfig, P, checked_remat_policy,
@@ -167,28 +173,54 @@ def mamba_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
                 ssd_dtype: torch.dtype = torch.float32):
     """Full Mamba2 block.  Train: (B,S,d) → (B,S,d).  Decode: one step
     with the carried conv_state (B, K-1, di+2n) and ssm_state
-    (B, H, Pd, N) → (out, new conv_state, new ssm_state)."""
+    (B, H, Pd, N) → (out, new conv_state, new ssm_state).  A DTensor
+    ``x`` takes :func:`_sharded_block`, which writes the decode's conv
+    window and state into ``conv_state`` and ``ssm_state`` in place."""
+    if isinstance(x, DTensor):
+        return _sharded_block(p, x, cfg, conv_state, ssm_state, decode,
+                              ssd_dtype)
     di, h, n = ssm_dims(cfg)
-    pd = cfg.ssm_head_dim
     zxbcdt = x @ p["in_proj"]                    # (B,S, 2di+2n+h)
     z, xBC, dt = torch.split(zxbcdt, [di, di + 2 * n, h], dim=-1)
+    xBC, new_conv = _conv(xBC, p["conv_w"], conv_state, decode, x.dtype)
+    xs, Bm, Cm = torch.split(xBC, [di, n, n], dim=-1)
+    y, new_ssm = _ssm(xs, dt, p["A_log"], p["D"], p["dt_bias"], Bm, Cm,
+                      cfg, ssm_state, decode, ssd_dtype)
+    y = _gate(y, z, x.dtype)
+    y = L.rmsnorm(y, p["norm"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+    if decode:
+        return out, new_conv, new_ssm
+    return out
 
+
+def _conv(xBC: torch.Tensor, w: torch.Tensor,
+          conv_state: Optional[torch.Tensor], decode: bool,
+          dtype: torch.dtype):
+    """The causal conv and SiLU of channels ``xBC`` (B, S, C) with taps
+    ``w`` (K, C) → (the output in ``dtype``, the new window (B, K-1, C) in
+    decode, else None).  Decode reads the window's first K-1 steps from
+    ``conv_state``."""
     if not decode:
-        xBC = _causal_conv(xBC, p["conv_w"])
-        new_conv = None
+        out, new_conv = _causal_conv(xBC, w), None
     else:
         wdt = torch.promote_types(conv_state.dtype, xBC.dtype)
         window = torch.cat([conv_state.to(wdt), xBC.to(wdt)], dim=1)
-        xBC = torch.einsum("bkc,kc->bc", window,
-                           p["conv_w"].to(wdt))[:, None]
+        out = torch.einsum("bkc,kc->bc", window, w.to(wdt))[:, None]
         new_conv = window[:, 1:]
-    xBC = F.silu(xBC.float()).to(x.dtype)
-    xs, Bm, Cm = torch.split(xBC, [di, n, n], dim=-1)
+    return F.silu(out.float()).to(dtype), new_conv
 
-    dtp = F.softplus(dt.float() + p["dt_bias"])                 # (B,S,H)
-    A = -torch.exp(p["A_log"])                                  # (H,)
-    xh = xs.reshape(*xs.shape[:2], h, pd)
 
+def _ssm(xs, dt, A_log, D, dt_bias, Bm, Cm, cfg: ArchConfig, ssm_state,
+         decode: bool, ssd_dtype: torch.dtype):
+    """The SSD over the heads of ``xs`` (B, S, heads * Pd) with their
+    steps ``dt`` (B, S, heads) and per-head ``A_log``, ``D`` and
+    ``dt_bias``, every head reading ``Bm`` and ``Cm`` (B, S, N) → (y (B, S,
+    heads, Pd) float32, the new state (B, heads, Pd, N) float32)."""
+    pd = cfg.ssm_head_dim
+    dtp = F.softplus(dt.float() + dt_bias)                      # (B,S,H)
+    A = -torch.exp(A_log)                                       # (H,)
+    xh = xs.reshape(*xs.shape[:2], -1, pd)
     if not decode:
         y, new_ssm = ssd_chunked(xh, dtp, A, Bm, Cm, cfg.ssm_chunk,
                                  compute_dtype=ssd_dtype)
@@ -199,17 +231,80 @@ def mamba_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
         upd = xdt[..., None] * Bm[:, 0].float()[:, None, None]  # (B,H,Pd,N)
         new_ssm = ssm_state * dA + upd
         y = (new_ssm @ Cm[:, 0].float()[:, None, :, None])[..., 0][:, None]
-    y = y + p["D"][:, None] * xh.float()
-    # the gate runs on float32 and rounds once: XLA keeps the JAX
-    # package's bfloat16 y and gate products in float32 inside its fusion
-    # (excess precision), and a rounding after each product doubles the
-    # bfloat16 error of the logits
-    y = overlay_ops.ssm_gate(y.reshape(*xs.shape[:2], di),
-                             z.float()).to(x.dtype)
-    y = L.rmsnorm(y, p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"]
+    return y + D[:, None] * xh.float(), new_ssm
+
+
+def _gate(y: torch.Tensor, z: torch.Tensor, dtype: torch.dtype):
+    """The output gate y·silu(z).  It runs on float32 and rounds once: XLA
+    keeps the JAX package's bfloat16 y and gate products in float32 inside
+    its fusion (excess precision), and a rounding after each product
+    doubles the bfloat16 error of the logits."""
+    return overlay_ops.ssm_gate(y.reshape(*y.shape[:2], -1),
+                                z.float()).to(dtype)
+
+
+def _whole(t: DTensor, dims) -> torch.Tensor:
+    """``t`` gathered whole along its last dimension over the mesh
+    dimensions ``dims`` (c10d, :func:`repro_torch.models.common.gather`)
+    → the local tensor, whose gradient is each rank's partial sum (each
+    rank reads only some of its columns)."""
+    grad = dt.with_placement(t.placements, dims, Partial())
+    return dt.gather(t, -1).to_local(grad_placements=grad)
+
+
+def _sharded_block(p, x: DTensor, cfg: ArchConfig, conv_state, ssm_state,
+                   decode: bool, ssd_dtype: torch.dtype):
+    """:func:`mamba_block` on DTensors, rank r of tp on 'model' (the specs
+    of :func:`mamba_specs`).  ``in_proj`` and ``conv_w`` shard the packed
+    axes ``z | x | B | C | dt`` and ``x | B | C`` in blocks, which are not
+    slices of each part (a rank's block may straddle two parts), so:
+
+    1. ``x @ in_proj`` is the rank's block of packed columns, gathered
+       whole over 'model';
+    2. the rank takes its heads' ``z`` and ``dt`` (heads r·h/tp …) and
+       its block of the conv's channels, ``conv_w``'s own block;
+    3. the conv (and in decode its window, the conv cache's local block,
+       written back in place) runs on that block, and its output is
+       gathered whole;
+    4. the SSD runs on the rank's heads: their ``x``, with ``B`` and
+       ``C`` whole (one group: every head reads them), ``A_log``, ``D``,
+       ``dt_bias`` and the state cache local;
+    5. the gate, then the gated norm in the split-row mode (the rank's
+       columns of ``di``, head-aligned);
+    6. ``out_proj`` row-parallel: a local product, then ``reduce``.
+
+    A layer's forward moves two gathers of activations, one float32 a row
+    (the norm's all-reduce) and the reduce; no weight moves."""
+    di, h, n = ssm_dims(cfg)
+    zxbcdt = x @ p["in_proj"]
+    mesh, dims = x.device_mesh, dt.mesh_dims(zxbcdt, -1)
+    tp = math.prod(mesh.size(i) for i in dims)
+    r = dt.offset(zxbcdt, -1) // zxbcdt.to_local().shape[-1]
+    hr, dr, cw = h // tp, di // tp, (di + 2 * n) // tp
+    packed = _whole(zxbcdt, dims)                       # (B, S, 2di+2n+h)
+    z = packed[..., r * dr:(r + 1) * dr]
+    dtr = packed[..., 2 * di + 2 * n + r * hr:2 * di + 2 * n + (r + 1) * hr]
+    xbc = packed[..., di + r * cw:di + (r + 1) * cw]    # conv_w's block
+    cs = dt.local(conv_state) if decode else None
+    conv, new_conv = _conv(xbc, dt.local_weight(p["conv_w"], x), cs, decode,
+                           x.dtype)
     if decode:
-        return out, new_conv, new_ssm
+        cs.copy_(new_conv)
+    cols = dt.with_placement(x.placements, dims, Shard(x.ndim - 1))
+    xBC = _whole(dt.from_local(conv, mesh, cols), dims)  # (B, S, di+2n)
+    ss = dt.local(ssm_state) if decode else None
+    y, new_ssm = _ssm(xBC[..., r * dr:(r + 1) * dr], dtr,
+                      *(dt.local_weight(p[k], x)
+                        for k in ("A_log", "D", "dt_bias")),
+                      xBC[..., di:di + n], xBC[..., di + n:], cfg, ss,
+                      decode, ssd_dtype)
+    if decode:
+        ss.copy_(new_ssm)
+    y = dt.from_local(_gate(y, z, x.dtype), mesh, cols)
+    y = L.rmsnorm(y, p["norm"], cfg.norm_eps)           # split rows
+    out = dt.reduce(y @ p["out_proj"])
+    if decode:
+        return out, conv_state, ssm_state
     return out
 
 
@@ -257,12 +352,12 @@ class MambaLM:
             raise ValueError(f"{self.cfg.arch_id} has no frontend to take "
                              f"input_embeds")
         cfg = self.cfg
-        x = params["lm"]["embed"][tokens]
+        x = L.embed(params["lm"]["embed"], tokens)
         body = remat(self._layer_train, self.remat_policy)
         for i in range(cfg.n_layers):
             x = body(x, layer_params(params["layers"], i))
         if last_only:
-            x = x[:, -1:]
+            x = dt.same_placements(lambda t: t[:, -1:], x)
         x = L.rmsnorm(x, params["lm"]["final_norm"], cfg.norm_eps)
         return x @ params["lm"]["unembed"]
 
@@ -302,7 +397,7 @@ class MambaLM:
         updated IN PLACE (the JAX package returns new arrays).  ``cur_pos``
         is unused: the recurrence carries the position."""
         cfg = self.cfg
-        x = params["lm"]["embed"][tokens]                  # (B, 1, d)
+        x = L.embed(params["lm"]["embed"], tokens)         # (B, 1, d)
         for i in range(cfg.n_layers):
             x = self._layer_decode(x, layer_params(params["layers"], i),
                                    cache, i)
@@ -311,11 +406,13 @@ class MambaLM:
 
     def _layer_decode(self, x, lp, cache: Dict[str, torch.Tensor], i: int):
         """Layer ``i``'s decode step, its conv window and state written
-        into ``cache`` in place."""
+        into ``cache`` in place (by the block itself on DTensors: each
+        rank's block of the conv cache and its heads of the state)."""
         h = L.rmsnorm(x, lp["ln"], self.cfg.norm_eps)
         o, conv, state = mamba_block(
             lp["mamba"], h, self.cfg, conv_state=cache["conv"][i],
             ssm_state=cache["state"][i], decode=True)
-        cache["conv"][i] = conv
-        cache["state"][i] = state
+        if not isinstance(x, DTensor):
+            cache["conv"][i] = conv
+            cache["state"][i] = state
         return x + o

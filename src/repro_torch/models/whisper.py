@@ -14,6 +14,13 @@ kernel: at a decode step one query row against the 1500 frames, not
 causal.  The JAX package calls its plain ``ref.attention`` there
 (``repro/models/whisper.py``); calling the port's plain version on a card
 would be a fallback that hides the kernel, so the port does not.
+
+On a mesh with an axis above 1 the encoder's and the decoder's attention,
+the decode step's cross-attention included
+(:func:`repro_torch.models.layers.cross_attention_decode`), go through
+the head seams of :mod:`repro_torch.models.layers`; the encoder's memory
+is whole on every rank of 'model', and the frames are placed like the
+tokens.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import common as dt
 from repro_torch.models import layers as L
 from repro_torch.models.common import (ArchConfig, P, checked_remat_policy,
                                        remat, spec, stack_spec)
@@ -101,7 +108,7 @@ class EncDecLM:
                              f"encoder's frames")
         cfg = self.cfg
         memory = self.encode(params, input_embeds)
-        x = params["lm"]["embed"][tokens]
+        x = L.embed(params["lm"]["embed"], tokens)
         pos = torch.arange(tokens.shape[1], device=x.device)
 
         def layer(x, lp, memory):
@@ -117,7 +124,7 @@ class EncDecLM:
         for i in range(cfg.n_layers):
             x = body(x, layer_params(params["dec"], i), memory)
         if last_only:
-            x = x[:, -1:]
+            x = dt.same_placements(lambda t: t[:, -1:], x)
         x = L.rmsnorm(x, params["lm"]["final_norm"], cfg.norm_eps)
         return x @ params["lm"]["unembed"]
 
@@ -161,9 +168,7 @@ class EncDecLM:
         fixed cross-attention KV → (logits (B, 1, V), cache), the
         self-attention KV written IN PLACE at ``cur_pos``."""
         cfg = self.cfg
-        hq, hd = cfg.n_heads, cfg.hd
-        x = params["lm"]["embed"][tokens]                  # (B, 1, d)
-        b = x.shape[0]
+        x = L.embed(params["lm"]["embed"], tokens)         # (B, 1, d)
         for i in range(cfg.n_layers):
             lp = layer_params(params["dec"], i)
             h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
@@ -172,11 +177,9 @@ class EncDecLM:
             x = x + a
             # cross-attention against the precomputed encoder KV
             h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-            q = (h @ lp["xattn"]["wq"]).view(b, 1, hq, hd).transpose(1, 2)
-            o = fa_ops.attention(q, cache["xk"][i], cache["xv"][i],
-                                 causal=False, impl=self.attn_impl)
-            x = x + o.transpose(1, 2).reshape(b, 1, hq * hd) \
-                @ lp["xattn"]["wo"]
+            x = x + L.cross_attention_decode(lp["xattn"], h, cache["xk"][i],
+                                             cache["xv"][i], cfg,
+                                             self.attn_impl)
             h = L.rmsnorm(x, lp["ln3"], cfg.norm_eps)
             x = x + L.mlp(lp["mlp"], h, cfg)
         x = L.rmsnorm(x, params["lm"]["final_norm"], cfg.norm_eps)

@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.models import common as dt
 from repro_torch.models import layers as L
 from repro_torch.models.common import ArchConfig, remat, spec
 from repro_torch.models.mamba2 import MambaLM
@@ -81,7 +82,7 @@ class HybridLM(MambaLM):
             raise ValueError(f"{self.cfg.arch_id} has no frontend to take "
                              f"input_embeds")
         cfg = self.cfg
-        x = params["lm"]["embed"][tokens]
+        x = L.embed(params["lm"]["embed"], tokens)
         pos = torch.arange(tokens.shape[1], device=x.device)
 
         def layer(x, lp, shared, i):
@@ -96,7 +97,7 @@ class HybridLM(MambaLM):
             x = body(x, layer_params(params["layers"], i), params["shared"],
                      i)
         if last_only:
-            x = x[:, -1:]
+            x = dt.same_placements(lambda t: t[:, -1:], x)
         x = L.rmsnorm(x, params["lm"]["final_norm"], cfg.norm_eps)
         return x @ params["lm"]["unembed"]
 
@@ -132,7 +133,7 @@ class HybridLM(MambaLM):
         ``cur_pos`` (see :func:`repro_torch.models.layers.attention_decode`),
         and Mamba's conv window and state."""
         cfg = self.cfg
-        x = params["lm"]["embed"][tokens]                  # (B, 1, d)
+        x = L.embed(params["lm"]["embed"], tokens)         # (B, 1, d)
         for i in range(cfg.n_layers):
             x = self._layer_decode(x, layer_params(params["layers"], i),
                                    cache, i)

@@ -15,8 +15,10 @@ a child interpreter (``jax_running``), both from one initial state.
   (v)   no collective moves a weight of the forward, and the
         cross-entropy never holds the whole vocabulary on a rank;
   (vi)  the launchers on 4 ranks: meshes, checkpoints byte-identical to a
-        one-rank run's, a restart, the legacy serve loop's samples;
-  (vii) the ssm, hybrid and audio families raise on an axis above 1.
+        one-rank run's, a restart, the legacy serve loop's samples.
+
+The ssm, hybrid and audio families' model axis is held against the
+reference in ``tests/test_torch_{ssm,audio}_parallel.py``.
 """
 
 import filecmp
@@ -28,10 +30,9 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import SSM_MODEL_AXIS_ITEM
 from repro_torch.train.step import init_state
 from torch_dist_pair import (TP_BATCH, TP_OPT, TP_SEQ, TP_STEPS, comm_rank,
-                             deferred_rank, flat, jax_running, launch_rank,
+                             flat, jax_running, launch_rank,
                              launch_state, place_rank, serve_samples,
                              spawn, tp_model, tp_rank)
 
@@ -298,17 +299,3 @@ def test_launchers_on_four_ranks(tmp_path):
     one_rank = serve_samples(1)
     assert not dist.is_initialized()
     assert one_rank and res["serve"] == one_rank, (res["serve"], one_rank)
-
-
-# ---------------------------------------------------- (vii) deferred families
-
-def test_deferred_families_raise_on_an_axis_above_one(tmp_path):
-    """mamba2 (ssm), zamba2 (hybrid) and whisper (audio) on a model axis of
-    2: the training and serving launchers raise NotImplementedError
-    naming the ROADMAP.md item, before any work; on a data axis of 2
-    likewise."""
-    spawn(deferred_rank, 2, tmp_path, str(tmp_path / "deferred_%d.json"))
-    for r in range(2):
-        res = json.loads((tmp_path / f"deferred_{r}.json").read_text())
-        assert len(res) == 9, res
-        assert all(SSM_MODEL_AXIS_ITEM in v for v in res.values()), res

@@ -330,6 +330,216 @@ def tp_rank(rank: int, n: int, job: dict, init: str, out: str) -> None:
         np.savez(out, **res)
 
 
+# ------------------------------- the ssm, hybrid and audio families' ranks
+# The model axis of Mamba2 (mamba2, zamba2's backbone) and whisper's
+# heads: the port on gloo ranks against the reference on one device, from
+# one initial state.  Prefill tokens (4, 16), frames (B, FAM_FRAMES, d) for
+# the audio family, FAM_XKV positions of cross-attention KV from a numpy
+# seed in both packages' decode caches.
+FAM_FRAMES, FAM_XKV = 24, 24
+
+# the reference on one device: what a job asks for, from the state in
+# <dir>/init.npz → <dir>/jax.npz (a string, run by ``jax_running``)
+FAMILY_JAX_REF = """
+import dataclasses, json, sys
+import numpy as np, jax, jax.numpy as jnp
+from repro.configs.registry import ALL_ARCHS, reduced_config
+from repro.data.pipeline import SyntheticTokens
+from repro.models.registry import build_model
+from repro.optim.adamw import AdamWConfig
+from repro.train.step import make_prefill_step, make_train_step
+sys.path.insert(0, "tests")
+from torch_dist_pair import (FAM_FRAMES, FAM_XKV, TP_BATCH, TP_OPT, TP_SEQ,
+                             fam_batch, fam_frames, fam_xkv, nested,
+                             tp_tokens)
+
+out, job = sys.argv[1], json.loads(sys.argv[2])
+
+
+def flat(tree, prefix):
+    return {prefix + "/".join(str(k.key) for k in path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+cfg = dataclasses.replace(reduced_config(ALL_ARCHS[job["arch"]]),
+                          dtype=jnp.float32, **job.get("replace", {}))
+model = build_model(cfg, remat_policy="none")
+state = jax.tree.map(jnp.asarray, nested(np.load(f"{out}/init.npz")))
+audio = cfg.family == "audio"
+res = {}
+if job.get("grads"):
+    b = {k: jnp.asarray(v) for k, v in fam_batch(cfg, 0).items()}
+    loss, g = jax.jit(jax.value_and_grad(model.loss))(state["params"], b)
+    res["grad_loss"] = np.asarray(loss)
+    res.update(flat(g, "g/"))
+if job.get("logits"):
+    toks = jnp.asarray(tp_tokens(cfg, 4, 16))
+    fr = jnp.asarray(fam_frames(cfg, 4)) if audio else None
+    res["logits"] = np.asarray(jax.jit(model.forward_train)(
+        state["params"], toks, fr))
+    batch = {"tokens": toks}
+    if audio:
+        batch["input_embeds"] = fr
+    res["prefill"] = np.asarray(jax.jit(make_prefill_step(model))(
+        state["params"], batch))
+if job.get("decode"):
+    b = job.get("batch", 4)
+    toks = tp_tokens(cfg, b, job["decode"])
+    if audio:
+        cache = model.init_cache(b, job["cache"], enc_len=FAM_XKV)
+        xk, xv = fam_xkv(cfg, b)
+        cache["xk"], cache["xv"] = jnp.asarray(xk), jnp.asarray(xv)
+    else:
+        cache = model.init_cache(b, job["cache"])
+    step, got = jax.jit(model.forward_decode), []
+    for i in range(job["decode"]):
+        logits, cache = step(state["params"], cache,
+                             jnp.asarray(toks[:, i:i + 1]), jnp.int32(i))
+        got.append(np.asarray(logits)[:, -1])
+    res["decode"] = np.stack(got)
+    res.update(flat(cache, "cache/"))
+if job.get("steps"):
+    step = jax.jit(make_train_step(model, AdamWConfig(**TP_OPT)))
+    losses, norms = [], []
+    for i in range(job["steps"]):
+        state, m = step(state, {k: jnp.asarray(v)
+                                for k, v in fam_batch(cfg, i).items()})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    res["losses"], res["grad_norms"] = np.array(losses), np.array(norms)
+np.savez(f"{out}/jax.npz", **res)
+"""
+
+
+def fam_frames(cfg, b: int, seed: int = 2) -> np.ndarray:
+    """Stub-frontend frames (b, FAM_FRAMES, d), float32."""
+    return np.random.default_rng(seed).standard_normal(
+        (b, FAM_FRAMES, cfg.d_model)).astype(np.float32)
+
+
+def fam_xkv(cfg, b: int):
+    """A cross-attention KV (layers, b, Hkv, FAM_XKV, hd) each, float32."""
+    rng = np.random.default_rng(3)
+    shape = (cfg.n_layers, b, cfg.n_kv_heads, FAM_XKV, cfg.hd)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for _ in range(2))
+
+
+def fam_batch(cfg, step: int) -> dict:
+    """Training batch ``step``: SyntheticTokens(seq=TP_SEQ,
+    batch=TP_BATCH), with frames where the family takes them."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    b = SyntheticTokens(cfg.vocab, seq=TP_SEQ, batch=TP_BATCH).batch_at(step)
+    if cfg.frontend == "audio":
+        b["input_embeds"] = fam_frames(cfg, TP_BATCH, seed=10 + step)
+    return b
+
+
+def family_cache(model, cfg, b: int, positions: int):
+    """The port's empty decode cache on the CPU (whisper's cross KV
+    filled from :func:`fam_xkv`)."""
+    if cfg.family != "audio":
+        return model.init_cache(b, positions)
+    cache = model.init_cache(b, positions, enc_len=FAM_XKV)
+    for name, a in zip(("xk", "xv"), fam_xkv(cfg, b)):
+        cache[name].copy_(torch.from_numpy(a))
+    return cache
+
+
+def family_rank(rank: int, n: int, job: dict, init: str, out: str) -> None:
+    """The port on a (n / shards, shards) mesh of gloo ranks, from the
+    state in ``init``: ``job`` as the reference's (``FAMILY_JAX_REF``):
+    "grads", "logits", "decode" (that many serve steps from an empty
+    cache of ``cache`` positions, batch ``batch`` (4), placed with
+    ``seq_sharded`` where asked; then the cache gathered whole), "steps"
+    → ``out`` on rank 0 (npz); with "comm", a Mamba2 layer's forward
+    under CommDebugMode and the shapes its c10d gathers send."""
+    from repro_torch.launch.mesh import (axis_size, full_tree,
+                                         make_host_mesh, place)
+    from repro_torch.models.common import full, state_from_numpy
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import (make_prefill_step, make_serve_step,
+                                        make_train_step, place_inputs,
+                                        state_specs, value_and_grad)
+    cfg, model = tp_model(job["arch"], job.get("replace", {}))
+    mesh = make_host_mesh(job["shards"], device="cpu")
+    assert mesh.size() == n, (tuple(mesh.shape), n)
+    state = place(state_from_numpy(nested(np.load(init)), cfg, "cpu"),
+                  state_specs(model), mesh)
+    audio = cfg.family == "audio"
+    res = {"mesh": np.array(tuple(mesh.shape))}
+    if job.get("grads"):
+        loss, g = value_and_grad(model, state["params"], place_inputs(
+            model, state["params"], fam_batch(cfg, 0), "train"))
+        res["grad_loss"] = np.array(float(full(loss)))
+        res.update(flat(full_tree(g), "g/"))
+    if job.get("logits"):
+        batch = {"tokens": tp_tokens(cfg, 4, 16)}
+        if audio:
+            batch["input_embeds"] = fam_frames(cfg, 4)
+        placed = place_inputs(model, state["params"], batch, "prefill")
+        with torch.no_grad():
+            logits = model.forward_train(state["params"], placed["tokens"],
+                                         placed.get("input_embeds"))
+        res["logits"] = full(logits).numpy()
+        res["prefill"] = full(make_prefill_step(model)(
+            state["params"], batch)).numpy()
+    if job.get("decode"):
+        b = job.get("batch", 4)
+        toks = tp_tokens(cfg, b, job["decode"])
+        cache = place(family_cache(model, cfg, b, job["cache"]),
+                      model.cache_specs(
+                          seq_sharded=job.get("seq_sharded", False),
+                          model_axis=axis_size(mesh, "model")), mesh)
+        res["cache_specs"] = np.array(sorted(
+            f"{k}={t.placements}" for k, t in cache.items()))
+        step, got = make_serve_step(model), []
+        for i in range(job["decode"]):
+            logits, cache = step(state["params"], cache, toks[:, i:i + 1], i)
+            got.append(full(logits).numpy())
+        res["decode"] = np.stack(got)
+        res.update(flat(full_tree(cache), "cache/"))
+    if job.get("steps"):
+        step = make_train_step(model, AdamWConfig(**TP_OPT))
+        losses, norms = [], []
+        for i in range(job["steps"]):
+            state, m = step(state, fam_batch(cfg, i))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        every = [None] * n
+        dist.all_gather_object(every, losses)
+        assert all(e == losses for e in every), every
+        res["losses"], res["grad_norms"] = np.array(losses), np.array(norms)
+    if job.get("comm"):
+        res.update(mamba_layer_comms(model, cfg, state["params"]))
+    if rank == 0:
+        np.savez(out, **res)
+
+
+def mamba_layer_comms(model, cfg, params) -> dict:
+    """One Mamba2 layer's forward and a whole train step's gradient under
+    CommDebugMode, and the shapes the port's c10d gathers send in the
+    layer's forward."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.train.step import place_inputs, value_and_grad
+
+    def counts(cm):
+        return {str(k).split(".")[-1]: v
+                for k, v in cm.get_comm_counts().items() if v}
+    batch = place_inputs(model, params, fam_batch(cfg, 0), "train")
+    x = L.embed(params["lm"]["embed"], batch["tokens"])
+    with torch.no_grad(), CommDebugMode() as cm, gathers() as shapes:
+        model._layer_train(x, layer_params(params["layers"], 0))
+    with CommDebugMode() as step_cm:
+        value_and_grad(model, params, batch)
+    return {"layer_comms": np.array(json.dumps(counts(cm))),
+            "layer_gathers": np.array(shapes),
+            "step_comms": np.array(json.dumps(counts(step_cm)))}
+
+
 # ------------------------------------------ the tensor-parallel test's ranks
 
 
@@ -505,8 +715,8 @@ def launch_state():
                       torch.Generator().manual_seed(0))
 
 
-def serve_samples(model_shards: int) -> list:
-    """The "sample:" lines of ``serve.py --legacy`` on reduced qwen3-14b
+def serve_samples(model_shards: int, arch: str = "qwen3-14b") -> list:
+    """The "sample:" lines of ``serve.py --legacy`` on reduced ``arch``
     on ``make_host_mesh(model_shards)``, its reduced config taken in
     float32 (in bfloat16 the random reduced model's one-rank logits hold
     exact ties, which a different order of sums breaks either way)."""
@@ -522,7 +732,7 @@ def serve_samples(model_shards: int) -> list:
     with mock.patch.object(serve, "reduced_config", float32), \
             contextlib.redirect_stdout(buf):
         serve._legacy_main(argparse.Namespace(
-            arch="qwen3-14b", reduced=True, batch=2, prompt_len=4, gen=4,
+            arch=arch, reduced=True, batch=2, prompt_len=4, gen=4,
             temperature=0.0, device="cpu", model_shards=model_shards))
     return [line for line in buf.getvalue().splitlines()
             if line.startswith("sample:")]
@@ -568,37 +778,30 @@ def launch_rank(rank, n, d):
             json.dump(res, f)
 
 
-def deferred_rank(rank, n, out):
-    """(vii): the ssm, hybrid and audio families through both launchers on
-    a model axis of 2 and ``check_family`` on a data axis of 2 → ``out %
-    rank`` (JSON: each raise's message)."""
-    import argparse
+def launch_family_state(arch: str):
+    """The launcher's initial train state of reduced ``arch`` (seed 0) on
+    the CPU, plain tensors."""
+    from repro_torch.configs.registry import ALL_ARCHS, reduced_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.step import init_state
+    return init_state(build_model(reduced_config(ALL_ARCHS[arch])),
+                      torch.Generator().manual_seed(0))
 
-    from repro_torch.configs.registry import ALL_ARCHS
-    from repro_torch.launch import serve, train
-    from repro_torch.launch.mesh import check_family, make_host_mesh
-    res = {}
-    for arch in ("mamba2-370m", "zamba2-7b", "whisper-large-v3"):
-        for what in ("train", "serve", "data"):
-            try:
-                if what == "train":
-                    train.main(["--arch", arch, "--reduced", "--steps", "1",
-                                "--batch", "2", "--seq", "16",
-                                "--model-shards", "2"], device="cpu")
-                elif what == "serve":
-                    serve._legacy_main(argparse.Namespace(
-                        arch=arch, reduced=True, batch=2, prompt_len=2,
-                        gen=1, temperature=0.0, device="cpu",
-                        model_shards=2))
-                else:
-                    check_family(ALL_ARCHS[arch].family,
-                                 make_host_mesh(1, device="cpu"))
-                res[f"{arch} {what}"] = "ran"
-            except NotImplementedError as e:
-                res[f"{arch} {what}"] = str(e)
-    with open(out % rank, "w") as f:
-        json.dump(res, f)
 
+def launch_family_rank(rank, n, arch, d):
+    """``launch/train.py`` on reduced ``arch`` with --model-shards 2 (a
+    checkpoint at step 2 under ``d``/ckpt) and ``serve.py --legacy
+    --model-shards 2``'s samples → ``d``/launch.json (rank 0)."""
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train.main(["--arch", arch, "--reduced", "--batch", "4", "--seq",
+                    "16", "--steps", "2", "--model-shards", "2", "--ckpt",
+                    f"{d}/ckpt"], device="cpu")
+    res = {"train": buf.getvalue(), "serve": serve_samples(2, arch)}
+    if rank == 0:
+        with open(f"{d}/launch.json", "w") as f:
+            json.dump(res, f)
 
 
 def card_rank(rank, n, out):
