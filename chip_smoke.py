@@ -222,7 +222,11 @@ float32 SIMT kernels).  Phases:
       ``make_pipeline_train_step`` with one stage over 4 microbatches
       through the cut's layers (the layer body, so both forward kernels
       run), bit for bit against the layers applied to each microbatch in
-      turn.  ``python3 chip_smoke.py --phase o`` runs (a) and (o) alone.
+      turn, then with its backward (the loss the float32 sum of the output
+      times a seeded cotangent): each layer leaf's gradient and x's within
+      ``DP_PIPE_GRAD_TOL`` (relative L2) of autograd through the layers in
+      sequence, the four kernels launched on the tensor-core routes.
+      ``python3 chip_smoke.py --phase o`` runs (a) and (o) alone.
   (p) tensor, expert and data parallelism through DTensor, after (o):
       TP_RANKS (4) spawned processes share the card over a gloo group
       with CUDA tensors and a FileStore (NCCL refuses two ranks on one
@@ -248,8 +252,9 @@ float32 SIMT kernels).  Phases:
       shapes they saw (q heads 10 and KV heads 2 at model=4) and its
       memory, and each kernel must have launched on every rank as on one
       rank with a quarter of the heads.  (p4) the ssm, hybrid and audio
-      families on (1, 4) (TP_FAMILIES: mamba2-370m whole, zamba2-7b at 12
-      layers, whisper-large-v3 at 16 + 16): one prefill step at B=1 and the
+      families on (1, 4) (TP_FAMILIES: mamba2-370m at 24 of its 48 layers,
+      zamba2-7b at 12, whisper-large-v3 at 8 + 8): one prefill step at B=1
+      and the
       serve loop at seed 0, the prefill at seed 1, the logits within
       ``AGREE_TOL_P4`` of the one-rank run's, every greedy pick the
       gathered argmax, each rank's block of the conv cache and the SSM
@@ -262,8 +267,22 @@ float32 SIMT kernels).  Phases:
       train step on (1, 4) and (2, 2) within TP_TRAIN_TOL; every rank
       launches RMSNorm on whole and split rows,
       flash attention (D 112 and 64, the one-row cross-attention) and,
-      training, both RMSNorm backwards.
-      ``python3 chip_smoke.py --phase p`` runs (a) and (p) alone.
+      training, both RMSNorm backwards.  (p5) the GPipe step
+      (``make_pipeline_train_step``) over the 4 ranks, one stage each:
+      qwen3-14b at full width in bfloat16, one layer a stage,
+      TP_PIPE_MICRO (4) microbatches of (1, 2048, 5120), forward and
+      backward, the loss the float32 sum of the output times a seeded
+      cotangent, at two weight seeds: the output against this process's
+      sequential run of the same 4 layers (bit-equal), each rank's
+      gradient leaves and x's gradient within ``TP_PIPE_TOL`` (relative
+      L2), which three planted faults must break (the output's cotangent
+      summed over the ranks, the backward's exchange sent two stages away,
+      the last microbatch's cotangent dropped at the last stage); every
+      rank launches the attention and RMSNorm kernels and their backwards
+      once a step of the wavefront (7 and 28) on the tensor-core routes;
+      host s per pipelined step and GB per rank.
+      ``python3 chip_smoke.py --phase p`` runs (a) and (p) alone,
+      ``--phase p5`` (a) and (p5).
   (q) the dry run, host work in child processes started together, after
       (p): (q1) qwen3-14b x train_4k and qwen3-moe-235b-a22b x decode_32k
       through ``python -m repro_torch.launch.dryrun`` on a fake world of
@@ -276,14 +295,23 @@ float32 SIMT kernels).  Phases:
       memory over the measured ones.  No kernel runs in (q).
       ``python3 chip_smoke.py --phase q`` runs (a) and (q) alone ((q2)
       then prints its terms without the measured times).
+  (r) the examples, after (q): every ``examples/torch_*.py`` on the card,
+      each in its own interpreter, all started together
+      (``torch_train_lm.py`` at 100 steps), each exiting 0 with its own
+      checks holding (outputs bit for bit against ``run_reference``, the
+      oracle, the restart); the executor's launches counted in the overlay
+      examples and the model kernels' in ``torch_serve_lm.py``,
+      ``torch_elastic_restart.py`` and ``torch_train_lm.py`` (RMSNorm in
+      serve_lm's decode loop; attention and the backwards too where they
+      train), each above 0.  ``python3 chip_smoke.py --phase r`` runs (a) and (r) alone.
 
 Exits non-zero, printing no result, without a card or when any check
 fails.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists each ported kernel with its launches on the main paths
-(phases (c), (h), (i), (j) and (m) for the executor,
-phases (g), (k), (l), (n), (o) and (p) for RMSNorm and flash attention,
-phases (n), (o) and (p) for their backward kernels, (p4) for the
-split-row RMSNorm forward and backward).
+(phases (c), (h), (i), (j), (m) and (r) for the executor,
+phases (g), (k), (l), (n), (o), (p) and (r) for RMSNorm and flash
+attention, phases (n), (o), (p) and (r) for their backward kernels, (p4)
+for the split-row RMSNorm forward and backward).
 """
 
 from __future__ import annotations
@@ -4709,6 +4737,58 @@ DP_HALF_SCALE_LIMIT = 1 + 2 ** -14
 DP_MEAN_LIMIT = 1.05
 
 
+# the one-stage pipeline's backward: its cotangent's seed, and the limit
+# on each gradient leaf's relative L2 from autograd through the layers in
+# sequence: bf16 sums of the microbatches' gradients in another order
+# would read about 2^-8; the pipeline meets them in the same order
+DP_PIPE_COT_SEED = 7
+DP_PIPE_GRAD_TOL = 2.0 ** -7
+
+
+def seeded(dev, seed: int):
+    import torch
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """The "/"-joined paths of ``tree``'s leaves in ``leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| in float32 (||got|| where want is 0)."""
+    import torch
+    d = float(torch.linalg.vector_norm((got.float() - want.float())))
+    w = float(torch.linalg.vector_norm(want.float()))
+    return d / w if w else d
+
+
+def pipe_sequential(layer_fn, layers, n_layers: int, x, cot):
+    """Autograd through ``n_layers`` stacked layers applied to each
+    microbatch of x in turn, the loss the float32 sum of the output times
+    ``cot``, the microbatches last to first (the order the pipeline's
+    backward meets them) → (the outputs, each leaf's gradient summed in
+    that order, x's gradient)."""
+    import torch
+    from repro_torch.models.common import leaves
+    from repro_torch.models.transformer import layer_params
+    flat = leaves(layers)
+    xg = x.detach().requires_grad_()
+    outs, grads = [None] * x.shape[0], None
+    for m in reversed(range(x.shape[0])):
+        h = xg[m]
+        for i in range(n_layers):
+            h = layer_fn(h, layer_params(layers, i))
+        outs[m] = h.detach()
+        got = torch.autograd.grad((h.float() * cot[m]).sum(), [*flat, xg])
+        grads = list(got) if grads is None else \
+            [a + b for a, b in zip(grads, got)]
+    return torch.stack(outs), grads[:-1], grads[-1]
+
+
 def leaf_at(tree, path):
     for key in path:
         tree = tree[key]
@@ -5045,12 +5125,16 @@ def phase_dp(card: str):
           and leaf_fault["mean_over_bound"] > DP_MEAN_LIMIT,
           f"(o) compression invariants {leaf}, planted {leaf_fault}")
     del g, e_old
-    # ---- the one-stage pipeline against the sequential layers
+    # ---- the one-stage pipeline against the sequential layers (the
+    # optimizer's state and the ef go: the backward's graphs need the room)
+    params = state["params"]
+    del state
+    torch.cuda.empty_cache()
     pos = torch.arange(TRAIN_S, device=dev)
 
     def layer_fn(x, lp):
         return model._layer_train(x, lp, pos)
-    layers = state["params"]["layers"]
+    layers = params["layers"]
     x = torch.randn((DP_MICRO, 1, TRAIN_S, cfg.d_model), generator=gen(),
                     device=dev, dtype=torch.float32).to(cfg.dtype)
     reset_counts()
@@ -5072,7 +5156,45 @@ def phase_dp(card: str):
     check(pipe_launches["flash_attention"] == DP_MICRO * DP_LAYERS
           and pipe_launches["rmsnorm"] == 4 * DP_MICRO * DP_LAYERS,
           f"(o) pipeline launches {pipe_launches}")
-    del state, layers, x, piped, h
+    del piped, h
+    # ---- its backward: the loss the float32 sum of the output times a
+    # seeded cotangent, against autograd through the layers in sequence
+    cot = torch.randn(x.shape, generator=seeded(dev, DP_PIPE_COT_SEED),
+                      device=dev, dtype=torch.float32)
+    flat = leaves(layers)
+    for t in flat:
+        t.requires_grad_(True)
+    tp_reset_counts()
+    xg = x.detach().requires_grad_()
+    y = run(tree_map(lambda t: t.unsqueeze(0), layers), xg)
+    got = torch.autograd.grad((y.float() * cot).sum(), [*flat, xg])
+    grad_launches = tp_counts()
+    n_pipe = DP_MICRO * DP_LAYERS
+    want = {"flash_attention": n_pipe, "rmsnorm": 4 * n_pipe,
+            "flash_attention_bwd": n_pipe, "rmsnorm_bwd": 4 * n_pipe}
+    seq_y, seq_g, seq_gx = pipe_sequential(layer_fn, layers, DP_LAYERS, x,
+                                           cot)
+    for t in flat:
+        t.requires_grad_(False)
+    errs = {name: rel_l2(a, b) for name, a, b in
+            zip(leaf_names(layers), got[:-1], seq_g)}
+    errs["x"] = rel_l2(got[-1], seq_gx)
+    worst = max(errs, key=errs.get)
+    log(f"(o) one-stage pipeline's backward through {DP_LAYERS} layers, "
+        f"{DP_MICRO} microbatches: output bit-equal to the sequential run's "
+        f"{bool(torch.equal(y, seq_y))}; gradients against autograd through "
+        f"the layers in sequence, largest relative L2 per leaf "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (limit {DP_PIPE_GRAD_TOL:.3g}); launches "
+        f"{ {k: grad_launches[k] for k in want} }")
+    check(errs[worst] <= DP_PIPE_GRAD_TOL,
+          f"(o) pipeline gradient {worst} off by {errs[worst]}")
+    check({k: grad_launches[k] for k in want} == want
+          and grad_launches["flash_attention_by_route"]["simt"] == 0
+          and grad_launches["flash_attention_bwd_by_route"]["simt"] == 0,
+          f"(o) pipeline backward launches {grad_launches}, expected "
+          f"{want} on the tensor-core routes")
+    del params, layers, flat, x, xg, y, got, seq_y, seq_g, seq_gx, cot
     # ---- turn 2 of the times: compressed, then uncompressed
     state, comp2 = dp_run(dp_step,
                           lambda: init_compressed_state(model, gen()),
@@ -5096,7 +5218,7 @@ def phase_dp(card: str):
         f"{comp['peak_gb']:.2f} and {comp2['peak_gb']:.2f} against "
         f"{base['peak_gb']:.2f} and {base2['peak_gb']:.2f}; phase (o) "
         f"{time.perf_counter() - t_phase:.1f} s; {card}")
-    return launches, bwd_launches, pipe_launches, dict(
+    return launches, bwd_launches, pipe_launches, grad_launches, dict(
         layers=DP_LAYERS, params=n_params, step_ms_turns=turns,
         peak_gb={"compressed": [comp["peak_gb"], comp2["peak_gb"]],
                  "uncompressed": [base["peak_gb"], base2["peak_gb"]]},
@@ -5107,7 +5229,7 @@ def phase_dp(card: str):
         compression_share_of_bound=bound / med, profile=prof,
         ef_check=clean, ef_check_planted=faulty, leaf_checks=leaf,
         leaf_checks_planted=leaf_fault, pipeline_bit_equal=all(same),
-        seconds=time.perf_counter() - t_phase)
+        pipeline_grad_rel_l2=errs, seconds=time.perf_counter() - t_phase)
 
 
 # ------------------------------------------------------ (p) across ranks
@@ -5155,15 +5277,18 @@ TP_TRAIN_TOL = {"first_loss": 2e-2, "grad_norm": 2e-2,
 # (p1) qwen3-14b cut to this depth (40 before (p4) needed the time: its
 # 20.4 s of draws and 10.6 s prefill at 40 layers)
 TP_P1_LAYERS = 4
-# (p4) the ssm, hybrid and audio families on (1, 4): mamba2-370m whole,
-# zamba2-7b cut to 12 of 81 layers (two attention sites), whisper-large-v3
-# cut to 16 + 16 of its 32 + 32 layers (whole, its 12 decode steps took
-# 11.1-18.7 s and the script 933.7 s against its 900); one prefill step at
+# (p4) the ssm, hybrid and audio families on (1, 4): mamba2-370m cut to
+# 24 of its 48 layers (whole, its four runs took about 60 of (p4)'s 135.7
+# s, and the script 963.3 s with (p5) and (r) added), zamba2-7b cut to 12
+# of 81 layers (two attention sites), whisper-large-v3 cut to 8 + 8 of
+# its 32 + 32 layers (whole, its 12 decode steps took 11.1-18.7 s and the
+# script 933.7 s against its 900; 16 + 16 until (p5) and (r) needed the
+# time); one prefill step at
 # B=1 (whisper 1500 frames and 448 tokens) and the serve loop at seed 0,
 # the prefill alone at seed 1 (TP_SHORT_S); mamba2 trained one step on
 # (1, 4) and (2, 2) at TP_SSM_TRAIN_LAYERS
-TP_FAMILIES = (("ssm", "mamba2-370m", None), ("hybrid", "zamba2-7b", 12),
-               ("audio", "whisper-large-v3", 16))
+TP_FAMILIES = (("ssm", "mamba2-370m", 24), ("hybrid", "zamba2-7b", 12),
+               ("audio", "whisper-large-v3", 8))
 TP_SSM_TRAIN_LAYERS = 6
 # (p4)'s planted faults at seed 0: name → (what it does, the families it
 # is planted in, whether it runs the serve loop).  "norm": the gated norm
@@ -5806,8 +5931,144 @@ def tp_family_reference(device: str, *, kind: str, arch: str, layers,
     return dict(prefill_s=prefill_s, memory=mem, ref=ref)
 
 
+def pipe_inputs(model, cfg, seed: int, n_micro: int, s: int, dev):
+    """(p5)'s draws, the same in every process: the model's parameters
+    from ``seed``, the microbatches x (n_micro, 1, s, d) in the model's
+    dtype and the output's float32 cotangent."""
+    import torch
+    params = model.init(seeded(dev, seed))
+    shape = (n_micro, 1, s, cfg.d_model)
+    x = torch.randn(shape, generator=seeded(dev, 1000 + seed), device=dev,
+                    dtype=torch.float32).to(cfg.dtype)
+    cot = torch.randn(shape, generator=seeded(dev, 2000 + seed), device=dev,
+                      dtype=torch.float32)
+    return params, x, cot
+
+
+@contextlib.contextmanager
+def tp_pipe_fault(fault, y, rank: int, n: int):
+    """(p5)'s planted fault around the backward of the pipelined output
+    ``y``: "sum", the output's cotangent summed over the ranks (every
+    gradient times n); "two_away", the backward's exchange sent to the
+    stage two away; "drop", the last microbatch's cotangent dropped at the
+    last stage."""
+    from unittest import mock
+
+    import torch.distributed as dist
+    from repro_torch.parallel import pipeline
+    if fault == "sum":
+        def summed(g):
+            g = g.clone()
+            dist.all_reduce(g)
+            return g
+        y.register_hook(summed)
+    elif fault == "drop" and rank == n - 1:
+        def dropped(g):
+            g = g.clone()
+            g[-1] = 0
+            return g
+        y.register_hook(dropped)
+    if fault != "two_away":
+        yield
+        return
+    real = pipeline.exchange
+
+    def two_away(t, to, frm, group):
+        if to == (rank - 1) % n:            # the backward's exchange
+            to, frm = (rank - 2) % n, (rank + 2) % n
+        return real(t, to, frm, group)
+    with mock.patch.object(pipeline, "exchange", two_away):
+        yield
+
+
+def tp_pipeline_rank(rank: int, device: str, *, seed: int, n_micro: int,
+                     s: int, reduced: bool, ref: str, fault=None) -> dict:
+    """(p5) on one rank: stage ``rank`` of the 4-stage GPipe step over
+    qwen3-14b cut to one layer a stage, forward and backward, the loss the
+    float32 sum of the output times the seeded cotangent → the output and
+    the gradients against the parent's sequential run (``ref``), launches,
+    host s of the step, memory.  ``fault``: :func:`tp_pipe_fault`."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import leaves, tree_map
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel.pipeline import make_pipeline_train_step
+    tp_free(device)
+    dev = torch.device(device)
+    n = dist.get_world_size()
+    cfg = tp_config(TRAIN_ARCH, n, reduced)
+    model = build_model(cfg)
+    mesh = make_host_mesh(device=device)
+    params, x, cot = pipe_inputs(model, cfg, seed, n_micro, s, dev)
+    block = tree_map(lambda t: t[rank:rank + 1].unsqueeze(0).clone()
+                     .requires_grad_(), params["layers"])
+    del params
+    tp_free(device)
+    pos = torch.arange(s, device=dev)
+    run = make_pipeline_train_step(
+        lambda h, lp: model._layer_train(h, lp, pos), n, n_micro, mesh)
+    xg = x.requires_grad_()
+    tp_reset_counts()
+    tp_sync(device)
+    t0 = time.perf_counter()
+    y = run(block, xg)
+    with tp_pipe_fault(fault, y, rank, n):
+        (y.float() * cot).sum().backward()
+    tp_sync(device)
+    step_s = time.perf_counter() - t0
+    launches = tp_counts()
+    want = torch.load(f"{ref}_{rank}.pt", map_location=dev)
+    errs = {k: rel_l2(t.grad[0], want["grads"][k])
+            for k, t in zip(leaf_names(block), leaves(block))}
+    errs["x"] = rel_l2(xg.grad, want["gx"])
+    out = dict(y_bit_equal=bool(torch.equal(y, want["y"])),
+               y_max_abs_err=max_abs_err(y.detach().float(),
+                                         want["y"].float()),
+               grad_rel_l2=errs, step_s=step_s, launches=launches,
+               memory=tp_memory(device))
+    tp_log(rank, f"pipelined step (fault {fault}) in {step_s:.2f} s")
+    return out
+
+
+def tp_pipeline_reference(device: str, *, seed: int, n_micro: int, s: int,
+                          reduced: bool, out: str, n: int) -> dict:
+    """(p5)'s sequential run in this process: the same n layers applied to
+    each microbatch in turn, the same loss, autograd → ``out``_r.pt for
+    each rank r (the output, x's gradient and layer r's gradients)."""
+    import torch
+    from repro_torch.models.common import leaves
+    from repro_torch.models.registry import build_model
+    tp_free(device)
+    dev = torch.device(device)
+    cfg = tp_config(TRAIN_ARCH, n, reduced)
+    model = build_model(cfg)
+    params, x, cot = pipe_inputs(model, cfg, seed, n_micro, s, dev)
+    layers = params["layers"]
+    del params
+    flat = leaves(layers)
+    for t in flat:
+        t.requires_grad_(True)
+    pos = torch.arange(s, device=dev)
+    tp_sync(device)
+    t0 = time.perf_counter()
+    y, grads, gx = pipe_sequential(
+        lambda h, lp: model._layer_train(h, lp, pos), layers, n, x, cot)
+    tp_sync(device)
+    step_s = time.perf_counter() - t0
+    names = leaf_names(layers)
+    for r in range(n):
+        torch.save({"y": y.cpu(), "gx": gx.cpu(),
+                    "grads": {k: g[r].cpu() for k, g in zip(names, grads)}},
+                   f"{out}_{r}.pt")
+    mem = tp_memory(device)
+    del layers, flat, x, cot, y, grads, gx
+    tp_free(device)
+    return dict(step_s=step_s, memory=mem)
+
+
 TP_COMMANDS = {"serve": tp_serve_rank, "train": tp_train_rank,
-               "family": tp_family_rank}
+               "family": tp_family_rank, "pipe": tp_pipeline_rank}
 
 
 def tp_reference_serve(device: str, *, arch: str, layers, seed: int, b: int,
@@ -6079,6 +6340,78 @@ def tp_families(ranks, card: str, device: str, reduced: bool,
     return paths, read
 
 
+# (p5) the GPipe step over the 4 ranks: qwen3-14b at full width cut to
+# one layer a stage, TP_PIPE_MICRO microbatches of (1, TRAIN_S, d) (the
+# bubble (S-1)/(M+S-1) = 3/7), forward and backward at two weight seeds,
+# then the planted faults at the first (tp_pipe_fault)
+TP_PIPE_MICRO = 4
+TP_PIPE_SEEDS = (0, 1)
+TP_PIPE_FAULTS = ("sum", "two_away", "drop")
+# limits on the relative L2 of each rank's gradient leaves and of x's
+# gradient from the sequential run's, above both seeds' clean readings
+# (0 and 0: bit-equal) and below every planted fault's (3.0, 1659 and
+# 0.561 on the leaves; PERF.md, section 6): a bf16 rounding's room, for
+# a cuBLAS algorithm that a contiguous exchanged cotangent might change
+TP_PIPE_TOL = {"grad": 2.0 ** -7, "x": 2.0 ** -7}
+
+
+def tp_pipeline(ranks, card: str, device: str, reduced: bool, s: int):
+    """(p5) the pipelined qwen3-14b step on the ranks against this
+    process's sequential run → (paths, readings)."""
+    n, m = ranks.n, TP_PIPE_MICRO
+    t_steps = m + n - 1
+    want = {"flash_attention": t_steps, "rmsnorm": 4 * t_steps,
+            "flash_attention_bwd": t_steps, "rmsnorm_bwd": 4 * t_steps}
+    paths, read = {}, {"seeds": {}, "faults": {}}
+
+    def worst(per_rank):
+        grads = max(((v, f"rank {r} {k}") for r, rr in enumerate(per_rank)
+                     for k, v in rr["grad_rel_l2"].items() if k != "x"),
+                    key=lambda t: t[0])
+        return grads, max(rr["grad_rel_l2"]["x"] for rr in per_rank)
+    for seed in TP_PIPE_SEEDS:
+        ref = str(TP_DIR / f"p5_seed{seed}")
+        kw = dict(seed=seed, n_micro=m, s=s, reduced=reduced)
+        one = tp_pipeline_reference(device, out=ref, n=n, **kw)
+        per_rank = ranks.run("pipe", ref=ref, **kw)
+        (g_err, g_at), x_err = worst(per_rank)
+        read["seeds"][seed] = dict(one_rank=one, ranks=per_rank,
+                                   grad_rel_l2=g_err, worst_leaf=g_at,
+                                   x_rel_l2=x_err)
+        log(f"(p5) seed {seed}: {TRAIN_ARCH} at full width, {n} stages of "
+            f"one layer, {m} microbatches of (1, {s}, d) (bubble "
+            f"{n - 1}/{t_steps}): output bit-equal to the sequential run's "
+            f"on every rank {[r['y_bit_equal'] for r in per_rank]} (max "
+            f"|diff| {max(r['y_max_abs_err'] for r in per_rank):.3g}); "
+            f"gradients' largest relative L2 {g_err:.3g} ({g_at}), x's "
+            f"{x_err:.3g} (limits {TP_PIPE_TOL}); host s per pipelined step "
+            f"{[round(r['step_s'], 2) for r in per_rank]} (the sequential "
+            f"run {one['step_s']:.2f}); GB per rank "
+            f"{[round(r['memory']['peak_gb'] or 0, 2) for r in per_rank]}; "
+            f"{card}")
+        check(g_err <= TP_PIPE_TOL["grad"] and x_err <= TP_PIPE_TOL["x"],
+              f"(p5) seed {seed}: gradient {g_at} {g_err}, x {x_err}")
+        check(all(r["y_bit_equal"] for r in per_rank),
+              f"(p5) seed {seed}: the output differs from the sequential "
+              f"run's")
+        if seed == TP_PIPE_SEEDS[0]:
+            paths[f"(p5) {TRAIN_ARCH} GPipe step on {n} ranks"] = \
+                tp_check_launches("(p5)", [r["launches"] for r in per_rank],
+                                  want, device)
+    for fault in TP_PIPE_FAULTS:
+        ref = str(TP_DIR / f"p5_seed{TP_PIPE_SEEDS[0]}")
+        per_rank = ranks.run("pipe", seed=TP_PIPE_SEEDS[0], n_micro=m, s=s,
+                             reduced=reduced, ref=ref, fault=fault)
+        (g_err, g_at), x_err = worst(per_rank)
+        read["faults"][fault] = dict(grad_rel_l2=g_err, worst_leaf=g_at,
+                                     x_rel_l2=x_err)
+        log(f"(p5) planted fault {fault!r}: gradients' largest relative L2 "
+            f"{g_err:.3g} ({g_at}), x's {x_err:.3g}")
+        check(g_err > TP_PIPE_TOL["grad"],
+              f"(p5) planted fault {fault!r} not caught: {g_err}")
+    return paths, read
+
+
 def phase_tensor_parallel(card: str, device: str = None,
                           reduced: bool = False, s: int = None):
     """(p) qwen3-14b and qwen3-moe-235b-a22b on TP_RANKS ranks sharing the
@@ -6262,6 +6595,13 @@ def phase_tensor_parallel(card: str, device: str = None,
         paths.update(p4_paths)
         read["p4"]["seconds"] = time.perf_counter() - t4
         log(f"(p4) took {read['p4']['seconds']:.1f} s")
+        # ---- (p5) the GPipe step and its backward
+        t5 = time.perf_counter()
+        p5_paths, read["p5"] = tp_pipeline(ranks, card, device, reduced,
+                                           s_train)
+        paths.update(p5_paths)
+        read["p5"]["seconds"] = time.perf_counter() - t5
+        log(f"(p5) took {read['p5']['seconds']:.1f} s")
     if device == "cuda":
         torch.cuda.memory._set_allocator_settings("expandable_segments:False")
     read["seconds"] = time.perf_counter() - t_phase
@@ -6426,10 +6766,123 @@ def phase_dryrun(measured=None):
     return read
 
 
+# ------------------------------------------------------------ phase (r)
+# the port's examples, each in its own interpreter (as a user runs it),
+# all started together, under a runner that prints the process's kernel
+# launches after the script ends
+EXAMPLES_DIR = ROOT / "build" / "chip_smoke_examples"
+# arguments on the card: torch_train_lm at the length whose loss must fall
+EXAMPLE_ARGS = {"torch_train_lm": ["--steps", "100"]}
+# the examples whose path runs the overlay executor, and those that run
+# the model kernels (and, training, their backward kernels); serve_lm's
+# legacy loop prefills token by token, and a decode step's attention is
+# the plain read of the cache, as the reference's: RMSNorm alone
+EXAMPLES_OVERLAY = ("torch_quickstart", "torch_opencl_runtime_demo",
+                    "torch_resource_aware_scaling", "torch_graph_replay",
+                    "torch_multi_tenant_serving", "torch_serve_zoo",
+                    "torch_trace_serving", "torch_serve_lm")
+EXAMPLES_MODEL = {"torch_serve_lm": ("rmsnorm",),
+                  "torch_elastic_restart": (
+                      "flash_attention", "rmsnorm", "flash_attention_bwd",
+                      "rmsnorm_bwd"),
+                  "torch_train_lm": ("flash_attention", "rmsnorm",
+                                     "flash_attention_bwd", "rmsnorm_bwd")}
+EXAMPLE_TIMEOUT_S = 300
+EXAMPLE_RUNNER = r"""
+import json, runpy, sys
+root, path, args = sys.argv[1], sys.argv[2], sys.argv[3:]
+sys.argv = [path, *args]
+code = 0
+try:
+    runpy.run_path(path, run_name="__main__")
+except SystemExit as e:
+    code = e.code if isinstance(e.code, int) else int(e.code is not None)
+sys.path.insert(0, root)
+import chip_smoke
+print("EXAMPLE_LAUNCHES " + json.dumps(chip_smoke.example_counts()),
+      flush=True)
+sys.exit(code)
+"""
+
+
+def example_counts() -> dict:
+    """This process's launches of every ported kernel."""
+    from repro_torch.kernels.overlay_exec import kernel
+    return dict(tp_counts(), overlay_exec=kernel.overlay_execute.launches)
+
+
+def phase_examples(card: str):
+    """(r) every ``examples/torch_*.py`` on the card, each exiting 0 with
+    its own checks holding → (launches summed over the examples,
+    readings)."""
+    import shutil
+    scripts = sorted((ROOT / "examples").glob("torch_*.py"))
+    check(len(scripts) >= 10, f"(r) {len(scripts)} examples")
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0, procs = time.perf_counter(), {}
+    for path in scripts:
+        cwd = EXAMPLES_DIR / path.stem
+        cwd.mkdir(parents=True)
+        procs[path.stem] = subprocess.Popen(
+            [sys.executable, "-c", EXAMPLE_RUNNER, str(ROOT), str(path),
+             *EXAMPLE_ARGS.get(path.stem, [])], cwd=cwd, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    read, total = {}, {}
+    try:
+        for name, proc in procs.items():
+            try:
+                out, err = proc.communicate(
+                    timeout=max(1.0, EXAMPLE_TIMEOUT_S
+                                - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"(r) {name}: no end within "
+                                   f"{EXAMPLE_TIMEOUT_S} s")
+            check(proc.returncode == 0, f"(r) {name} exited "
+                  f"{proc.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
+            line = [ln for ln in out.splitlines()
+                    if ln.startswith("EXAMPLE_LAUNCHES ")][-1]
+            got = json.loads(line.split(" ", 1)[1])
+            read[name] = dict(launches=got,
+                              last_lines=out.splitlines()[-4:-1])
+            for k, v in got.items():
+                if isinstance(v, dict):
+                    for route, c in v.items():
+                        total.setdefault(k, {}).setdefault(route, 0)
+                        total[k][route] += c
+                else:
+                    total[k] = total.get(k, 0) + v
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for name, r in read.items():
+        got = r["launches"]
+        log(f"(r) {name}: exit 0; "
+            f"launches: executor {got['overlay_exec']}, flash attention "
+            f"{got['flash_attention']} (by route "
+            f"{got['flash_attention_by_route']}), RMSNorm {got['rmsnorm']}, "
+            f"backward {got['flash_attention_bwd']} and {got['rmsnorm_bwd']}"
+            f"; " + " | ".join(r["last_lines"]))
+        if name in EXAMPLES_OVERLAY:
+            check(got["overlay_exec"] > 0,
+                  f"(r) {name} never launched the executor")
+        for k in EXAMPLES_MODEL.get(name, ()):
+            check(got[k] > 0, f"(r) {name} never launched {k}")
+    check(set(read) >= set(EXAMPLES_OVERLAY) | set(EXAMPLES_MODEL),
+          f"(r) examples run: {sorted(read)}")
+    seconds = time.perf_counter() - t0
+    log(f"(r) {len(read)} examples, started together, all exit 0 in "
+        f"{seconds:.1f} s; {card}")
+    return total, dict(examples=read, seconds=seconds)
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("o", "p", "q"), default=None,
+    ap.add_argument("--phase", choices=("o", "p", "p5", "q", "r"),
+                    default=None,
                     help="build the kernels, then run this phase alone "
                          "(its checks hold; no result lines)")
     args = ap.parse_args(argv)
@@ -6449,7 +6902,7 @@ def main(argv=None) -> int:
     max_err: list = []
     card = phase_setup()
     if args.phase == "o":
-        dp = phase_dp(card)[3]
+        dp = phase_dp(card)[4]
         log("(o) readings " + json.dumps(dp))
         log(f"done in {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -6458,8 +6911,18 @@ def main(argv=None) -> int:
         log("(p) readings " + json.dumps(tp, default=str))
         log(f"done in {time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.phase == "p5":
+        with TpRanks(TP_RANKS, DEVICE) as ranks:
+            p5 = tp_pipeline(ranks, card, DEVICE, False, TRAIN_S)[1]
+        log("(p5) readings " + json.dumps(p5, default=str))
+        log(f"done in {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.phase == "q":
         log("(q) readings " + json.dumps(phase_dryrun()))
+        log(f"done in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.phase == "r":
+        log("(r) readings " + json.dumps(phase_examples(card)[1]))
         log(f"done in {time.perf_counter() - t_start:.1f} s")
         return 0
     t_last = [t_start]
@@ -6512,20 +6975,27 @@ def main(argv=None) -> int:
     train_launches, bwd_launches, train = phase_train(card)
     took("(n2)")
     paths["(n) qwen3-14b training"] = train_launches
-    dp_launches, dp_bwd, pipe_launches, dp = phase_dp(card)
+    dp_launches, dp_bwd, pipe_launches, pipe_grad, dp = phase_dp(card)
     took("(o)")
     paths["(o) qwen3-14b compressed DP"] = dp_launches
     paths["(o) one-stage pipeline"] = pipe_launches
+    paths["(o) one-stage pipeline with its backward"] = pipe_grad
     tp_paths, tp = phase_tensor_parallel(card)
     took("(p)")
     paths.update(tp_paths)
     dry = phase_dryrun({"prefill": prefill,
                         "train": (train["step_ms"], train["peak_gb"] * 1e9)})
     took("(q)")
+    ex_launches, examples = phase_examples(card)
+    took("(r)")
+    paths["(r) examples"] = ex_launches
     bwd_by_path = {name: {"(n) qwen3-14b training": bwd_launches[name],
                           "(o) qwen3-14b compressed DP": dp_bwd[name],
+                          "(o) one-stage pipeline with its backward":
+                              pipe_grad[name],
                           **{label: n[name] for label, n in tp_paths.items()
-                             if n[name]}}
+                             if n[name]},
+                          "(r) examples": ex_launches[name]}
                    for name in ("rmsnorm_bwd", "flash_attention_bwd")}
     by_path = {name: {label: n[name] for label, n in paths.items()}
                for name in ("rmsnorm", "flash_attention")}
@@ -6546,6 +7016,7 @@ def main(argv=None) -> int:
     log("(o) readings " + json.dumps(dp))
     log("(p) readings " + json.dumps(tp, default=str))
     log("(q) readings " + json.dumps(dry))
+    log("(r) readings " + json.dumps(examples))
     # kernels per backward wrapper call and device ms per step, counted in
     # the profiled training step's trace (None where it holds no kernel)
     prof = train["profile"] or {}
@@ -6562,12 +7033,14 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/overlay_exec.cu",
         "replaces": "src/repro/kernels/overlay_exec/kernel.py:30",
         "launches": (launches + runtime_launches + serving_launches
-                     + verified_launches + paper_launches),
+                     + verified_launches + paper_launches
+                     + ex_launches["overlay_exec"]),
         "launches_by_path": {"(c) run_overlay": launches,
                              "(h) runtime seam": runtime_launches,
                              "(i) serving": serving_launches,
                              "(j) verified": verified_launches,
                              "(m) paper benchmarks": paper_launches,
+                             "(r) examples": ex_launches["overlay_exec"],
                              "(k), (l) and (p) models (not on their "
                              "path: the models' pointwise datapaths, the "
                              "Mamba2 gate among them, run the overlay DFG "
@@ -6747,6 +7220,8 @@ def main(argv=None) -> int:
         "launches_by_path": bwd_by_path["flash_attention_bwd"],
         "launches_by_route": {
             route: n + dp_bwd["flash_attention_bwd_by_route"][route]
+            + pipe_grad["flash_attention_bwd_by_route"][route]
+            + ex_launches["flash_attention_bwd_by_route"][route]
             + (sum(p["flash_attention_bwd"] for p in tp_paths.values())
                if route == "wgmma" else 0)
             for route, n in

@@ -4,11 +4,13 @@ flash-attention and RMSNorm kernels forward and backward on the card,
 AdamW, checkpointing, restart, the straggler watchdog, overlay-JIT'd
 activations), on one CUDA card unless ``--device cpu``.
 
-    PYTHONPATH=src python examples/torch_train_lm.py [--steps 300]
+    PYTHONPATH=src python examples/torch_train_lm.py [--steps 300] \\
+        [--batch 8] [--seq 128] [--device cpu]
 """
 
 import argparse
 import dataclasses
+import math
 import tempfile
 
 import torch
@@ -20,6 +22,8 @@ from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.loop import TrainLoop, TrainLoopConfig
 from repro_torch.train.step import init_state, make_train_step
+
+LEARNS_BY = 100
 
 
 def main() -> None:
@@ -57,7 +61,11 @@ def main() -> None:
                   f"{m['dt_s'] * 1e3:6.0f} ms")
         print(f"loss: {losses[0]:.3f} → {losses[-1]:.3f} "
               f"({'improved' if losses[-1] < losses[0] else 'FLAT'})")
-        assert losses[-1] < losses[0], "training did not reduce loss"
+        assert all(math.isfinite(v) for v in losses), losses
+        # a random 100M model's loss moves by noise over its first tens of
+        # steps; a run of LEARNS_BY steps or more must have reduced it
+        if args.steps >= LEARNS_BY:
+            assert losses[-1] < losses[0], "training did not reduce loss"
 
         # restart-from-checkpoint proof
         state2 = init_state(model, torch.Generator(device=dev).manual_seed(0))
@@ -66,6 +74,7 @@ def main() -> None:
                           TrainLoopConfig(total_steps=args.steps + 10,
                                           checkpoint_dir=ckdir))
         assert loop2.try_restore(), "restore failed"
+        assert loop2.start_step == args.steps, loop2.start_step
         print(f"restart: resumed from step {loop2.start_step} OK")
 
 

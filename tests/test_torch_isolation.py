@@ -1,7 +1,8 @@
 """The port stands alone: nothing under ``src/repro_torch/``, and not
-``chip_smoke.py`` or the port's benchmarks (``benchmarks/torch_*.py`` and
-the helper they share, ``benchmarks/port_bench.py``), imports JAX or any
-module of the JAX package ``repro``.
+``chip_smoke.py``, the port's benchmarks (``benchmarks/torch_*.py`` and
+the helper they share, ``benchmarks/port_bench.py``) or its examples
+(``examples/torch_*.py``), imports JAX or any module of the JAX package
+``repro``.
 
 Checked twice: statically over every import statement, and in a fresh
 interpreter that imports every module of the port and then looks at
@@ -25,6 +26,7 @@ SMOKE = ROOT / "chip_smoke.py"
 BENCHMARKS = sorted((ROOT / "benchmarks").glob("torch_*.py"))
 # what the port's benchmarks share; a helper, not a script
 BENCH_HELPER = ROOT / "benchmarks" / "port_bench.py"
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -52,6 +54,20 @@ def _imports(path: Path):
                           getattr(node.func, "id", None))
               in ("import_module", "__import__")):
             yield node.lineno, node.args[0].value
+
+
+@pytest.mark.parametrize("example", EXAMPLES, ids=lambda p: p.stem)
+def test_no_example_imports_jax_or_the_reference_package(example):
+    bad = [f"{line}: {name}" for line, name in _imports(example)
+           if _forbidden(name)]
+    assert not bad, bad
+
+
+def test_every_reference_example_has_a_port():
+    ported = {p.name[len("torch_"):] for p in EXAMPLES}
+    reference = {p.name for p in (ROOT / "examples").glob("*.py")} - {
+        p.name for p in EXAMPLES}
+    assert reference <= ported, sorted(reference - ported)
 
 
 def test_no_source_imports_jax_or_the_reference_package():

@@ -16,6 +16,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -29,8 +30,9 @@ ROOT = Path(__file__).resolve().parents[1]
 @contextlib.contextmanager
 def jax_running(body: str, n_devices: int, *args: str, timeout: int = 300):
     """Run ``body`` in a child interpreter whose JAX sees ``n_devices``
-    CPU devices (``args`` its ``sys.argv[1:]``) while the block runs; on
-    leaving the block, wait for it and require it to have succeeded."""
+    CPU devices (``args`` its ``sys.argv[1:]``) while the block runs (the
+    block gets the process); on leaving the block, wait for it and
+    require it to have succeeded."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     prelude = ("import os\nos.environ['XLA_FLAGS'] = "
                f"'--xla_force_host_platform_device_count={n_devices} "
@@ -39,7 +41,7 @@ def jax_running(body: str, n_devices: int, *args: str, timeout: int = 300):
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, env=env, cwd=ROOT)
     try:
-        yield
+        yield proc
         out, err = proc.communicate(timeout=timeout)
     finally:
         if proc.poll() is None:
@@ -48,10 +50,33 @@ def jax_running(body: str, n_devices: int, *args: str, timeout: int = 300):
     assert proc.returncode == 0, out + err
 
 
-def spawn(fn, n: int, tmp_path: Path, *args) -> None:
-    """``fn(rank, n, *args)`` on ``n`` gloo ranks, one process each."""
+def wait_for(path: Path, proc, timeout: float = 300) -> None:
+    """Wait until ``path`` exists, which the child ``proc`` writes; fail
+    with the child's output if it ends first or ``timeout`` s pass."""
+    deadline = time.monotonic() + timeout
+    while not path.exists():
+        if proc.poll() is not None or time.monotonic() > deadline:
+            if proc.poll() is None:
+                proc.kill()
+            out, err = proc.communicate()
+            raise AssertionError(f"{path} never appeared\n{out}{err}")
+        time.sleep(0.1)
+
+
+def spawn(fn, n: int, tmp_path: Path, *args, timeout: float = 600) -> None:
+    """``fn(rank, n, *args)`` on ``n`` gloo ranks, one process each; the
+    ranks are killed, and the call fails, if they have not all finished
+    within ``timeout`` s."""
     store = tmp_path / f"store_{fn.__name__}_{n}"
-    mp.spawn(_rank, args=(fn, n, str(store), args), nprocs=n, join=True)
+    ctx = mp.spawn(_rank, args=(fn, n, str(store), args), nprocs=n,
+                   join=False)
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError(f"{fn.__name__} on {n} ranks did not end "
+                                 f"within {timeout} s")
 
 
 def _rank(rank: int, fn, n: int, store: str, args) -> None:
@@ -173,6 +198,59 @@ def pipeline_rank(rank: int, n: int, inputs: str, out: str,
     run = make_pipeline_train_step(tanh_layer, n, n_micro, mesh)
     y = run(w[rank:rank + 1], torch.from_numpy(arrays["x"]))
     np.save(out % rank, y.numpy())
+
+
+def pipeline_grad_rank(rank: int, n: int, inputs: str, out: str,
+                       n_micro: int, kind: str) -> None:
+    """The port's pipelined step and its backward with this rank as stage
+    ``rank`` of ``n``: ``inputs``' x (micro, mb, ...) and the output's
+    cotangent c, the loss sum(y * c) → ``out % rank``: y, x's gradient and
+    this rank's block gradient (``g/`` keys).  ``kind`` "tanh": the layers
+    are ``inputs``' w (stages, layers, d, d); "qwen3": the reduced
+    qwen3-14b of :func:`pipe_model` with the JAX package's layer
+    parameters (``layers/`` keys of the npz at ``inputs`` + ".layers.npz")
+    and ``DenseLM._layer_train`` as the layer."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import params_from_numpy, tree_map
+    from repro_torch.parallel.pipeline import make_pipeline_train_step
+    arrays = np.load(inputs)
+    if kind == "tanh":
+        stages = {"w": torch.from_numpy(arrays["w"])}
+
+        def layer_fn(c, lp):
+            return tanh_layer(c, lp["w"])
+    else:
+        cfg, model = pipe_model()
+        stages = tree_map(
+            lambda a: a.reshape(n, -1, *a.shape[1:]),
+            params_from_numpy(nested(np.load(inputs + ".layers.npz")), cfg,
+                              "cpu"))
+        pos = torch.arange(arrays["x"].shape[2])
+
+        def layer_fn(c, lp):
+            return model._layer_train(c, lp, pos)
+    block = tree_map(lambda a: a[rank:rank + 1].clone().requires_grad_(),
+                     stages)
+    x = torch.from_numpy(arrays["x"]).requires_grad_()
+    run = make_pipeline_train_step(layer_fn, n, n_micro,
+                                   make_host_mesh(device="cpu"))
+    y = run(block, x)
+    (y * torch.from_numpy(arrays["c"])).sum().backward()
+    np.savez(out % rank, y=y.detach().numpy(), gx=x.grad.numpy(),
+             **flat(tree_map(lambda a: a.grad, block), "g/"))
+
+
+# the reduced qwen3-14b the pipeline's gradients are held on: float32, no
+# remat, 4 layers
+PIPE_ARCH, PIPE_LAYERS = "qwen3-14b", 4
+
+
+def pipe_model():
+    from repro_torch.configs.registry import ALL_ARCHS, reduced_config
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(reduced_config(ALL_ARCHS[PIPE_ARCH]),
+                              dtype=torch.float32, n_layers=PIPE_LAYERS)
+    return cfg, build_model(cfg, remat_policy="none")
 
 
 # ------------------------------------------------------- meshes and place
