@@ -21,10 +21,15 @@ main paths:
   - RMSNorm's backward (``rmsnorm_bwd``): qwen3-14b's three training
     shapes at B=2, S=2048 in bfloat16 (rows of 5120; the q and k heads
     views of 128 with a contiguous gradient), beside autograd through
-    ``torch.nn.functional.rms_norm`` (phase (n1)).
+    ``torch.nn.functional.rms_norm`` (phase (n1));
+  - the split-row RMSNorm (``rmsnorm_split``, Mamba2's gated norm with
+    its rows cut over 'model' = 4): one rank's block of zamba2-7b's and
+    mamba2-370m's, (16384, 1792) and (16384, 512) bfloat16, forward and
+    backward through the public wrappers with an all-reduce that sums
+    nothing, beside the plain versions (phases (f), (n1)).
 
-``--parts`` picks which of ``executor``, ``rmsnorm`` and ``rmsnorm_bwd``
-run (default: all three).
+``--parts`` picks which of ``executor``, ``rmsnorm``, ``rmsnorm_bwd`` and
+``rmsnorm_split`` run (default: all four).
 
 Each time is the median of ``--reps`` CUDA-event windows.  Before each
 window the L2 is evicted by reading a 100 MB scratch tensor and the card
@@ -65,7 +70,10 @@ SPECS = ((8, 8, 2), (32, 8, 2))
 D, HQ, HKV, HD, LAYERS = 5120, 40, 8, 128, 40
 PREFILL_B, PREFILL_S, DECODE_B = 4, 4096, 4
 TRAIN_B, TRAIN_S, TRAIN_LAYERS = 2, 2048, 12
-PARTS = ("executor", "rmsnorm", "rmsnorm_bwd")
+PARTS = ("executor", "rmsnorm", "rmsnorm_bwd", "rmsnorm_split")
+# the split rows: a rank's block (B*S, inner / 4) of each gated norm
+SPLIT_BLOCKS = (("zamba2-7b", 7168), ("mamba2-370m", 2048))
+SPLIT_WAYS = 4
 # --alternatives: executor (work-items a thread, block), RMSNorm (threads,
 # vectors a thread) on rows of 5120 bf16
 EXEC_PLANS = ((8, 128), (8, 256), (4, 256), (4, 128), (2, 256), (1, 256))
@@ -295,6 +303,45 @@ def time_rmsnorm_bwd(reps: int, scratch) -> dict:
     return {"shapes": shapes, "train_step": step}
 
 
+def time_rmsnorm_split(reps: int, scratch) -> dict:
+    """The split-row RMSNorm on one rank's block of each gated norm:
+    forward (``rmsnorm_split``, no grad) and backward
+    (``rmsnorm_split_bwd``) kernel ms, the plain versions' ms, and the
+    byte bounds: x read and y written; x and dy read and dx written, and
+    the two-pass bound (x and dy read twice: dx waits for the
+    all-reduce)."""
+    import torch
+    from repro_torch.kernels.rmsnorm import kernel, ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    eps, out = 1e-6, {}
+    for name, n in SPLIT_BLOCKS:
+        d = n // SPLIT_WAYS
+        x, dy = (torch.randn(PREFILL_B * PREFILL_S, d, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+                 for _ in range(2))
+        w = (torch.randn(d, generator=gen, device="cuda") * 0.1
+             + 1).to(torch.bfloat16)
+        total = ref.split_sumsq(x) * SPLIT_WAYS
+        dot = ref.split_dot(x, w, dy)
+        size = x.numel() * x.element_size()
+        times = {
+            "forward": device_ms(lambda: kernel.rmsnorm_split(
+                x, w, eps, n, lambda t: t), reps, scratch),
+            "forward_plain": device_ms(lambda: ref.rmsnorm_split(
+                x, w, ref.split_sumsq(x), n, eps), 3, scratch),
+            "backward": device_ms(lambda: kernel.rmsnorm_split_bwd(
+                x, w, dy, total, eps, n, lambda t: t), reps, scratch),
+            "backward_plain": device_ms(lambda: ref.rmsnorm_split_bwd(
+                x, w, dy, total, dot, n, eps), 3, scratch)}
+        bounds = {"forward": 2 * size, "backward": 3 * size,
+                  "backward_two_pass": 5 * size}
+        times.update({f"{k}_bound_ms": v / MEM_BYTES_PER_S * 1e3
+                      for k, v in bounds.items()})
+        out[f"{name} ({x.shape[0]}, {d})"] = times
+        del x, dy
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"),
@@ -341,6 +388,17 @@ def main() -> int:
                   f"(share {r['share']:.3f} of {r['bound_ms']:.4f}; "
                   f"autograd through rms_norm {r['library_ms']:.4f}); "
                   f"{card}")
+    if "rmsnorm_split" in parts:
+        result["rmsnorm_split"] = time_rmsnorm_split(args.reps, scratch)
+        for name, r in result["rmsnorm_split"].items():
+            print(f"{args.label}: split-row RMSNorm {name} forward "
+                  f"{r['forward']:.4f} ms (bound "
+                  f"{r['forward_bound_ms']:.4f}, plain "
+                  f"{r['forward_plain']:.4f}), backward "
+                  f"{r['backward']:.4f} ms (bounds "
+                  f"{r['backward_bound_ms']:.4f} and two-pass "
+                  f"{r['backward_two_pass_bound_ms']:.4f}, plain "
+                  f"{r['backward_plain']:.4f}); {card}")
     if args.alternatives:
         result["alternatives"] = time_alternatives(args.reps, scratch)
     for kind, runs in result.get("alternatives", {}).items():

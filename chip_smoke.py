@@ -155,8 +155,14 @@ float32 SIMT kernels).  Phases:
       (f) and (n1) also hold the split-row
       RMSNorm (Mamba2's gated norm with its rows over 'model'), forward
       and backward, against its plain version at mamba2's and zamba2's
-      rows cut 4 ways, with a planted fault (n a block's width), and time
-      one rank's block beside the byte bound.
+      rows and unaligned rows of 2036 cut 4 ways, with a planted fault (n
+      a block's width); the backward's two passes each against its plain
+      version, twice bit for bit, with two more planted faults (dw
+      without the last block's partial row, dx with the neighbouring
+      row's coefficients); and time one rank's block beside the byte
+      bounds (the backward's also beside the two-pass bound: x and dy
+      read twice), with the kernels a call counted by the wrappers.
+      ``python3 chip_smoke.py --phase split`` runs (a) and these two.
 
   (m) the paper's benchmarks and the reference's benchmark suite, after
       (l): ``run("cuda")`` of the ten suites of ``benchmarks/`` the port
@@ -2279,10 +2285,49 @@ def phase_rmsnorm():
 
 # the split-row RMSNorm's cases: Mamba2's gated norm over the inner width,
 # its rows cut 4 ways as on a model axis of 4; mamba2-370m's 4 x 4096 rows
-# of 2048 and zamba2-7b's rows of 7168
+# of 2048 and zamba2-7b's rows of 7168, and rows of 2036 (blocks of 509:
+# the scalar path) in 16387 rows, which no grid's blocks cut evenly
 SPLIT_WAYS = 4
 SPLIT_CASES = (("mamba2-370m gated norm", (PREFILL_B * PREFILL_S, 2048)),
-               ("zamba2-7b gated norm", (PREFILL_B * PREFILL_S, 7168)))
+               ("zamba2-7b gated norm", (PREFILL_B * PREFILL_S, 7168)),
+               ("unaligned rows", (PREFILL_B * PREFILL_S + 3, 2036)))
+
+
+def split_bwd_passes(kernel, blocks, total, width, eps, fault=0):
+    """The split backward's two passes on each block, the dots summed in
+    this process between them (the all-reduce's part) → ([dx, dw] joined,
+    each block's first pass (dot, partial, plan), the summed dots)."""
+    import torch
+    firsts = [kernel.split_bwd_rows(b, wb, g, total, width, eps)
+              for b, wb, g in blocks]
+    dot = sum(f[0] for f in firsts)
+    outs = [kernel.split_bwd_dx(b, wb, g, total, dot, part, plan, width,
+                                eps, fault=fault)
+            for (b, wb, g), (_, part, plan) in zip(blocks, firsts)]
+    return ([torch.cat([o[0] for o in outs], -1),
+             torch.cat([o[1] for o in outs], -1)], firsts, dot)
+
+
+def split_bwd_pass_errs(kernel, ref, blocks, firsts, total, dot, width, eps,
+                        tol):
+    """Each pass of each block against its plain version on the same
+    inputs → (all within ``tol``, the largest error): the first pass's
+    dots and partial dw rows over the plan's blocks of rows, the second's dx
+    and dw from the first pass's partials and the summed dots."""
+    oks, errs = [], []
+    for (b, wb, g), (d_k, part, plan) in zip(blocks, firsts):
+        block_of = kernel.split_bwd_block_of(total.numel(), plan.groups,
+                                             plan.grid).to(b.device)
+        d_p, part_p = ref.split_bwd_rows(b, wb, g, total, width, eps,
+                                         block_of, plan.grid)
+        got = kernel.split_bwd_dx(b, wb, g, total, dot, part, plan, width,
+                                  eps)
+        want = ref.split_bwd_dx(b, wb, g, total, dot, part, width, eps)
+        for got_t, want_t in ((d_k, d_p), (part, part_p), *zip(got, want)):
+            ok, err = close_enough(got_t, want_t, tol)
+            oks.append(ok)
+            errs.append(err)
+    return all(oks), max(errs)
 
 
 def phase_rmsnorm_split(bwd: bool):
@@ -2291,16 +2336,19 @@ def phase_rmsnorm_split(bwd: bool):
     each row cut into SPLIT_WAYS column blocks; the blocks' partial sums
     are added in this process (the all-reduce's part), then each block
     is applied.  RMS_TOL holds, and a planted fault (``n`` taken as a
-    block's width) must break it.  One rank's block of the zamba2 shape
-    is timed (the row sums and the apply; the backward's dot, dx and dw)
-    beside its plain version and the byte bound; no PyTorch call norms a
-    split row."""
+    block's width) must break it; the backward's two passes are also held
+    each against its plain version, run twice bit for bit, and its two
+    planted faults (``kernel.SPLIT_BWD_FAULTS``) must break RMS_TOL.  One
+    rank's block of the zamba2 shape is timed (the row sums and the
+    apply; the backward's two passes through ``rmsnorm_split_bwd``) and
+    of mamba2's the backward, beside the plain version and the byte
+    bounds; no PyTorch call norms a split row."""
     import torch
     from repro_torch.kernels.rmsnorm import kernel, ref
     phase = "(n1)" if bwd else "(f)"
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     eps = 1e-6
-    errs, fault_errs, out = {}, {}, {}
+    errs, fault_errs, out, times = {}, {}, {}, {}
     for name, (rows, n) in SPLIT_CASES:
         for dt in (torch.float32, torch.bfloat16):
             x = randn(gen, (rows, n), dt)
@@ -2312,18 +2360,17 @@ def phase_rmsnorm_split(bwd: bool):
                                           dy.chunk(SPLIT_WAYS, -1))]
             total = sum(kernel.split_row_sums(b) for b, _, _ in blocks)
             total_ref = sum(ref.split_sumsq(b) for b, _, _ in blocks)
-            dot = sum(kernel.split_row_sums(b, wb, g) for b, wb, g in blocks)
             dot_ref = sum(ref.split_dot(b, wb, g) for b, wb, g in blocks)
 
             def run(width, plain=False):
+                if bwd and not plain:
+                    return split_bwd_passes(kernel, blocks, total, width,
+                                            eps)[0]
                 outs = []
                 for b, wb, g in blocks:
-                    if bwd and plain:
+                    if bwd:
                         outs.append(ref.rmsnorm_split_bwd(
                             b, wb, g, total_ref, dot_ref, width, eps))
-                    elif bwd:
-                        outs.append(kernel.split_bwd_apply(
-                            b, wb, g, total, dot, width, eps))
                     elif plain:
                         outs.append((ref.rmsnorm_split(b, wb, total_ref,
                                                        width, eps),))
@@ -2335,30 +2382,55 @@ def phase_rmsnorm_split(bwd: bool):
             tol = tol_of(RMS_TOL, dt)
             want = run(n, plain=True)
             got = run(n)
-            bad = run(n // SPLIT_WAYS)
+            bad = {"n taken as a block's width": run(n // SPLIT_WAYS)}
+            key = f"{name} {str(dt)[6:]}"
+            extra = ""
+            if bwd:
+                again, firsts, dot = split_bwd_passes(kernel, blocks, total,
+                                                      n, eps)
+                same = all(torch.equal(a, c) for a, c in zip(got, again))
+                pass_ok, pass_err = split_bwd_pass_errs(
+                    kernel, ref, blocks, firsts, total, dot, n, eps, tol)
+                for label, code in kernel.SPLIT_BWD_FAULTS.items():
+                    bad[label] = split_bwd_passes(kernel, blocks, total, n,
+                                                  eps, fault=code)[0]
+                plan = firsts[0][2]
+                extra = (f"; each pass against its plain version "
+                         f"{pass_err:.3g}; two runs bit-equal {same}; plan: "
+                         f"{plan.tpr} threads a row, {plan.maxv} vectors of "
+                         f"{plan.vec} a thread at most, {plan.grid} blocks")
             torch.cuda.synchronize()
             res = [close_enough(g, w_, tol) for g, w_ in zip(got, want)]
             err = max(e for _, e in res)
-            ferr = max(close_enough(b_, w_, tol)[1]
-                       for b_, w_ in zip(bad, want))
-            key = f"{name} {str(dt)[6:]}"
-            errs[key], fault_errs[key] = err, ferr
+            ferrs = {label: max(close_enough(b_, w_, tol)[1]
+                                for b_, w_ in zip(outs, want))
+                     for label, outs in bad.items()}
+            errs[key], fault_errs[key] = err, ferrs
             log(f"{phase} split-row RMSNorm {'backward' if bwd else 'forward'}"
-                f" {key}, rows of {n} in {SPLIT_WAYS} blocks of "
+                f" {key}, {rows} rows of {n} in {SPLIT_WAYS} blocks of "
                 f"{n // SPLIT_WAYS}: max abs err {err:.3g} (tolerance "
-                f"{tol:g}); planted fault (n taken as a block's width) "
-                f"{ferr:.3g}")
+                f"{tol:g}); planted faults "
+                + ", ".join(f"({label}) {e:.3g}" for label, e in
+                            ferrs.items()) + extra)
             check(all(ok for ok, _ in res),
                   f"{phase} split-row RMSNorm != plain at {key}: {err}")
-            check(ferr > tol, f"{phase} split-row RMSNorm: the planted fault "
-                              f"at {key} was not caught ({ferr})")
-            if name.startswith("zamba2") and dt == torch.bfloat16:
+            for label, ferr in ferrs.items():
+                check(ferr > tol, f"{phase} split-row RMSNorm: the planted "
+                                  f"fault ({label}) at {key} was not caught "
+                                  f"({ferr})")
+            if bwd:
+                check(pass_ok, f"(n1) a split backward pass != its plain "
+                               f"version at {key}: {pass_err}")
+                check(same, f"(n1) the split backward differs between two "
+                            f"runs at {key}")
+            timed = dt == torch.bfloat16 and (
+                name.startswith("zamba2") or bwd and name.startswith("mamba2"))
+            if timed:
                 b, wb, g = blocks[0]
                 if bwd:
                     def k_fn():
-                        kernel.split_bwd_apply(
-                            b, wb, g, total,
-                            kernel.split_row_sums(b, wb, g), n, eps)
+                        kernel.rmsnorm_split_bwd(b, wb, g, total, eps, n,
+                                                 lambda t: t)
 
                     def p_fn():
                         ref.rmsnorm_split_bwd(b, wb, g, total_ref,
@@ -2373,6 +2445,12 @@ def phase_rmsnorm_split(bwd: bool):
                     def p_fn():
                         ref.rmsnorm_split(b, wb, ref.split_sumsq(b), n, eps)
                     tensors = 2                    # x read, y written
+                # the kernels one call launches, by the wrappers' counts
+                wrappers = (kernel.split_row_sums, kernel.split_apply,
+                            kernel.split_bwd_rows, kernel.split_bwd_dx)
+                before = sum(f.launches for f in wrappers)
+                k_fn()
+                per_call = sum(f.launches for f in wrappers) - before
                 scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
                                       device=DEVICE)
                 evict = hide_host(evict=scratch)
@@ -2382,17 +2460,49 @@ def phase_rmsnorm_split(bwd: bool):
                 byte_ms = (tensors * b.numel() + b.shape[-1]) \
                     * b.element_size() / MEM_BYTES_PER_S * 1e3
                 op_ms = (10 if bwd else 4) * b.numel() / F32_OPS_PER_S * 1e3
-                out = dict(ms=k_ms, plain_ms=p_ms, byte_ms=byte_ms,
-                           op_ms=op_ms, bound_ms=max(byte_ms, op_ms),
-                           library_ms=None,
-                           per=f"one rank's block (B*S, {n // SPLIT_WAYS}) "
-                               f"of zamba2-7b's gated norm at B={PREFILL_B},"
-                               f" S={PREFILL_S}, bf16, L2 evicted")
-                log(f"{phase} split-row RMSNorm {'backward' if bwd else ''} "
-                    f"one rank's block ({rows}, {n // SPLIT_WAYS}) bf16: "
-                    f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, byte bound "
-                    f"{byte_ms:.4f} ms (share {byte_ms / k_ms:.3f}); no "
-                    f"PyTorch call norms a split row")
+                t = dict(ms=k_ms, plain_ms=p_ms, byte_ms=byte_ms,
+                         op_ms=op_ms, bound_ms=max(byte_ms, op_ms),
+                         library_ms=None, kernel_launches_per_call=per_call,
+                         per=f"one rank's block (B*S, {n // SPLIT_WAYS}) "
+                             f"of {name.split()[0]}'s gated norm at "
+                             f"B={PREFILL_B}, S={PREFILL_S}, bf16, L2 "
+                             f"evicted")
+                line = (f"{phase} split-row RMSNorm "
+                        f"{'backward' if bwd else ''} one rank's block "
+                        f"({rows}, {n // SPLIT_WAYS}) bf16: kernel "
+                        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, byte bound "
+                        f"{byte_ms:.4f} ms (share {byte_ms / k_ms:.3f})")
+                if bwd:
+                    # x and dy read again after the all-reduce; each pass
+                    # alone, the L2 evicted before it
+                    two_pass = (5 * b.numel() + b.shape[-1]) \
+                        * b.element_size() / MEM_BYTES_PER_S * 1e3
+                    dot_k, part, plan = kernel.split_bwd_rows(
+                        b, wb, g, total, n, eps)
+                    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                                          device=DEVICE)
+                    evict = hide_host(evict=scratch)
+                    a_ms = cuda_ms(lambda: kernel.split_bwd_rows(
+                        b, wb, g, total, n, eps), before=evict)[0]
+                    b_ms = cuda_ms(lambda: kernel.split_bwd_dx(
+                        b, wb, g, total, dot_k, part, plan, n, eps),
+                        before=evict)[0]
+                    del scratch
+                    t.update(two_pass_bound_ms=two_pass, first_pass_ms=a_ms,
+                             second_pass_ms=b_ms)
+                    size = b.numel() * b.element_size()
+                    line += (f", two-pass bound {two_pass:.4f} ms (share "
+                             f"{two_pass / k_ms:.3f}); alone, the first "
+                             f"pass {a_ms:.4f} ms (x and dy read, "
+                             f"{2 * size / a_ms / 1e9:.3f} TB/s), the "
+                             f"second {b_ms:.4f} ms (x and dy read, dx "
+                             f"written, {3 * size / b_ms / 1e9:.3f} TB/s)")
+                log(f"{line}; {per_call} kernel launches a call; no PyTorch "
+                    f"call norms a split row")
+                times[name.split()[0]] = t
+    out = dict(times.get("zamba2-7b", {}))
+    if bwd:
+        out["at_mamba2_370m_block"] = times.get("mamba2-370m")
     out.update(errs=errs, planted_fault_errs=fault_errs)
     return out
 
@@ -2413,6 +2523,40 @@ def attention_bound_ms(b, hq, sq, skv, d, causal, window, itemsize,
     n_bytes = (2 * b * hq * sq * d + 2 * b * hkv * skv * d) * itemsize
     return (n_bytes / MEM_BYTES_PER_S * 1e3,
             4 * d * pairs / BF16_OPS_PER_S * 1e3)
+
+
+def simt_f32_times(q, k, v) -> dict:
+    """(f): the float32 route at the prefill shape (the SIMT kernel, which
+    every float32 call takes) in turns with scaled_dot_product_attention
+    in float32, twice, beside the float32 bound: q, k, v read and the
+    output written in 4 bytes, 4*D operations per visible pair at the
+    card's float32 rate outside the tensor cores."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel
+    b, hq, s, d = q.shape
+    runs = {"simt": lambda: kernel._launch(q, k, v, route="simt"),
+            "sdpa": lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)}
+    times = {name: [] for name in runs}
+    for _ in range(2):
+        for name, fn in runs.items():
+            times[name].append(cuda_ms(fn, reps=FA_REPS, warm=2)[0])
+    byte_ms, _ = attention_bound_ms(b, hq, s, s, d, True, None, 4,
+                                    hkv=k.shape[1])
+    pairs = b * hq * s * (s + 1) // 2
+    op_ms = 4 * d * pairs / F32_OPS_PER_S * 1e3
+    out = dict(ms=statistics.mean(times["simt"]), ms_turns=times["simt"],
+               library_ms=statistics.mean(times["sdpa"]),
+               library_ms_turns=times["sdpa"], byte_ms=byte_ms, op_ms=op_ms,
+               bound_ms=max(byte_ms, op_ms))
+    log(f"(f) prefill shape q ({b},{hq},{s},{d}) float32 causal, in turns: "
+        f"SIMT kernel {out['ms']:.3f} ms ({times['simt']}), "
+        f"scaled_dot_product_attention in float32 {out['library_ms']:.3f} "
+        f"ms ({times['sdpa']}); bound {out['bound_ms']:.3f} ms (operations "
+        f"at the float32 rate {op_ms:.3f}, bytes {byte_ms:.4f}; share "
+        f"{out['bound_ms'] / out['ms']:.3f})")
+    return out
 
 
 def fa_bf16_limit(q, k, v, want, causal=True, window=None):
@@ -2540,6 +2684,7 @@ def phase_flash_attention():
             f"std {float(got.float().std()):.3g}")
         if dt == torch.float32:
             errs[dt] = max(errs[dt], err)
+            f32 = simt_f32_times(q, k, v)
         else:
             errs["prefill"] = err
             shares["prefill"] = share
@@ -2690,7 +2835,8 @@ def phase_flash_attention():
             f"({whisper[name]['bound_by']}), share "
             f"{max(w_bytes, w_ops) / wk_ms:.3f}")
         del q, k, v
-    return dict(ms=k_ms, simt_ms=simt_ms, plain_ms=p_ms, library_ms=l_ms,
+    return dict(ms=k_ms, simt_ms=simt_ms, simt_float32=f32, plain_ms=p_ms,
+                library_ms=l_ms,
                 bound_ms=b_ms, ratio_to_library=k_ms / l_ms,
                 bound_by="operations" if op_ms >= byte_ms else "bytes",
                 ms_turns=times, moe_shape=dict(
@@ -6881,7 +7027,7 @@ def phase_examples(card: str):
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("o", "p", "p5", "q", "r"),
+    ap.add_argument("--phase", choices=("o", "p", "p5", "q", "r", "split"),
                     default=None,
                     help="build the kernels, then run this phase alone "
                          "(its checks hold; no result lines)")
@@ -6919,6 +7065,12 @@ def main(argv=None) -> int:
         return 0
     if args.phase == "q":
         log("(q) readings " + json.dumps(phase_dryrun()))
+        log(f"done in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.phase == "split":
+        for bwd in (False, True):
+            log(("(n1)" if bwd else "(f)") + " split-row readings "
+                + json.dumps(phase_rmsnorm_split(bwd)))
         log(f"done in {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.phase == "r":
@@ -7104,6 +7256,7 @@ def main(argv=None) -> int:
         "ms": fa["ms"],
         "ms_turns": fa["ms_turns"],
         "simt_ms": fa["simt_ms"],
+        "simt_float32_at_prefill_shape": fa["simt_float32"],
         "ratio_to_library": fa["ratio_to_library"],
         "plain_ms": fa["plain_ms"],
         "bound_ms": fa["bound_ms"],
@@ -7124,11 +7277,11 @@ def main(argv=None) -> int:
                     "squares the reference's XLA all-reduces)",
         "launches": sum(split_by_path["rmsnorm_split"].values()),
         "launches_by_path": split_by_path["rmsnorm_split"],
-        "kernel_launches_per_call": 2,
+        "kernel_launches_per_call": split_fwd["kernel_launches_per_call"],
         "match": "elementwise within tol + tol |plain| of the plain "
-                 "version (tol 1e-4 float32, 3e-2 bfloat16), rows of 2048 "
-                 "and 7168 in 4 blocks; the planted fault (n a block's "
-                 "width) caught",
+                 "version (tol 1e-4 float32, 3e-2 bfloat16), rows of 2048, "
+                 "7168 and 2036 in 4 blocks; the planted fault (n a "
+                 "block's width) caught",
         "max_abs_err": max(split_fwd["errs"].values()),
         "errs": split_fwd["errs"],
         "planted_fault_errs": split_fwd["planted_fault_errs"],
@@ -7148,11 +7301,15 @@ def main(argv=None) -> int:
                     "differentiates its plain version)",
         "launches": sum(split_by_path["rmsnorm_split_bwd"].values()),
         "launches_by_path": split_by_path["rmsnorm_split_bwd"],
-        "kernel_launches_per_call": 3,
+        "kernel_launches_per_call": split_bwd["kernel_launches_per_call"],
+        "kernels": ["rmsnorm_split_bwd_rows (before the all-reduce)",
+                    "rmsnorm_split_bwd_dx (after it)"],
         "match": "dx and dw elementwise within tol + tol |plain| of the "
                  "plain backward (tol 1e-4 float32, 3e-2 bfloat16; dw sums "
-                 "16,384 rows, so its largest values reach the hundreds); "
-                 "the planted fault caught",
+                 "16,384 rows, so its largest values reach the hundreds), "
+                 "each pass within it of its plain version on the same "
+                 "inputs, rows of 2048, 7168 and 2036 in 4 blocks; two runs "
+                 "bit-equal; the three planted faults caught",
         "max_abs_err": max(split_bwd["errs"].values()),
         "errs": split_bwd["errs"],
         "planted_fault_errs": split_bwd["planted_fault_errs"],
@@ -7161,8 +7318,10 @@ def main(argv=None) -> int:
         "bound_ms": split_bwd["bound_ms"],
         "bound_by": "bytes" if split_bwd["byte_ms"] >= split_bwd["op_ms"]
                     else "operations",
+        "two_pass_bound_ms": split_bwd["two_pass_bound_ms"],
         "library_ms": None,
         "per": split_bwd["per"],
+        "at_mamba2_370m_block": split_bwd["at_mamba2_370m_block"],
     }, {
         "name": "rmsnorm_bwd",
         "route": "cuda",

@@ -17,6 +17,7 @@ from typing import Dict, List, Tuple
 
 from repro_torch.core.fuse import FUGraph
 from repro_torch.core.overlay import OverlaySpec
+from repro_torch.core.place import PackedMaps
 from repro_torch.core.route import RoutingResult
 
 
@@ -25,7 +26,9 @@ class LatencyError(RuntimeError):
 
 
 @dataclasses.dataclass
-class LatencyAssignment:
+class LatencyAssignment(PackedMaps):
+    _MAPS = ("delays", "ready", "out_ready")
+
     # (replica, sid, port) -> delay-chain length in cycles
     delays: Dict[Tuple[int, int, int], int]
     # (replica, sid) -> cycle at which this FU's *output* is valid

@@ -21,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import random
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -30,8 +30,76 @@ from repro_torch.core.fuse import FUGraph
 from repro_torch.core.overlay import Coord, OverlaySpec
 
 
+def _pack_map(m: Dict[tuple, Any]) -> Optional[tuple]:
+    """A dict of int-tuple keys to ints or int tuples as one array of the
+    narrowest int type that holds it (a row an entry, in the dict's order),
+    or None where the dict holds anything that would not come back equal."""
+    if not m:
+        return None
+    k0, v0 = next(iter(m.items()))
+    if not isinstance(k0, tuple):
+        return None
+    klen, vtuple = len(k0), isinstance(v0, tuple)
+    try:
+        rows = np.array([k + v if vtuple else k + (v,)
+                         for k, v in m.items()], np.int64)
+    except (TypeError, ValueError, OverflowError):
+        return None
+    for dt in (np.int16, np.int32):
+        info = np.iinfo(dt)
+        if rows.size and info.min <= rows.min() and rows.max() <= info.max:
+            rows = rows.astype(dt)
+            break
+    packed = (rows, klen, vtuple)
+    return packed if rows.ndim == 2 and _unpack_map(*packed) == m else None
+
+
+def _unpack_map(rows, klen: int, vtuple: bool) -> dict:
+    if vtuple:
+        return {tuple(r[:klen]): tuple(r[klen:]) for r in rows.tolist()}
+    return {tuple(r[:klen]): r[klen] for r in rows.tolist()}
+
+
+class PackedMaps:
+    """Pickles the dict fields named in ``_MAPS`` as int arrays and rebuilds
+    them on first read, as :class:`~repro_torch.core.route.RoutingResult`
+    does its nets: a disk-cache warm load builds none of their per-entry
+    tuples unless something reads them (the serving path runs only the
+    bitstream and program)."""
+
+    _MAPS: Tuple[str, ...] = ()
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        packed = state.pop("_packed", {})
+        for name in self._MAPS:
+            if name in state:
+                p = _pack_map(state[name])
+                if p is not None:
+                    packed[name] = p
+                    del state[name]
+        if packed:
+            state["_packed"] = packed
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+
+    def __getattr__(self, name: str):
+        packed = self.__dict__.get("_packed")
+        if packed is None or name not in packed:
+            raise AttributeError(name)
+        # the first reader's dicts stand, should two threads race here
+        for k, p in packed.items():
+            self.__dict__.setdefault(k, _unpack_map(*p))
+        self.__dict__.pop("_packed", None)
+        return self.__dict__[name]
+
+
 @dataclasses.dataclass
-class Placement:
+class Placement(PackedMaps):
+    _MAPS = ("fu_pos", "in_pos", "out_pos")
+
     fu_pos: Dict[Tuple[int, int], Coord]    # (replica, sid) -> tile
     in_pos: Dict[Tuple[int, int], Coord]    # (replica, invar idx) -> io site
     out_pos: Dict[Tuple[int, int], Coord]   # (replica, outvar idx) -> io site

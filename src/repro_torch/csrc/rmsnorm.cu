@@ -1047,33 +1047,73 @@ extern "C" int rmsnorm_bwd_blocks_per_sm(int dtype, int kind, int map,
 //
 // A row cut into column blocks, one a rank: Mamba2's gated norm runs over
 // the inner width, which 'model' shards, so a rank holds d = n / tp columns
-// of each row of n.  The norm then takes three steps, the middle one a
-// collective the caller makes (an all-reduce of one float32 a row):
-//   1. `rmsnorm_split_rows` writes the block's partial sum of each row,
-//      sum(x^2) (forward) or sum(w * dy * x) (backward), in float32;
-//   2. the partials are summed over the ranks, the row's total;
-//   3. `rmsnorm_split_apply` writes y = (x * inv) * w with
-//      inv = 1 / sqrt(total / n + eps), n the whole row's width, in float32
-//      rounded once; the backward's `rmsnorm_split_dx` writes
-//      dx = (w * dy) * inv - x * (inv^3 * dot / n) and each chunk of rows'
-//      partial dw = sum(dy * x * inv), which `rmsnorm_split_dw` sums over
-//      the chunks in chunk order (bit-equal run to run).
-// Rows are contiguous (n_rows x d).  Simple SIMT kernels: a warp a row for
-// the sums, one 16-byte vector (or one element where the rows are not
-// whole vectors) a thread for the apply, a thread a column for dx and dw.
-// Each reads its inputs once and writes its output once: bound by device
-// memory.  Plain versions: ref.py's split_sumsq, split_dot, rmsnorm_split
-// and rmsnorm_split_bwd.
+// of each row of n.  Rows are contiguous (n_rows x d).  With
+// inv = 1 / sqrt(total / n + eps), n the whole row's width, in float32:
+//
+// The forward takes three steps, the middle one a collective the caller
+// makes (an all-reduce of one float32 a row):
+//   1. `rmsnorm_split_rows` writes the block's partial sum(x^2) of each row
+//      (a warp a row);
+//   2. the partials are summed over the ranks, the row's `total`;
+//   3. `rmsnorm_split_apply` writes y = (x * inv) * w, rounded once, one
+//      16-byte vector (or one element where the rows are not whole vectors)
+//      a thread.
+// Each reads x once and writes its output once: bound by device memory.
+//
+// The backward, given the forward's `total`:
+//   dot = sum(w * dy * x) over the whole row      (the caller's all-reduce)
+//   dx  = (w * dy) * inv - x * (inv^3 * dot / n)
+//   dw  = sum over this rank's rows of dy * x * inv
+// What bounds it: x and dy read and dx written once, three tensors (0.0526
+// ms on an H100 at 3.35 TB/s for one rank's block of zamba2-7b's gated
+// norm, 16384 x 1792 bf16).  But dx needs the row's dot summed over the
+// ranks, so x and dy are read again after the all-reduce: the two passes
+// move five tensors (0.0877 ms there), less what the 50 MB L2 still holds
+// of the first read.  Two launches around the all-reduce, each a
+// persistent grid of the same `grid` blocks (as many as the SMs hold of
+// the two, the occupancy API); a group of `tpr` threads owns a row, each
+// thread up to MAXV 16-byte vectors of it in registers (the wrapper aims
+// for 4: 64 threads a row of 1792 bf16, 16 of 512; a thread of a wider row
+// takes the vectors past MAXV one at a time), and tiles of `groups` rows are
+// dealt to the blocks in turn (tile b + k * grid is block b's step k), so
+// the grid sweeps the rows front to back:
+//   - `rmsnorm_split_bwd_rows` (before the all-reduce) reads x and dy once
+//     and writes each row's partial dot and the block's partial dw: each
+//     group adds its rows' dy * x * inv, in row order, into its own float32
+//     row of d in shared memory (no two threads touch a column, so no
+//     atomics; held in registers they cost the SM blocks), then the block
+//     adds its groups' rows in group order into one row of `partial` (grid
+//     x d).  dx then needs nothing column-wise.  A row of several warps
+//     keeps their sums of the dot for SPLIT_STEPS steps between syncs.
+//   - `rmsnorm_split_bwd_dx` (after it) sums its share of dw's columns
+//     over the partial rows in a fixed order (SPLIT_RUNS runs of
+//     consecutive blocks, each in block order, then the runs in order:
+//     bit-equal run to run, no float atomics), then writes dx in 16-byte
+//     vectors, each thread taking its row's two coefficients once a row,
+//     sweeping the rows back to front: the rows the first pass read last,
+//     still in the L2, come first.
+// On an H100 (PERF.md) contiguous row ranges a block, sums in registers,
+// fewer threads a row, evict-first hints and 256-byte L2 fetches were
+// each slower or no faster.  The weight sits in shared memory in both.
+// The dw sums go to the grid's last blocks, which the dealt tiles leave a
+// step lighter.  Row and element indices are 32-bit: the wrapper refuses
+// 2^31 elements.  inv is computed as the forward computes it (1.0f /
+// sqrtf, both correctly rounded).  Plain
+// versions: ref.py's split_sumsq, rmsnorm_split, split_bwd_rows (the first
+// pass: dots and each block's partial dw) and split_bwd_dx (the second:
+// dx and the partials summed in order).
 
 namespace {
 
 constexpr int SPLIT_BLOCK = 256;
+constexpr int SPLIT_WARPS = SPLIT_BLOCK / 32;
+constexpr int SPLIT_STEPS = 16;   // steps between the first pass's syncs
+constexpr int SPLIT_RUNS = 16;    // runs of partial rows in dw's sum
 
-// mode 0: sum(x^2); mode 1: sum(w * dy * x); one warp a row
-template <typename T, int VEC, int MODE>
+// sum(x^2), one warp a row
+template <typename T, int VEC>
 __global__ void __launch_bounds__(SPLIT_BLOCK) rmsnorm_split_rows(
-    const T* __restrict__ x, const T* __restrict__ w,
-    const T* __restrict__ dy, float* __restrict__ out, long long n_rows,
+    const T* __restrict__ x, float* __restrict__ out, long long n_rows,
     int d) {
   using P = Pack<T, VEC>;
   const int lane = threadIdx.x % 32;
@@ -1082,22 +1122,13 @@ __global__ void __launch_bounds__(SPLIT_BLOCK) rmsnorm_split_rows(
   if (row >= n_rows) return;
   const int nv = d / VEC;
   const P* xr = reinterpret_cast<const P*>(x + row * d);
-  const P* gr = reinterpret_cast<const P*>(dy + (MODE ? row * d : 0));
-  const P* wr = reinterpret_cast<const P*>(w);
   float s = 0.0f;
   for (int v = lane; v < nv; v += 32) {
     const P p = xr[v];
-    if (MODE == 0) {
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float f = to_f(p.v[j]);
-        s = fmaf(f, f, s);
-      }
-    } else {
-      const P g = gr[v], wp = wr[v];
-#pragma unroll
-      for (int j = 0; j < VEC; ++j)
-        s = fmaf(to_f(wp.v[j]) * to_f(g.v[j]), to_f(p.v[j]), s);
+    for (int j = 0; j < VEC; ++j) {
+      const float f = to_f(p.v[j]);
+      s = fmaf(f, f, s);
     }
   }
 #pragma unroll
@@ -1130,69 +1161,316 @@ __global__ void __launch_bounds__(SPLIT_BLOCK) rmsnorm_split_apply(
   }
 }
 
-// dx of rows [blockIdx.y * chunk, ...) at column c, and the chunk's partial
-// dw of column c in partial[blockIdx.y * d + c]
-template <typename T>
-__global__ void __launch_bounds__(SPLIT_BLOCK) rmsnorm_split_dx(
+// Bytes of the backward's dynamic shared memory: the weight, padded to 16
+// bytes, then (the first pass) a float32 row of d a group.
+__host__ __device__ inline size_t split_w_bytes(int d, size_t size) {
+  return (d * size + 15) / 16 * 16;
+}
+inline size_t split_rows_smem(int d, size_t size, int tpr) {
+  return split_w_bytes(d, size) + (size_t)(SPLIT_BLOCK / tpr) * d * 4;
+}
+
+// Block b's steps: tiles b, b + grid, ... of `groups` rows.
+__device__ __forceinline__ int split_steps(int n_rows, int groups) {
+  const int tiles = (n_rows + groups - 1) / groups, b = blockIdx.x;
+  return tiles > b ? (tiles - 1 - b) / (int)gridDim.x + 1 : 0;
+}
+__device__ __forceinline__ int split_first(int step, int groups) {
+  return ((int)blockIdx.x + step * (int)gridDim.x) * groups;
+}
+
+// The weight into shared memory, as vectors.
+template <typename P>
+__device__ __forceinline__ void split_weight(P* ws, const void* w, int nv) {
+  const P* wp = static_cast<const P*>(w);
+  for (int i = threadIdx.x; i < nv; i += blockDim.x) ws[i] = wp[i];
+}
+
+// One vector of the first pass: its terms of the row's dot added into
+// `s`, dy * x * inv into the group's sums `m` (VEC floats).
+template <typename T, int VEC>
+__device__ __forceinline__ void split_rows_vec(const Pack<T, VEC> xv,
+                                               const Pack<T, VEC> gv,
+                                               const Pack<T, VEC> wv,
+                                               float* m, float inv,
+                                               float& s) {
+  float a[VEC];
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q) {
+      const float4 f = reinterpret_cast<const float4*>(m)[q];
+      a[4 * q] = f.x;
+      a[4 * q + 1] = f.y;
+      a[4 * q + 2] = f.z;
+      a[4 * q + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) a[j] = m[j];
+  }
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const float xf = to_f(xv.v[j]), gf = to_f(gv.v[j]);
+    s = fmaf(to_f(wv.v[j]) * gf, xf, s);
+    a[j] = fmaf(gf * xf, inv, a[j]);
+  }
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q)
+      reinterpret_cast<float4*>(m)[q] =
+          make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) m[j] = a[j];
+  }
+}
+
+// One vector of dx: (w * dy) * inv - x * cf.
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> split_dx_vec(const Pack<T, VEC> xv,
+                                                     const Pack<T, VEC> gv,
+                                                     const Pack<T, VEC> wv,
+                                                     float inv, float cf) {
+  Pack<T, VEC> o;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+    o.v[j] = from_f<T>(to_f(wv.v[j]) * to_f(gv.v[j]) * inv -
+                       to_f(xv.v[j]) * cf);
+  return o;
+}
+
+// The first pass: row r's partial dot into dot[r], the block's partial dw
+// into partial[blockIdx.x * d + c].  WIDE: a row holds more than MAXV
+// vectors a thread (instances of their own, so that the loop over the rest
+// costs the narrower rows nothing).
+template <typename T, int VEC, int MAXV, bool WIDE>
+__global__ void __launch_bounds__(SPLIT_BLOCK) rmsnorm_split_bwd_rows(
     const T* __restrict__ x, const T* __restrict__ w,
     const T* __restrict__ dy, const float* __restrict__ total,
-    const float* __restrict__ dot, T* __restrict__ dx,
-    float* __restrict__ partial, long long n_rows, int d, int n, float eps,
-    int chunk) {
-  const int c = blockIdx.x * SPLIT_BLOCK + threadIdx.x;
-  if (c >= d) return;
-  const long long r0 = (long long)blockIdx.y * chunk;
-  const long long r1 = min(n_rows, r0 + chunk);
-  const float wc = to_f(w[c]);
-  float acc = 0.0f;
-  for (long long r = r0; r < r1; ++r) {
-    const float inv = 1.0f / sqrtf(total[r] / (float)n + eps);
-    const float xv = to_f(x[r * d + c]), g = to_f(dy[r * d + c]);
-    dx[r * d + c] =
-        from_f<T>(wc * g * inv - xv * (inv * inv * inv * dot[r] / (float)n));
-    acc = fmaf(g * xv, inv, acc);
+    float* __restrict__ dot, float* __restrict__ partial, int n_rows, int d,
+    int n, float eps, int tpr) {
+  using P = Pack<T, VEC>;
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  __shared__ float red[SPLIT_STEPS][SPLIT_WARPS];  // warps' dots a step
+  P* ws = reinterpret_cast<P*>(split_smem);
+  float* sums =
+      reinterpret_cast<float*>(split_smem + split_w_bytes(d, sizeof(T)));
+  const int nv = d / VEC;
+  const int groups = blockDim.x / tpr;
+  const int g = threadIdx.x / tpr, t = threadIdx.x % tpr;
+  split_weight(ws, w, nv);
+  for (int c = threadIdx.x; c < groups * d; c += blockDim.x) sums[c] = 0.0f;
+  __syncthreads();
+  float* mine = sums + g * d;
+  const P* xp = reinterpret_cast<const P*>(x);
+  const P* gp = reinterpret_cast<const P*>(dy);
+  const int steps = split_steps(n_rows, groups);
+  for (int step = 0; step < steps; ++step) {
+    const int r = split_first(step, groups) + g;
+    float s = 0.0f;
+    if (r < n_rows) {
+      const float inv = 1.0f / sqrtf(total[r] / (float)n + eps);
+      P xv[MAXV], gv[MAXV];
+#pragma unroll
+      for (int v = 0; v < MAXV; ++v) {
+        const int i = t + v * tpr;
+        if (i < nv) {
+          xv[v] = xp[r * nv + i];
+          gv[v] = gp[r * nv + i];
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < MAXV; ++v) {
+        const int i = t + v * tpr;
+        if (i < nv)
+          split_rows_vec(xv[v], gv[v], ws[i], mine + i * VEC, inv, s);
+      }
+      // a row wider than MAXV vectors a thread: the rest one at a time
+      if constexpr (WIDE) {
+        for (int i = t + MAXV * tpr; i < nv; i += tpr)
+          split_rows_vec(xp[r * nv + i], gp[r * nv + i], ws[i],
+                         mine + i * VEC, inv, s);
+      }
+    }
+    // the row's dot: shuffles inside the group; a row of several warps
+    // keeps their sums for SPLIT_STEPS steps, then adds them in warp order
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      if (o < tpr) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (tpr <= 32) {
+      if (t == 0 && r < n_rows) dot[r] = s;
+    } else {
+      const int slot = step % SPLIT_STEPS;
+      if (threadIdx.x % 32 == 0) red[slot][threadIdx.x / 32] = s;
+      if (slot == SPLIT_STEPS - 1 || step == steps - 1) {
+        __syncthreads();
+        const int wpr = tpr / 32;
+        for (int j = 0; j <= slot && t == 0; ++j) {
+          const int row = split_first(step - slot + j, groups) + g;
+          if (row < n_rows) {
+            float u = red[j][g * wpr];
+            for (int k = 1; k < wpr; ++k) u += red[j][g * wpr + k];
+            dot[row] = u;
+          }
+        }
+        __syncthreads();
+      }
+    }
   }
-  partial[(long long)blockIdx.y * d + c] = acc;
+  // the groups' rows added in group order: the block's partial row
+  __syncthreads();
+  float* out = partial + (long long)blockIdx.x * d;
+  for (int c = threadIdx.x; c < d; c += blockDim.x) {
+    float u = sums[c];
+    for (int k = 1; k < groups; ++k) u += sums[k * d + c];
+    out[c] = u;
+  }
 }
 
-// dw[c] = the chunks' partials of column c summed in chunk order
+// dw[c] for this block's share of the columns: the `parts` partial rows in
+// SPLIT_RUNS runs of consecutive rows, each summed in order by one thread,
+// then the runs in order.  `drop_last` leaves out the last partial row (a
+// planted fault).
 template <typename T>
-__global__ void __launch_bounds__(SPLIT_BLOCK) rmsnorm_split_dw(
-    const float* __restrict__ partial, T* __restrict__ dw, int d,
-    int chunks) {
-  const int c = blockIdx.x * SPLIT_BLOCK + threadIdx.x;
-  if (c >= d) return;
-  float s = 0.0f;
-  for (int k = 0; k < chunks; ++k) s += partial[(long long)k * d + c];
-  dw[c] = from_f<T>(s);
+__device__ __forceinline__ void split_dw(const float* __restrict__ partial,
+                                         T* __restrict__ dw, int d,
+                                         int parts, bool drop_last) {
+  constexpr int W = SPLIT_BLOCK / SPLIT_RUNS;     // columns a tile
+  __shared__ float red[SPLIT_RUNS][W];
+  const int col = threadIdx.x % W, q = threadIdx.x / W;
+  const int kept = drop_last ? parts - 1 : parts;
+  const int k0 = q * kept / SPLIT_RUNS, k1 = (q + 1) * kept / SPLIT_RUNS;
+  for (int tile = gridDim.x - 1 - blockIdx.x; tile * W < d;
+       tile += gridDim.x) {
+    const int c = tile * W + col;
+    float s = 0.0f;
+    if (c < d) {
+#pragma unroll 4
+      for (int k = k0; k < k1; ++k) s += partial[(long long)k * d + c];
+    }
+    red[q][col] = s;
+    __syncthreads();
+    if (q == 0 && c < d) {
+      float u = red[0][col];
+      for (int k = 1; k < SPLIT_RUNS; ++k) u += red[k][col];
+      dw[c] = from_f<T>(u);
+    }
+    __syncthreads();
+  }
+}
+
+// The second pass: dw from the first pass's `gridDim.x` partial rows, then
+// dx of the block's rows, its steps from the last back.  `fault` plants one
+// for chip_smoke.py's check: 1 sums dw without the last block's partial
+// row; 2 takes each row's coefficients from its neighbour (row r ^ 1).
+template <typename T, int VEC, int MAXV, bool WIDE>
+__global__ void __launch_bounds__(SPLIT_BLOCK) rmsnorm_split_bwd_dx(
+    const T* __restrict__ x, const T* __restrict__ w,
+    const T* __restrict__ dy, const float* __restrict__ total,
+    const float* __restrict__ dot, const float* __restrict__ partial,
+    T* __restrict__ dx, T* __restrict__ dw, int n_rows, int d, int n,
+    float eps, int tpr, int fault) {
+  using P = Pack<T, VEC>;
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  P* ws = reinterpret_cast<P*>(split_smem);
+  const int nv = d / VEC;
+  split_dw(partial, dw, d, gridDim.x, fault == 1);
+  split_weight(ws, w, nv);
+  __syncthreads();
+  const int groups = blockDim.x / tpr;
+  const int g = threadIdx.x / tpr, t = threadIdx.x % tpr;
+  const P* xp = reinterpret_cast<const P*>(x);
+  const P* gp = reinterpret_cast<const P*>(dy);
+  P* dp = reinterpret_cast<P*>(dx);
+  const int steps = split_steps(n_rows, groups);
+  for (int k = steps - 1; k >= 0; --k) {
+    const int r = split_first(k, groups) + g;
+    if (r >= n_rows) continue;
+    const int rc = fault == 2 && (r ^ 1) < n_rows ? r ^ 1 : r;
+    const float inv = 1.0f / sqrtf(total[rc] / (float)n + eps);
+    const float cf = inv * inv * inv * dot[rc] / (float)n;
+    P xv[MAXV], gv[MAXV];
+#pragma unroll
+    for (int v = 0; v < MAXV; ++v) {
+      const int i = t + v * tpr;
+      if (i < nv) {
+        xv[v] = xp[r * nv + i];
+        gv[v] = gp[r * nv + i];
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < MAXV; ++v) {
+      const int i = t + v * tpr;
+      if (i < nv)
+        dp[r * nv + i] = split_dx_vec(xv[v], gv[v], ws[i], inv, cf);
+    }
+    if constexpr (WIDE) {
+      for (int i = t + MAXV * tpr; i < nv; i += tpr)
+        dp[r * nv + i] =
+            split_dx_vec(xp[r * nv + i], gp[r * nv + i], ws[i], inv, cf);
+    }
+  }
 }
 
 template <typename T>
-int split_rows(const void* x, const void* w, const void* dy, float* out,
-               long long n_rows, int d, int vec, int mode, cudaStream_t s) {
+using SplitRowsKernel = void (*)(const T*, const T*, const T*, const float*,
+                                 float*, float*, int, int, int, float, int);
+template <typename T>
+using SplitDxKernel = void (*)(const T*, const T*, const T*, const float*,
+                               const float*, const float*, T*, T*, int, int,
+                               int, float, int, int);
+
+// The two passes' instances of a vector width and MAXV: MAXV 1, 2, 4 or 8
+// for 16-byte vectors, up to 16 for single elements; a row of `d` wider
+// than `tpr` threads of MAXV vectors takes the WIDE instance of the
+// largest MAXV.
+template <typename T>
+int split_bwd_kernels(int vec, int maxv, int tpr, int d,
+                      SplitRowsKernel<T>* a, SplitDxKernel<T>* b) {
+  constexpr int V = 16 / sizeof(T);
+  const bool wide = (long long)tpr * maxv * vec < d;
+#define SPLIT_BWD_CASE(VV, M, W)              \
+  if (vec == VV && maxv == M && wide == W) {  \
+    *a = rmsnorm_split_bwd_rows<T, VV, M, W>; \
+    *b = rmsnorm_split_bwd_dx<T, VV, M, W>;   \
+    return 0;                                 \
+  }
+  SPLIT_BWD_CASE(V, 1, false)
+  SPLIT_BWD_CASE(V, 2, false)
+  SPLIT_BWD_CASE(V, 4, false)
+  SPLIT_BWD_CASE(V, 8, false)
+  SPLIT_BWD_CASE(V, 8, true)
+  SPLIT_BWD_CASE(1, 1, false)
+  SPLIT_BWD_CASE(1, 2, false)
+  SPLIT_BWD_CASE(1, 4, false)
+  SPLIT_BWD_CASE(1, 8, false)
+  SPLIT_BWD_CASE(1, 16, false)
+  SPLIT_BWD_CASE(1, 16, true)
+#undef SPLIT_BWD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory past the default 48 KB is asked for per kernel.
+cudaError_t split_smem_limit(const void* k, size_t smem) {
+  if (smem <= (48 << 10)) return cudaSuccess;
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <typename T>
+int split_rows(const void* x, float* out, long long n_rows, int d, int vec,
+               cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
   const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
-  const T* gt = static_cast<const T*>(dy);
   const long long grid = (n_rows + SPLIT_BLOCK / 32 - 1) / (SPLIT_BLOCK / 32);
-  if (grid > INT32_MAX || (vec != 1 && vec != V) || d % vec ||
-      (mode != 0 && mode != 1))
+  if (grid > INT32_MAX || (vec != 1 && vec != V) || d % vec)
     return (int)cudaErrorInvalidValue;
-  if (vec == V) {
-    if (mode == 0)
-      rmsnorm_split_rows<T, V, 0><<<(int)grid, SPLIT_BLOCK, 0, s>>>(
-          xt, wt, gt, out, n_rows, d);
-    else
-      rmsnorm_split_rows<T, V, 1><<<(int)grid, SPLIT_BLOCK, 0, s>>>(
-          xt, wt, gt, out, n_rows, d);
-  } else {
-    if (mode == 0)
-      rmsnorm_split_rows<T, 1, 0><<<(int)grid, SPLIT_BLOCK, 0, s>>>(
-          xt, wt, gt, out, n_rows, d);
-    else
-      rmsnorm_split_rows<T, 1, 1><<<(int)grid, SPLIT_BLOCK, 0, s>>>(
-          xt, wt, gt, out, n_rows, d);
-  }
+  if (vec == V)
+    rmsnorm_split_rows<T, V><<<(int)grid, SPLIT_BLOCK, 0, s>>>(xt, out,
+                                                               n_rows, d);
+  else
+    rmsnorm_split_rows<T, 1><<<(int)grid, SPLIT_BLOCK, 0, s>>>(xt, out,
+                                                               n_rows, d);
   return (int)cudaGetLastError();
 }
 
@@ -1215,44 +1493,94 @@ int split_apply(const void* x, const void* w, const float* total, void* y,
   return (int)cudaGetLastError();
 }
 
+// The backward's two instances, after checking what both passes take: a
+// group of tpr threads (a power of two from 8 to 256) a row, 32-bit
+// indices, at most a block a tile.
 template <typename T>
-int split_bwd(const void* x, const void* w, const void* dy,
-              const float* total, const float* dot, void* dx, void* dw,
-              float* partial, long long n_rows, int d, int n, float eps,
-              int chunk, cudaStream_t s) {
-  if (chunk <= 0) return (int)cudaErrorInvalidValue;
-  const long long chunks = (n_rows + chunk - 1) / chunk;
-  if (chunks > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((d + SPLIT_BLOCK - 1) / SPLIT_BLOCK, (unsigned)chunks);
-  rmsnorm_split_dx<T><<<grid, SPLIT_BLOCK, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(dy), total, dot, static_cast<T*>(dx), partial,
-      n_rows, d, n, eps, chunk);
-  int err = (int)cudaGetLastError();
+int split_bwd_plan(long long n_rows, int d, int vec, int maxv, int tpr,
+                   int grid, SplitRowsKernel<T>* a, SplitDxKernel<T>* b) {
+  if (n_rows <= 0 || d <= 0 || d % vec || n_rows * d > INT32_MAX ||
+      tpr < 8 || tpr > SPLIT_BLOCK || (tpr & (tpr - 1)) || grid <= 0 ||
+      grid > (n_rows + SPLIT_BLOCK / tpr - 1) / (SPLIT_BLOCK / tpr))
+    return (int)cudaErrorInvalidValue;
+  return split_bwd_kernels<T>(vec, maxv, tpr, d, a, b);
+}
+
+template <typename T>
+int split_bwd_rows(const void* x, const void* w, const void* dy,
+                   const float* total, float* dot, float* partial,
+                   long long n_rows, int d, int n, float eps, int vec,
+                   int maxv, int tpr, int grid, cudaStream_t s) {
+  SplitRowsKernel<T> a;
+  SplitDxKernel<T> b;
+  int err = split_bwd_plan<T>(n_rows, d, vec, maxv, tpr, grid, &a, &b);
   if (err) return err;
-  rmsnorm_split_dw<T><<<(d + SPLIT_BLOCK - 1) / SPLIT_BLOCK, SPLIT_BLOCK, 0,
-                        s>>>(partial, static_cast<T*>(dw), d, (int)chunks);
+  const size_t smem = split_rows_smem(d, sizeof(T), tpr);
+  err = (int)split_smem_limit((const void*)a, smem);
+  if (err) return err;
+  a<<<grid, SPLIT_BLOCK, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(dy), total, dot, partial, (int)n_rows, d, n, eps,
+      tpr);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int split_bwd_dx(const void* x, const void* w, const void* dy,
+                 const float* total, const float* dot, const float* partial,
+                 void* dx, void* dw, long long n_rows, int d, int n,
+                 float eps, int vec, int maxv, int tpr, int grid, int fault,
+                 cudaStream_t s) {
+  SplitRowsKernel<T> a;
+  SplitDxKernel<T> b;
+  int err = split_bwd_plan<T>(n_rows, d, vec, maxv, tpr, grid, &a, &b);
+  if (err) return err;
+  if (fault < 0 || fault > 2) return (int)cudaErrorInvalidValue;
+  const size_t smem = split_w_bytes(d, sizeof(T));
+  err = (int)split_smem_limit((const void*)b, smem);
+  if (err) return err;
+  b<<<grid, SPLIT_BLOCK, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(dy), total, dot, partial, static_cast<T*>(dx),
+      static_cast<T*>(dw), (int)n_rows, d, n, eps, tpr, fault);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int split_bwd_occupancy(int vec, int maxv, int tpr, int d,
+                        int* blocks_per_sm) {
+  SplitRowsKernel<T> a;
+  SplitDxKernel<T> b;
+  int err = split_bwd_kernels<T>(vec, maxv, tpr, d, &a, &b);
+  if (err) return err;
+  const size_t sa = split_rows_smem(d, sizeof(T), tpr);
+  const size_t sb = split_w_bytes(d, sizeof(T));
+  int na = 0, nb = 0;
+  err = (int)split_smem_limit((const void*)a, sa);
+  if (!err) err = (int)split_smem_limit((const void*)b, sb);
+  if (!err)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &na, (const void*)a, SPLIT_BLOCK, sa);
+  if (!err)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &nb, (const void*)b, SPLIT_BLOCK, sb);
+  *blocks_per_sm = na < nb ? na : nb;
+  return err;
 }
 
 }  // namespace
 
-// The split row's partial sums: mode 0 writes each row's sum(x^2), mode 1
-// its sum(w * dy * x), float32, into `out` (n_rows); x and dy are
-// (n_rows, d) contiguous, w is (d,); `vec` is 16 / sizeof(dtype) where
-// every pointer starts on 16 bytes and d is whole vectors, else 1.
-extern "C" int rmsnorm_split_rows_launch(const void* x, const void* w,
-                                         const void* dy, void* out,
+// The forward's partial sums: each row's sum(x^2), float32, into `out`
+// (n_rows); x is (n_rows, d) contiguous; `vec` is 16 / sizeof(dtype) where
+// x starts on 16 bytes and d is whole vectors, else 1.
+extern "C" int rmsnorm_split_rows_launch(const void* x, void* out,
                                          long long n_rows, int d, int dtype,
-                                         int vec, int mode,
-                                         void* stream_ptr) {
+                                         int vec, void* stream_ptr) {
   cudaStream_t s = (cudaStream_t)stream_ptr;
   float* o = static_cast<float*>(out);
   if (n_rows <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return split_rows<float>(x, w, dy, o, n_rows, d, vec, mode,
-                                           s);
-  if (dtype == 1)
-    return split_rows<__nv_bfloat16>(x, w, dy, o, n_rows, d, vec, mode, s);
+  if (dtype == 0) return split_rows<float>(x, o, n_rows, d, vec, s);
+  if (dtype == 1) return split_rows<__nv_bfloat16>(x, o, n_rows, d, vec, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1274,25 +1602,62 @@ extern "C" int rmsnorm_split_apply_launch(const void* x, const void* w,
   return (int)cudaErrorInvalidValue;
 }
 
-// The split row's backward: dx (n_rows, d) and dw (d,) from x, w, dy and
-// the rows' `total` and `dot` (float32, summed over the whole row of `n`);
-// `partial` is float32 scratch of ceil(n_rows / chunk) x d.  Two launches.
-extern "C" int rmsnorm_split_bwd_launch(const void* x, const void* w,
-                                        const void* dy, const void* total,
-                                        const void* dot, void* dx, void* dw,
-                                        void* partial, long long n_rows,
-                                        int d, int n, float eps, int dtype,
-                                        int chunk, void* stream_ptr) {
+// The backward's first pass: each row's partial sum(w * dy * x) into `dot`
+// (n_rows, float32) and each block's partial dw into `partial` (grid x d,
+// float32), from x, w, dy ((n_rows, d) and (d,), contiguous, 16-byte
+// aligned where `vec` > 1) and the rows' `total` (float32, over the whole
+// row of `n`).  `tpr` threads a row, at most `maxv` vectors of `vec`
+// elements a thread, `grid` blocks of 256 threads.
+extern "C" int rmsnorm_split_bwd_rows_launch(
+    const void* x, const void* w, const void* dy, const void* total,
+    void* dot, void* partial, long long n_rows, int d, int n, float eps,
+    int dtype, int vec, int maxv, int tpr, int grid, void* stream_ptr) {
+  cudaStream_t s = (cudaStream_t)stream_ptr;
+  const float* t = static_cast<const float*>(total);
+  float* g = static_cast<float*>(dot);
+  float* p = static_cast<float*>(partial);
+  if (n < d) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return split_bwd_rows<float>(x, w, dy, t, g, p, n_rows, d, n, eps, vec,
+                                 maxv, tpr, grid, s);
+  if (dtype == 1)
+    return split_bwd_rows<__nv_bfloat16>(x, w, dy, t, g, p, n_rows, d, n,
+                                         eps, vec, maxv, tpr, grid, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward's second pass: dx (n_rows, d) and dw (d,) from the rows'
+// `dot` summed over the whole row and the first pass's partial rows; the
+// plan as the first pass's; `fault` 0 or a planted fault.
+extern "C" int rmsnorm_split_bwd_dx_launch(
+    const void* x, const void* w, const void* dy, const void* total,
+    const void* dot, const void* partial, void* dx, void* dw,
+    long long n_rows, int d, int n, float eps, int dtype, int vec, int maxv,
+    int tpr, int grid, int fault, void* stream_ptr) {
   cudaStream_t s = (cudaStream_t)stream_ptr;
   const float* t = static_cast<const float*>(total);
   const float* g = static_cast<const float*>(dot);
-  float* p = static_cast<float*>(partial);
-  if (n_rows <= 0 || d <= 0 || n < d) return (int)cudaErrorInvalidValue;
+  const float* p = static_cast<const float*>(partial);
+  if (n < d) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return split_bwd<float>(x, w, dy, t, g, dx, dw, p, n_rows, d, n, eps,
-                            chunk, s);
+    return split_bwd_dx<float>(x, w, dy, t, g, p, dx, dw, n_rows, d, n, eps,
+                               vec, maxv, tpr, grid, fault, s);
   if (dtype == 1)
-    return split_bwd<__nv_bfloat16>(x, w, dy, t, g, dx, dw, p, n_rows, d, n,
-                                    eps, chunk, s);
+    return split_bwd_dx<__nv_bfloat16>(x, w, dy, t, g, p, dx, dw, n_rows, d,
+                                       n, eps, vec, maxv, tpr, grid, fault,
+                                       s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The blocks of 256 threads of both passes' instances one SM holds at once
+// (the fewer of the two), for the wrapper's grid.
+extern "C" int rmsnorm_split_bwd_blocks_per_sm(int dtype, int vec, int maxv,
+                                               int tpr, int d,
+                                               int* blocks_per_sm) {
+  if (dtype == 0)
+    return split_bwd_occupancy<float>(vec, maxv, tpr, d, blocks_per_sm);
+  if (dtype == 1)
+    return split_bwd_occupancy<__nv_bfloat16>(vec, maxv, tpr, d,
+                                              blocks_per_sm);
   return (int)cudaErrorInvalidValue;
 }

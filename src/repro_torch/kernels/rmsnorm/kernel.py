@@ -30,8 +30,12 @@ check them.
 (Mamba2's gated norm over the inner width on 'model'): a launch writes
 the block's partial ``Σx²`` of each row, the caller's ``all_reduce`` sums
 the partials over the ranks, and a second launch applies the whole row's
-mean; its backward (:func:`rmsnorm_split_bwd`) does the same with
-``Σ(w·dy·x)``.  The device decides as for :func:`rmsnorm`, and
+mean.  Its backward (:func:`rmsnorm_split_bwd`) is two passes around the
+all-reduce of ``Σ(w·dy·x)``: :func:`split_bwd_rows` reads x and dy once
+for the rows' partial dots and the blocks' partial dw, and
+:func:`split_bwd_dx` writes dx and sums dw (:func:`split_bwd_threads`,
+:func:`split_bwd_grid` and :func:`split_bwd_block_of` cut the rows; the
+CPU tests check them).  The device decides as for :func:`rmsnorm`, and
 ``rmsnorm_split.launches`` / ``rmsnorm_split_bwd.launches`` count the
 calls that took the kernels.
 """
@@ -62,13 +66,18 @@ LIBRARY = CudaLibrary("rmsnorm", {
     "rmsnorm_bwd_blocks_per_sm": (
         [_I] * 9 + [ctypes.POINTER(_I)], ctypes.c_int),
     "rmsnorm_split_rows_launch": (
-        [_P] * 4 + [_LL, _I, _I, _I, _I, _P], ctypes.c_int),
+        [_P, _P, _LL, _I, _I, _I, _P], ctypes.c_int),
     "rmsnorm_split_apply_launch": (
         [_P] * 4 + [_LL, _I, _I, ctypes.c_float, _I, _I, _I, _P],
         ctypes.c_int),
-    "rmsnorm_split_bwd_launch": (
-        [_P] * 8 + [_LL, _I, _I, ctypes.c_float, _I, _I, _P],
-        ctypes.c_int)})
+    "rmsnorm_split_bwd_rows_launch": (
+        [_P] * 6 + [_LL, _I, _I, ctypes.c_float] + [_I] * 5 + [_P],
+        ctypes.c_int),
+    "rmsnorm_split_bwd_dx_launch": (
+        [_P] * 8 + [_LL, _I, _I, ctypes.c_float] + [_I] * 6 + [_P],
+        ctypes.c_int),
+    "rmsnorm_split_bwd_blocks_per_sm": (
+        [_I] * 5 + [ctypes.POINTER(_I)], ctypes.c_int)})
 
 # dtype codes of the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -608,9 +617,39 @@ rmsnorm_bwd.launches = 0
 
 # ----------------------------------------------------------- split rows
 
-# the chunk of rows a block of the split backward walks for dx and its
-# partial dw, at least SPLIT_CHUNK and few enough for SPLIT_MAX_CHUNKS
-SPLIT_CHUNK, SPLIT_MAX_CHUNKS = 32, 1024
+# the split backward's limits (csrc/rmsnorm.cu): threads a block; threads a
+# row, powers of two; vectors a thread, 16-byte or (the scalar path) single
+SPLIT_BLOCK = 256
+SPLIT_MIN_TPR, SPLIT_MAX_TPR = 8, 256
+SPLIT_MAXV, SPLIT_SCALAR_MAXV = 8, 16
+# shared memory a block may take on an H100, and what the first pass holds
+# besides the weight and its groups' dw rows (its warps' dots)
+SPLIT_SMEM = 227 << 10
+SPLIT_STATIC_SMEM = 16 * 8 * 4
+# the vectors a thread the plan aims for (on an H100, 64 threads of 4 at
+# rows of 1792 bf16 and 16 of 4 at 512 ran fastest: PERF.md)
+SPLIT_VPT = 4
+# the second pass's planted faults (chip_smoke.py's check that its limits
+# catch them)
+SPLIT_BWD_FAULTS = {"dw without the last block's partial row": 1,
+                    "dx with the neighbouring row's coefficients": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitBwdPlan:
+    """How both passes of the split backward cut the rows: a group of
+    ``tpr`` threads a row, each thread at most ``maxv`` vectors of ``vec``
+    elements; ``grid`` blocks of SPLIT_BLOCK threads, which tiles of
+    :attr:`groups` rows are dealt to in turn (:func:`split_bwd_block_of`)."""
+    vec: int
+    tpr: int
+    maxv: int
+    grid: int
+
+    @property
+    def groups(self) -> int:
+        """Rows a block holds at once: its groups of ``tpr`` threads."""
+        return SPLIT_BLOCK // self.tpr
 
 
 def _split_args(x: torch.Tensor, weight: torch.Tensor, what: str):
@@ -633,26 +672,103 @@ def _split_vec(d: int, *ts: torch.Tensor) -> int:
     return vec if ok else 1
 
 
-def split_row_sums(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
-                   dy: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The block's partial sum of each row on the card, float32 of x's
-    shape without its last dimension: ``Σx²``, or with ``weight`` and
-    ``dy`` ``Σ(w·dy·x)``.  One launch."""
-    w = weight if weight is not None else x.new_empty((x.shape[-1],))
-    x, d, n_rows = _split_args(x, w, "split row sums")
-    mode = 0 if dy is None else 1
-    g = x if dy is None else dy.contiguous()
+@functools.lru_cache(maxsize=None)
+def split_bwd_threads(d: int, vec: int) -> Tuple[int, int]:
+    """→ (threads a row of ``d`` elements in vectors of ``vec``; the
+    kernels' ``maxv``): the power of two from SPLIT_MIN_TPR to
+    SPLIT_MAX_TPR nearest to giving each thread SPLIT_VPT vectors, at
+    most, and ``maxv`` the power of two at or above a thread's vectors,
+    at most SPLIT_MAXV (SPLIT_SCALAR_MAXV single elements): a thread of a
+    wider row takes the vectors past ``maxv`` one at a time."""
+    nv = d // vec
+    cap = SPLIT_MAXV if vec > 1 else SPLIT_SCALAR_MAXV
+    want = -(-nv // SPLIT_VPT)
+    tpr = min(SPLIT_MAX_TPR, max(SPLIT_MIN_TPR,
+                                 1 << (want - 1).bit_length()))
+    vpt = -(-nv // tpr)
+    return tpr, min(cap, 1 << (vpt - 1).bit_length())
+
+
+def split_bwd_smem(d: int, itemsize: int, tpr: int) -> int:
+    """Bytes of shared memory a block of the first pass takes (the more of
+    the two passes): the weight, padded to 16 bytes, a float32 row of
+    ``d`` a group of ``tpr`` threads, and the warps' dots."""
+    return -(-d * itemsize // 16) * 16 + SPLIT_BLOCK // tpr * d * 4 \
+        + SPLIT_STATIC_SMEM
+
+
+def split_bwd_check(d: int, dtype: torch.dtype) -> None:
+    """Raises ValueError where rows of ``d`` elements of ``dtype`` are too
+    wide for the split backward on either of its paths (16-byte vectors
+    and single elements): a block's shared memory past SPLIT_SMEM.  The
+    forward asks, so that the limit shows before a backward runs."""
+    size = torch.empty((), dtype=dtype).element_size()
+    for vec in {16 // size, 1}:
+        if d % vec == 0:
+            smem = split_bwd_smem(d, size, split_bwd_threads(d, vec)[0])
+            if smem > SPLIT_SMEM:
+                raise ValueError(
+                    f"split backward: rows of {d} {dtype} elements take "
+                    f"{smem} bytes of shared memory a block, more than "
+                    f"{SPLIT_SMEM}")
+
+
+def split_bwd_grid(n_rows: int, d: int, groups: int, n_sm: int,
+                   blocks_per_sm: int) -> int:
+    """Blocks of both passes: as many as the ``n_sm`` SMs hold at once
+    (``blocks_per_sm`` each, the fewer of the two passes'), at most one a
+    tile of ``groups`` rows.  Raises for 2^31 elements or more (the
+    kernels index in 32 bits) and for a block that fits no SM."""
+    if n_rows * d >= 1 << 31:
+        raise ValueError(f"split backward: {n_rows} x {d} elements; the "
+                         f"kernels index elements in 32 bits")
+    if blocks_per_sm < 1:
+        raise ValueError("a split backward block does not fit an SM")
+    return max(1, min(-(-n_rows // groups), n_sm * blocks_per_sm))
+
+
+def split_bwd_block_of(n_rows: int, groups: int, grid: int) -> torch.Tensor:
+    """The block that owns each row, as the kernels deal them: tiles of
+    ``groups`` rows to the ``grid`` blocks in turn (row r is block
+    ``r // groups % grid``'s), int64 (n_rows,)."""
+    return torch.arange(n_rows) // groups % grid
+
+
+def _split_bwd_blocks_per_sm(dtype: torch.dtype, vec: int, maxv: int,
+                             tpr: int, d: int, device) -> int:
+    key = ("split_bwd", dtype, vec, maxv, tpr, d, device.index)
+    if key not in _LIMITS:
+        val = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = LIBRARY.get().rmsnorm_split_bwd_blocks_per_sm(
+                DTYPES[dtype], vec, maxv, tpr, d, ctypes.byref(val))
+        LIBRARY.check(err, "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
+        _LIMITS[key] = val.value
+    return _LIMITS[key]
+
+
+def split_row_sums(x: torch.Tensor) -> torch.Tensor:
+    """The block's partial ``Σx²`` of each row on the card, float32 of x's
+    shape without its last dimension.  One launch."""
+    if x.dtype not in DTYPES:
+        raise ValueError(f"split row sums: x must be float32 or bfloat16, "
+                         f"got {x.dtype}")
+    x = x.contiguous()
+    d = x.shape[-1]
+    n_rows = x.numel() // max(d, 1)
     out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     if n_rows == 0 or d == 0:
         return out.zero_()
-    vec = _split_vec(d, x, w, g)
     with torch.cuda.device(x.device):
         err = LIBRARY.get().rmsnorm_split_rows_launch(
-            x.data_ptr(), w.data_ptr(), g.data_ptr(), out.data_ptr(),
-            n_rows, d, DTYPES[x.dtype], vec, mode,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            x.data_ptr(), out.data_ptr(), n_rows, d, DTYPES[x.dtype],
+            _split_vec(d, x), torch.cuda.current_stream(x.device).cuda_stream)
     LIBRARY.check(err, "rmsnorm split row sums")
+    split_row_sums.launches += 1
     return out
+
+
+split_row_sums.launches = 0
 
 
 def split_apply(x: torch.Tensor, weight: torch.Tensor, total: torch.Tensor,
@@ -673,32 +789,87 @@ def split_apply(x: torch.Tensor, weight: torch.Tensor, total: torch.Tensor,
             n_rows, d, n, float(eps), DTYPES[x.dtype], vec, grid,
             torch.cuda.current_stream(x.device).cuda_stream)
     LIBRARY.check(err, "rmsnorm split apply")
+    split_apply.launches += 1
     return y
 
 
-def split_bwd_apply(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
-                    total: torch.Tensor, dot: torch.Tensor, n: int,
-                    eps: float):
-    """dx of the block and dw of its columns (summed over its rows) from
-    the rows' ``total`` and ``dot`` over the whole row of ``n``, on the
-    card.  Two launches: dx with each chunk's partial dw, then dw."""
+split_apply.launches = 0
+
+
+def _split_bwd_args(x, weight, dy, total):
+    if tuple(dy.shape) != tuple(x.shape) or dy.dtype != x.dtype:
+        raise ValueError(f"split backward: dy {tuple(dy.shape)} {dy.dtype} "
+                         f"does not match x {tuple(x.shape)} {x.dtype}")
     x, d, n_rows = _split_args(x, weight, "split backward")
-    dy, total, dot = dy.contiguous(), total.contiguous(), dot.contiguous()
+    return x, d, n_rows, dy.contiguous(), total.contiguous()
+
+
+def split_bwd_rows(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                   total: torch.Tensor, n: int, eps: float):
+    """The split backward's first pass on the card, before the
+    all-reduce → (each row's partial ``Σ(w·dy·x)``, float32 of x's shape
+    without its last dimension; each block's partial dw, ``Σ dy·x·inv``
+    over its rows, float32 (grid, d); the :class:`SplitBwdPlan` the second
+    pass takes).  ``total`` is the forward's ``Σx²`` of each whole row of
+    ``n``.  One launch."""
+    x, d, n_rows, dy, total = _split_bwd_args(x, weight, dy, total)
+    dot = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    if n_rows == 0 or d == 0:
+        return dot.zero_(), torch.zeros((1, d), dtype=torch.float32,
+                                        device=x.device), None
+    vec = _split_vec(d, x, weight, dy)
+    split_bwd_check(d, x.dtype)
+    tpr, maxv = split_bwd_threads(d, vec)
+    grid = split_bwd_grid(n_rows, d, SPLIT_BLOCK // tpr, _sm_count(x.device),
+                          _split_bwd_blocks_per_sm(x.dtype, vec, maxv, tpr,
+                                                   d, x.device))
+    plan = SplitBwdPlan(vec, tpr, maxv, grid)
+    partial = torch.empty((grid, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = LIBRARY.get().rmsnorm_split_bwd_rows_launch(
+            x.data_ptr(), weight.data_ptr(), dy.data_ptr(), total.data_ptr(),
+            dot.data_ptr(), partial.data_ptr(), n_rows, d, n, float(eps),
+            DTYPES[x.dtype], vec, maxv, tpr, grid,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    LIBRARY.check(err, "rmsnorm split backward, first pass")
+    split_bwd_rows.launches += 1
+    return dot, partial, plan
+
+
+split_bwd_rows.launches = 0
+
+
+def split_bwd_dx(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                 total: torch.Tensor, dot: torch.Tensor,
+                 partial: torch.Tensor, plan: Optional[SplitBwdPlan], n: int,
+                 eps: float, fault: int = 0):
+    """The split backward's second pass on the card, after the
+    all-reduce → (dx, x's shape and dtype; dw, the weight's: the first
+    pass's ``partial`` rows summed in a fixed order) from the rows'
+    ``dot`` summed over the whole row.  One launch; ``fault``
+    (SPLIT_BWD_FAULTS) plants one, for chip_smoke.py."""
+    x, d, n_rows, dy, total = _split_bwd_args(x, weight, dy, total)
+    dot = dot.contiguous()
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     dw = torch.empty((d,), dtype=weight.dtype, device=x.device)
-    if n_rows == 0 or d == 0:
+    if plan is None:
         return dx, dw.zero_()
-    chunk = max(SPLIT_CHUNK, -(-n_rows // SPLIT_MAX_CHUNKS))
-    partial = torch.empty((-(-n_rows // chunk), d), dtype=torch.float32,
-                          device=x.device)
+    if partial.shape != (plan.grid, d) or not partial.is_contiguous():
+        raise ValueError(f"split backward: partial {tuple(partial.shape)} "
+                         f"is not the first pass's ({plan.grid}, {d})")
     with torch.cuda.device(x.device):
-        err = LIBRARY.get().rmsnorm_split_bwd_launch(
+        err = LIBRARY.get().rmsnorm_split_bwd_dx_launch(
             x.data_ptr(), weight.data_ptr(), dy.data_ptr(), total.data_ptr(),
-            dot.data_ptr(), dx.data_ptr(), dw.data_ptr(), partial.data_ptr(),
-            n_rows, d, n, float(eps), DTYPES[x.dtype], chunk,
+            dot.data_ptr(), partial.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+            n_rows, d, n, float(eps), DTYPES[x.dtype], plan.vec, plan.maxv,
+            plan.tpr, plan.grid, int(fault),
             torch.cuda.current_stream(x.device).cuda_stream)
-    LIBRARY.check(err, "rmsnorm split backward")
+    LIBRARY.check(err, "rmsnorm split backward, second pass")
+    split_bwd_dx.launches += 1
     return dx, dw
+
+
+split_bwd_dx.launches = 0
 
 
 def rmsnorm_split(x: torch.Tensor, weight: torch.Tensor, eps: float, n: int,
@@ -716,6 +887,8 @@ def rmsnorm_split(x: torch.Tensor, weight: torch.Tensor, eps: float, n: int,
     _split_args(x, weight, "rmsnorm_split")
     kernel = impl != "ref" and _on_kernel_device(x, impl)
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        if kernel:
+            split_bwd_check(x.shape[-1], x.dtype)
         return _RMSNormSplit.apply(x, weight, eps, n, all_reduce, kernel)
     return _split_forward(x, weight, eps, n, all_reduce, kernel)[0]
 
@@ -741,15 +914,20 @@ def rmsnorm_split_bwd(x: torch.Tensor, weight: torch.Tensor,
                       kernel: Optional[bool] = None):
     """The gradients of :func:`rmsnorm_split` given its rows' ``total`` →
     (dx of the block, dw of the block's columns over this rank's rows):
-    the rows' ``Σ(w·dy·x)`` summed by ``all_reduce``, then dx and dw.  The
-    kernels on a CUDA tensor, the plain versions on a CPU one."""
+    the first pass (the rows' ``Σ(w·dy·x)`` and the blocks' partial dw),
+    ``all_reduce`` of the dots, the second pass (dx, and dw summed).  The
+    kernels on a CUDA tensor (two launches), the plain versions on a CPU
+    one, all the rows one block."""
     if kernel is None:
         kernel = _on_kernel_device(x, None)
     if not kernel:
-        dot = all_reduce(ref.split_dot(x, weight, dy))
-        return ref.rmsnorm_split_bwd(x, weight, dy, total, dot, n, eps)
-    dot = all_reduce(split_row_sums(x, weight, dy))
-    out = split_bwd_apply(x, weight, dy, total, dot, n, eps)
+        dot, partial = ref.split_bwd_rows(x, weight, dy, total, n, eps)
+        return ref.split_bwd_dx(x, weight, dy, total, all_reduce(dot),
+                                partial, n, eps)
+    x, dy = x.contiguous(), dy.contiguous()
+    dot, partial, plan = split_bwd_rows(x, weight, dy, total, n, eps)
+    out = split_bwd_dx(x, weight, dy, total, all_reduce(dot), partial, plan,
+                       n, eps)
     rmsnorm_split_bwd.launches += 1
     return out
 

@@ -10,6 +10,8 @@ them on the card; the card's main path does not call them.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -64,6 +66,57 @@ def split_dot(x: torch.Tensor, weight: torch.Tensor,
     return (dy.float() * weight.float() * x.float()).sum(dim=-1)
 
 
+def split_inv(total: torch.Tensor, n: int, eps: float) -> torch.Tensor:
+    """Each row's ``(total/n + eps)^-1/2`` with a trailing dimension of 1,
+    float32."""
+    return (total[..., None] / n + eps) ** -0.5
+
+
+def split_dw_rows(x: torch.Tensor, dy: torch.Tensor, inv: torch.Tensor,
+                  block_of: Optional[torch.Tensor] = None,
+                  parts: int = 1) -> torch.Tensor:
+    """The partial dw of each of ``parts`` blocks of rows, ``Σ dy·x·inv``
+    over the rows whose ``block_of`` (int64, one a row of x; None: all
+    rows one block) is that block, float32 (parts, d); ``inv`` is
+    :func:`split_inv` of the rows.  The shapes depend on no values, so
+    fake tensors trace it."""
+    p = (dy.float() * x.float() * inv).reshape(-1, x.shape[-1])
+    if block_of is None:
+        return p.sum(dim=0, keepdim=True)
+    return torch.stack([torch.where((block_of == b)[:, None], p, 0.0)
+                        .sum(dim=0) for b in range(parts)])
+
+
+def _split_dx(xf, weight, gf, inv, dot, n) -> torch.Tensor:
+    """``w·dy·inv − x·inv³·dot/n`` from x and dy in float32, float32."""
+    return gf * weight.float() * inv - xf * (inv ** 3 * dot[..., None] / n)
+
+
+def split_bwd_rows(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                   total: torch.Tensor, n: int, eps: float,
+                   block_of: Optional[torch.Tensor] = None,
+                   parts: int = 1) -> tuple:
+    """The backward's first pass, before the all-reduce → (the block's
+    partial ``Σ(w·dy·x)`` of each row, float32; :func:`split_dw_rows`
+    over the given blocks of rows)."""
+    return split_dot(x, weight, dy), split_dw_rows(
+        x, dy, split_inv(total, n, eps), block_of, parts)
+
+
+def split_bwd_dx(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                 total: torch.Tensor, dot: torch.Tensor,
+                 partial: torch.Tensor, n: int, eps: float = 1e-6):
+    """The backward's second pass, given the row's ``dot`` summed over the
+    whole row → (dx of the block; dw, the rows of ``partial`` summed in
+    order, in the weight's dtype)."""
+    dx = _split_dx(x.float(), weight, dy.float(), split_inv(total, n, eps),
+                   dot, n)
+    dw = partial[0].clone()
+    for row in partial[1:]:
+        dw += row
+    return dx.to(x.dtype), dw.to(weight.dtype)
+
+
 def rmsnorm_split_bwd(x: torch.Tensor, weight: torch.Tensor,
                       dy: torch.Tensor, total: torch.Tensor,
                       dot: torch.Tensor, n: int, eps: float = 1e-6):
@@ -72,9 +125,7 @@ def rmsnorm_split_bwd(x: torch.Tensor, weight: torch.Tensor,
     the block, dw of the block's columns summed over this block's rows).
     With ``r = (total/n + eps)^-1/2``: ``dx = w·dy·r − x·r³·dot/n``,
     ``dw = Σ_rows dy·x·r``, in float32."""
-    d = x.shape[-1]
     xf, gf = x.float(), dy.float()
-    inv = (total[..., None] / n + eps) ** -0.5
-    dx = gf * weight.float() * inv - xf * (inv ** 3 * dot[..., None] / n)
-    dw = (gf * xf * inv).reshape(-1, d).sum(dim=0)
-    return dx.to(x.dtype), dw.to(weight.dtype)
+    inv = split_inv(total, n, eps)
+    dx = _split_dx(xf, weight, gf, inv, dot, n)
+    return dx.to(x.dtype), split_dw_rows(xf, gf, inv)[0].to(weight.dtype)

@@ -238,6 +238,48 @@ def test_disk_round_trip_cross_process(tmp_path):
                        prog=cold.program.content_hash())
 
 
+def _pickled(obj):
+    import pickle
+    return pickle.loads(pickle.dumps(obj, protocol=4))
+
+
+@pytest.mark.parametrize("part", ["placement", "latency"])
+def test_artifact_maps_pickle_packed_and_unpack_on_first_read(part):
+    """A placement's positions and a latency assignment's delays cross a
+    pickle as int arrays, come back equal to the reference's on first
+    read, and take mutations, copies and a second pickle like dicts."""
+    import copy
+    src, spec = T.BENCHMARKS["poly1"][0], T.spec()
+    opts = T.CompileOptions(max_replicas=4)
+    r = getattr(R.jit.jit_compile(src, spec, opts=opts), part)
+    t = getattr(T.jit.jit_compile(src, spec, opts=opts), part)
+    loaded = _pickled(t)
+    maps = type(t)._MAPS
+    assert not set(maps) & set(vars(loaded))
+    again = _pickled(loaded)                # packed twice, never unpacked
+    assert again == loaded == t
+    for name in maps:
+        assert getattr(loaded, name) == getattr(r, name)
+        assert list(getattr(loaded, name)) == list(getattr(r, name))
+    twin = copy.deepcopy(again)
+    key = next(iter(getattr(twin, maps[0])))
+    getattr(twin, maps[0])[key] = (99, 99) if part == "placement" else 99
+    assert twin != again and _pickled(twin) == twin
+
+
+def test_artifact_maps_that_do_not_pack_stay_dicts():
+    """Maps that would not come back equal as ints (empty, floats, values
+    of mixed shapes) cross the pickle as they are."""
+    from repro_torch.core.place import Placement
+    p = Placement(fu_pos={}, in_pos={(0, 0): (0.5, 1)},
+                  out_pos={(0, 0): (1, 2), (0, 1): 3}, cost=1.0, moves=0)
+    loaded = _pickled(p)
+    assert loaded == p and "_packed" not in vars(loaded)
+    big = Placement(fu_pos={(0, 0): (1 << 40, -1)}, in_pos={}, out_pos={},
+                    cost=0.0, moves=0)
+    assert _pickled(big) == big
+
+
 def _damage(pkg, tmp_path, how):
     d = tmp_path / pkg.root
     opts = pkg.CompileOptions(max_replicas=4)
