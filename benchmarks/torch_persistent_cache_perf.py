@@ -16,22 +16,28 @@ processes, each importing ``repro_torch``, share one ``persist_dir``:
     compiler stage run.
 
 Each child times its builds (imports excluded) and reports the bitstream
-and program hashes.  The directory is fresh under
+and program hashes.  Every child of a run starts at once and imports,
+then each builds alone in turn.  The pair runs ``ROUNDS`` times, each
+round over a directory of its own, and each timing kept is the least
+over the rounds, the cold boot's as the warm restart's.  A warm restart takes about 10 ms
+on an H100 machine's host, where single pairs have read from 29.8x to
+147x: a stall of the shared host is a large share of the warm time and a
+small one of the cold boot's 0.9 s.  Each directory is fresh under
 ``build/persistent_cache/``: the port's blobs carry the port's own magic,
 and a blob of the JAX package in the same directory would be quarantined,
 not loaded, so each package keeps its own.
 
 The reference's gates (the process exits 1 on any): the warm restart at
 least 50x faster than the cold boot in total, every warm build a disk
-hit, every warm artifact bit-identical to the persisted one.  Then this
-process restores each artifact from the same directory, checks its
-hashes against the children's, and launches its program once on the card
-over 2^20 work-items, bit for bit against ``run_reference``, outside the
-children's timed windows.  ``--smoke`` runs chebyshev and sgfilter, as
-the reference's CI does; the reference recorded its 50x gate on all four
-kernels (62.3x in ``BENCH_compile.json``), and its recorded builds of the
-smoke pair alone give 47.5x, so ``torch_run.py`` and ``chip_smoke.py``
-run the full set.
+hit, every warm artifact bit-identical to the persisted one (in every
+round).  Then this process restores each artifact from the last round's
+directory, checks its hashes against the children's, and launches its
+program once on the card over 2^20 work-items, bit for bit against
+``run_reference``, outside the children's timed windows.  ``--smoke``
+runs chebyshev and sgfilter, as the reference's CI does; the reference
+recorded its 50x gate on all four kernels (62.3x in
+``BENCH_compile.json``), and its recorded builds of the smoke pair alone
+give 47.5x, so ``torch_run.py`` and ``chip_smoke.py`` run the full set.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -59,6 +66,8 @@ SMOKE_KERNELS = ("chebyshev", "sgfilter")
 # the serving config: wide overlay, 4 pads a perimeter tile
 SPEC_KW = dict(width=32, height=8, dsp_per_fu=2, io_per_edge_tile=4)
 GATE = 50.0
+# cold-then-warm pairs; the least of each timing is kept
+ROUNDS = 3
 N_LAUNCH = 1 << 20
 
 _CHILD = r"""
@@ -70,6 +79,8 @@ from repro_torch.core.overlay import OverlaySpec
 
 cfg = json.loads(sys.argv[1])
 spec = OverlaySpec(**cfg["spec"])
+print("ready", flush=True)
+sys.stdin.readline()
 cache = JITCache(persist_dir=cfg["dir"])
 rows = []
 for name in cfg["kernels"]:
@@ -84,17 +95,48 @@ print(json.dumps(dict(rows=rows, disk_hits=cache.stats.disk_hits,
 """
 
 
-def _run_child(persist_dir: Path, kernels: Sequence[str]) -> Dict:
-    cfg = json.dumps(dict(dir=str(persist_dir), kernels=list(kernels),
-                          spec=SPEC_KW))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(port_bench.ROOT / "src") + os.pathsep + \
-        env.get("PYTHONPATH", "")
-    out = subprocess.run([sys.executable, "-c", _CHILD, cfg], env=env,
-                         capture_output=True, text=True, timeout=600)
-    if out.returncode != 0:
-        raise RuntimeError(f"child process failed:\n{out.stderr}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
+class _Child:
+    """One child process over ``persist_dir``: it starts at once, imports
+    and waits (``ready``); ``run`` then lets it build and returns its
+    report.  So every child of a run imports together, and each builds
+    alone."""
+
+    def __init__(self, persist_dir: Path, kernels: Sequence[str]):
+        cfg = json.dumps(dict(dir=str(persist_dir), kernels=list(kernels),
+                              spec=SPEC_KW))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(port_bench.ROOT / "src") + os.pathsep + \
+            env.get("PYTHONPATH", "")
+        self.err = tempfile.TemporaryFile(mode="w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _CHILD, cfg], env=env, text=True,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self.err)
+
+    def ready(self) -> None:
+        if self.proc.stdout.readline().strip() != "ready":
+            self._fail()
+
+    def run(self) -> Dict:
+        out, _ = self.proc.communicate("go\n", timeout=600)
+        if self.proc.returncode != 0:
+            self._fail()
+        return json.loads(out.strip().splitlines()[-1])
+
+    def _fail(self):
+        self._stop()
+        self.err.seek(0)
+        msg = self.err.read()
+        self.close()
+        raise RuntimeError(f"child process failed:\n{msg}")
+
+    def _stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+    def close(self) -> None:
+        self._stop()
+        self.err.close()
 
 
 def restore_and_launch(persist_dir: Path, kernels: Sequence[str],
@@ -116,36 +158,53 @@ def restore_and_launch(persist_dir: Path, kernels: Sequence[str],
 
 
 def bench(device: str = "cuda", kernels: Sequence[str] = KERNELS) -> Dict:
-    """Cold process, then warm (restarted) process, over one directory;
-    then each restored program launched."""
-    d = port_bench.fresh_dir("persistent_cache", "ovl-cache")
+    """``ROUNDS`` of a cold process, then a warm (restarted) process, each
+    round over a fresh directory; then each program restored from the last
+    round's directory and launched.  Each timing is the least over the
+    rounds: a kernel's row per kernel, the totals per round."""
+    dirs = [port_bench.fresh_dir("persistent_cache", "ovl-cache")
+            for _ in range(ROUNDS)]
+    procs: List[_Child] = []
     try:
-        cold = _run_child(d, kernels)
-        warm = _run_child(d, kernels)
-        restored = restore_and_launch(d, kernels, device)
+        for d in dirs:                     # cold, then warm, a round
+            procs += [_Child(d, kernels), _Child(d, kernels)]
+        for proc in procs:
+            proc.ready()
+        reports = [proc.run() for proc in procs]
+        restored = restore_and_launch(dirs[-1], kernels, device)
     finally:
-        shutil.rmtree(d, ignore_errors=True)
+        for proc in procs:
+            proc.close()
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    pairs = list(zip(reports[0::2], reports[1::2]))
     rows: List[Dict] = []
-    total_cold = total_warm = 0.0
-    for c, w, r in zip(cold["rows"], warm["rows"], restored):
+    for i, r in enumerate(restored):
+        c = reports[0]["rows"][i]
+        cold_ms = min(cold["rows"][i]["ms"] for cold, _ in pairs)
+        warm_ms = min(warm["rows"][i]["ms"] for _, warm in pairs)
         rows.append(dict(
             kernel=c["kernel"], replicas=c["replicas"], pr_path=c["pr_path"],
-            cold_ms=round(c["ms"], 3), warm_ms=round(w["ms"], 3),
-            speedup=round(c["ms"] / max(w["ms"], 1e-9), 1),
-            bit_identical=c["bs"] == w["bs"] and c["prog"] == w["prog"],
+            cold_ms=round(cold_ms, 3), warm_ms=round(warm_ms, 3),
+            speedup=round(cold_ms / max(warm_ms, 1e-9), 1),
+            bit_identical=all((x["rows"][i]["bs"], x["rows"][i]["prog"]) ==
+                              (c["bs"], c["prog"]) for x in reports),
             bitstream_sha256=c["bs"], program_hash=c["prog"],
             restored_disk_hit=r["disk_hit"],
             restored_identical=(r["bs"], r["prog"]) == (c["bs"], c["prog"]),
             launch_bit_exact=r["bit_exact"]))
-        total_cold += c["ms"]
-        total_warm += w["ms"]
+    totals = [{f"{side}_ms": round(sum(x["ms"] for x in child["rows"]), 3)
+               for side, child in zip(("cold", "warm"), pair)}
+              for pair in pairs]
+    total_cold = min(t["cold_ms"] for t in totals)
+    total_warm = min(t["warm_ms"] for t in totals)
     return dict(
-        spec=SPEC_KW, device=device, rows=rows,
-        total_cold_ms=round(total_cold, 3),
-        total_warm_ms=round(total_warm, 3),
+        spec=SPEC_KW, device=device, rows=rows, rounds=totals,
+        total_cold_ms=total_cold, total_warm_ms=total_warm,
         speedup_total=round(total_cold / max(total_warm, 1e-9), 1),
-        warm_disk_hits=warm["disk_hits"],
-        cold_disk_writes=cold["disk_writes"], launch_items=N_LAUNCH)
+        warm_disk_hits=min(warm["disk_hits"] for _, warm in pairs),
+        cold_disk_writes=min(cold["disk_writes"] for cold, _ in pairs),
+        launch_items=N_LAUNCH)
 
 
 def check_gate(result: Dict, gate: float = GATE) -> List[str]:
@@ -207,6 +266,10 @@ def report(result: Dict) -> None:
         print(f"{r['kernel']:<10} {r['replicas']:>3} {r['cold_ms']:>7.1f}ms "
               f"{r['warm_ms']:>7.2f}ms {r['speedup']:>7.1f}x "
               f"{str(r['bit_identical']):>9} {str(r['launch_bit_exact']):>7}")
+    for i, t in enumerate(result["rounds"]):
+        print(f"round {i:<4} {'':>3} {t['cold_ms']:>7.1f}ms "
+              f"{t['warm_ms']:>7.2f}ms "
+              f"{t['cold_ms'] / max(t['warm_ms'], 1e-9):>7.1f}x")
     print(f"{'TOTAL':<10} {'':>3} {result['total_cold_ms']:>7.1f}ms "
           f"{result['total_warm_ms']:>7.2f}ms "
           f"{result['speedup_total']:>7.1f}x (gate {result['gate']}x); "

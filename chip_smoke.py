@@ -120,7 +120,8 @@ float32 SIMT kernels).  Phases:
       kernel and per flash-attention route, times, one decode step under
       torch's sync debug mode, a profiled prefill and decode, the peak
       memory, and three logits checks at two bfloat16 weight seeds and in
-      float32 (qwen3-moe cut to ``MOE_F32_LAYERS`` there), each limit also
+      float32 (qwen3-moe cut to ``MOE_F32_LAYERS`` there, mamba2 to
+      ``MAMBA_F32_LAYERS``), each limit also
       held against planted faults (attention and the expert map for the
       moe family, the SSD decay and the conv taps for the ssm family).
       Phase (e) adds those models' RMSNorm rows (1024, 2048, 4096 and the
@@ -244,9 +245,13 @@ float32 SIMT kernels).  Phases:
       prompt of TP_PROMPT, TP_GEN steps fed the one-rank run's tokens,
       each rank's greedy pick read from the vocab-sharded logits and
       equal, every one, to the argmax of the gathered logits), the
-      logits within ``AGREE_TOL`` of the one-rank run's; (p2)
-      qwen3-moe-235b-a22b at full width cut to TP_MOE_LAYERS (32 experts
-      a rank), its prefill within ``AGREE_TOL_K``; (p3) qwen3-14b at full
+      logits within ``AGREE_TOL`` of the one-rank run's, then the same
+      prefill context-parallel (``act_sharding``: the sequence on 'model',
+      each rank's layers on its block of 1024 positions, flash attention
+      at Sq 1024 against Skv 1024 (r + 1)), within ``AGREE_TOL`` too;
+      (p2) qwen3-moe-235b-a22b at full width cut to TP_MOE_LAYERS (32
+      experts a rank), its prefill and its context-parallel prefill
+      within ``AGREE_TOL_K``; (p3) qwen3-14b at full
       width cut per mesh (TP_TRAIN_LAYERS), B=2 x S=2048, full remat,
       TP_TRAIN_STEPS steps on (1, 4) and on (2, 2) at seed 0 and one at
       seed 1, the first loss, every grad norm and each gradient leaf's
@@ -289,9 +294,11 @@ float32 SIMT kernels).  Phases:
       host s per pipelined step and GB per rank.
       ``python3 chip_smoke.py --phase p`` runs (a) and (p) alone,
       ``--phase p5`` (a) and (p5).
-  (q) the dry run, host work in child processes started together, after
-      (p): (q1) qwen3-14b x train_4k and qwen3-moe-235b-a22b x decode_32k
-      through ``python -m repro_torch.launch.dryrun`` on a fake world of
+  (q) the dry run, host work in child processes started together before
+      (p) (whose ranks spend their time in gloo) and read after it: (q3) ``--seq-shard-prefill`` on qwen3-14b and mixtral-8x22b x
+      prefill_32k (roofline rows; mixtral's collectives unlike its row
+      without the flag); (q1) qwen3-14b x train_4k and
+      qwen3-moe-235b-a22b x decode_32k through ``python -m repro_torch.launch.dryrun`` on a fake world of
       256 ranks, their rooflines in the H100's data-sheet rates printed
       and read back by ``benchmarks/torch_roofline_report.py``; (q2) phase
       (g)'s prefill (40 layers, 4 x 4096) and phase (n2)'s train step (12
@@ -403,6 +410,8 @@ FA_CASES = (
     (4, 20, 20, 448, 448, 64, True, None),       # whisper's decoder
     (4, 20, 20, 448, 1500, 64, False, None),     # whisper's cross-attention
     (4, 20, 20, 1, 1500, 64, False, None),       # ... in a decode step
+    (1, 40, 8, 1024, 2048, 128, True, None),     # context-parallel blocks
+    (1, 40, 8, 1024, 4096, 128, True, None),     # ... of (p1): Sq < Skv
 )
 # phase (f) times the kernel at these shapes of phase (l)'s whisper-large-v3
 # in turns with scaled_dot_product_attention: (b, hq, sq, skv, d, causal)
@@ -2026,7 +2035,8 @@ def paper_readings(name: str, res: dict) -> dict:
             k: c[f"{k}_ms"] for k in ("executor", "plain", "compiled")}
             for c in res["cells"]}
     if name == "torch_persistent_cache_perf":
-        return {"speedup_total": res["speedup_total"]}
+        return {"speedup_total": res["speedup_total"],
+                "rounds": res["rounds"]}
     return {}
 
 
@@ -3189,6 +3199,11 @@ MOE_AGREE_S = 256
 MAMBA_AGREE_PROMPT = 224
 # qwen3-moe's float32 agreement run, cut further to fit (9.95 GB a layer)
 MOE_F32_LAYERS = 4
+# mamba2's float32 agreement run, cut to half its 48 layers for the
+# script's time: its decode loops are host-bound (about 1700 kernels a
+# step), and at 48 layers its three float32 runs read 4.7e-04 to 1.1e-03
+# against a limit of 1e-2 and faults of 6.2 and more
+MAMBA_F32_LAYERS = 24
 # limits of phase (k)'s agreement checks, each set between the clean
 # readings at two bfloat16 weight seeds and the smallest planted fault's
 # (PERF.md, section 6).  On an H100 the moe family read 0.17 and 0.37
@@ -3831,7 +3846,8 @@ def phase_family(kind: str, card: str):
 
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    f32_layers = {"moe": MOE_F32_LAYERS, "hybrid": ZAMBA_F32_LAYERS}
+    f32_layers = {"moe": MOE_F32_LAYERS, "ssm": MAMBA_F32_LAYERS,
+                  "hybrid": ZAMBA_F32_LAYERS}
     if kind in f32_layers:
         cfg32 = dataclasses.replace(cfg32, n_layers=f32_layers[kind])
     m32 = build_model(cfg32)
@@ -5550,7 +5566,8 @@ class TpRanks:
 def tp_recorded():
     """Within the block, the shapes the flash-attention, RMSNorm and
     split-row RMSNorm dispatches see: a dict of sets, ``attention``
-    holding (q heads, key/value heads, sequence, head dim), ``rmsnorm``
+    holding (q heads, key/value heads, sequence, head dim, keys),
+    ``rmsnorm``
     (rank, last dim, heads of a 4-d view) and ``rmsnorm_split`` (the
     rank's columns, the whole row's)."""
     from unittest import mock
@@ -5563,7 +5580,7 @@ def tp_recorded():
 
     def attention(q, k, v, **kw):
         seen["attention"].add((q.shape[1], k.shape[1], q.shape[2],
-                               q.shape[3]))
+                               q.shape[3], k.shape[2]))
         return real_fa(q, k, v, **kw)
 
     def rmsnorm(x, w, eps=1e-6, impl=None):
@@ -5729,24 +5746,28 @@ def tp_free(device: str) -> None:
 
 def tp_serve_rank(rank: int, device: str, *, arch: str, layers, seed: int,
                   shards: int, b: int, s: int, reduced: bool, out: str,
-                  serve: bool) -> dict:
+                  serve: bool, seq_shard: bool = False) -> dict:
     """(p1)/(p2) on one rank: the model placed on make_host_mesh(shards)
     (the ranks drawing in turns), one prefill step, and with ``serve``
     the serve loop fed the one-rank run's tokens (``out``'s reference)
     with greedy picks read from the vocab-sharded logits; rank 0 saves
-    the gathered logits to ``out``."""
+    the gathered logits to ``out``.  With ``seq_shard`` the prefill is
+    context-parallel: ``act_sharding`` puts the activations' sequence on
+    'model'."""
     import torch
     from repro_torch.launch.mesh import (axis_size, make_host_mesh, place,
-                                         place_in_turns)
+                                         place_in_turns, placements)
     from repro_torch.launch.serve import greedy, serve_loop
     from repro_torch.models.registry import build_model
-    from repro_torch.models.common import full
+    from repro_torch.models.common import P, full
     from repro_torch.train.step import make_prefill_step
     tp_free(device)
     dev = torch.device(device)
     cfg = tp_config(arch, layers, reduced)
     model = build_model(cfg)
     mesh = make_host_mesh(shards, device=device)
+    if seq_shard:
+        model.act_sharding = placements(P("data", "model", None), mesh)
     drawn = {}
 
     def draw():
@@ -6332,6 +6353,46 @@ def tp_family_launches(kind: str, cfg, steps: int) -> dict:
                 rmsnorm=(n + 2 * sites + 1) * (1 + steps))
 
 
+def tp_seq_sharded(ranks, tag: str, kw: dict, want, tol: float, cfg,
+                   device: str, card: str):
+    """(p1)/(p2)'s context-parallel prefill: the prefill step of ``kw``'s
+    model on (1, TP_RANKS) with ``act_sharding`` putting the activations'
+    sequence on 'model', its logits held within ``tol`` of the one-rank
+    run's ``want``; each rank launches flash attention once a layer on
+    the tensor-core route at its block of Sq = S / TP_RANKS queries
+    against the keys up to its block's end, Skv = Sq (r + 1), and RMSNorm
+    on whole rows → (the launches summed over the ranks, readings).  An
+    agreement reading: gloo's times say nothing of NVLink."""
+    import torch
+    kw = dict(kw, out=str(TP_DIR / f"{tag}_seq.pt"), serve=False,
+              seq_shard=True)
+    per_rank = ranks.run("serve", shards=TP_RANKS, **kw)
+    err = tp_logit_err(torch.load(kw["out"])["prefill"], want)
+    n, sq = cfg.n_layers, kw["s"] // TP_RANKS
+    launches = tp_check_launches(
+        f"({tag}) context-parallel prefill", [r["launches"] for r in per_rank],
+        {"flash_attention": n, "rmsnorm": 4 * n + 1,
+         "flash_attention_bwd": 0, "rmsnorm_bwd": 0}, device)
+    shapes = [r["attention_shapes"] for r in per_rank]
+    peaks = [r["memory_after_prefill"]["peak_gb"] for r in per_rank]
+    log(f"({tag}) {kw['arch']}, {n} layers at full width, B={kw['b']} "
+        f"S={kw['s']} with the sequence on 'model' of "
+        f"{per_rank[0]['mesh']}: attention (q heads, kv heads, Sq, D, Skv) "
+        f"by rank {shapes}; flash attention by route "
+        f"{launches['flash_attention_by_route']}; logits against the "
+        f"one-rank run {err:.4g} (limit {tol}); prefill "
+        f"{per_rank[0]['prefill_s']:.2f} s over gloo (a first call); per "
+        f"rank peak GB {peaks}; {card}")
+    check(err <= tol, f"({tag}) context-parallel prefill logits differ "
+                      f"from the one-rank run by {err}")
+    for r, got in enumerate(shapes):
+        check([tuple(a) for a in got] == [
+            (cfg.n_heads, cfg.n_kv_heads, sq, cfg.hd, sq * (r + 1))],
+              f"({tag}) context-parallel rank {r} attention shapes {got}")
+    return launches, dict(ranks=per_rank, logit_err=err, peak_gb=peaks,
+                          attention_shapes=shapes)
+
+
 def tp_families(ranks, card: str, device: str, reduced: bool,
                 s_prefill: int, s_train: int):
     """(p4) mamba2-370m, zamba2-7b (cut) and whisper-large-v3 on (1, 4)
@@ -6641,6 +6702,11 @@ def phase_tensor_parallel(card: str, device: str = None,
             check(all(a[0] == cfg.n_heads // TP_RANKS and a[1] == hkv_local
                       for a in rr["attention_shapes"]),
                   f"(p1) rank {r} attention shapes {rr['attention_shapes']}")
+        # ---- (p1) the same prefill with the sequence on 'model'
+        paths[f"(p1) {TRAIN_ARCH} context-parallel prefill on (1, 4)"], \
+            read["p1"]["seq_sharded"] = tp_seq_sharded(
+                ranks, "p1", kw, ref["prefill"],
+                AGREE_TOL["decode_vs_prefill"], cfg, device, card)
         # ---- (p2) qwen3-moe-235b-a22b cut, prefill
         kw = dict(arch=MOE_ARCH, layers=moe_layers, seed=0, b=TP_PREFILL_B,
                   s=s_prefill, reduced=reduced,
@@ -6670,6 +6736,12 @@ def phase_tensor_parallel(card: str, device: str = None,
             f"after the prefill {free}; {card}")
         check(err <= AGREE_TOL_K["moe"]["decode_vs_prefill"],
               f"(p2) prefill logits differ from the one-rank run by {err}")
+        # ---- (p2) the same prefill with the sequence on 'model'
+        paths[f"(p2) {MOE_ARCH} context-parallel prefill on (1, 4)"], \
+            read["p2"]["seq_sharded"] = tp_seq_sharded(
+                ranks, "p2", kw, ref["prefill"],
+                AGREE_TOL_K["moe"]["decode_vs_prefill"],
+                tp_config(MOE_ARCH, moe_layers, reduced), device, card)
         # ---- (p3) training on (1, 4) and (2, 2), and the planted fault
         read["p3"] = {}
         for mesh_shape, layers in train_layers.items():
@@ -6763,6 +6835,11 @@ def phase_tensor_parallel(card: str, device: str = None,
 DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
 DRYRUN_CELLS = (("qwen3-14b", "train_4k"),
                 ("qwen3-moe-235b-a22b", "decode_32k"))
+# (q3) --seq-shard-prefill (context-parallel prefill) on a dense and a moe
+# prefill_32k cell, and the moe cell without it: (arch, shape, flag)
+DRYRUN_SEQ_CELLS = (("qwen3-14b", "prefill_32k", "seq_shard"),
+                    ("mixtral-8x22b", "prefill_32k", "seq_shard"),
+                    ("mixtral-8x22b", "prefill_32k", "flagless"))
 DRYRUN_TIMEOUT_S = 240
 # phase (g)'s prefill step and phase (n2)'s train step as one-rank cells of
 # the same code: (kind, layers, seq, batch)
@@ -6780,42 +6857,60 @@ with open(out, "w") as f:
 """
 
 
-def dryrun_children() -> dict:
-    """Every dry-run cell of phase (q) at once → {key: its result}; each
-    child's output in DRYRUN_DIR."""
-    import shutil
-    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
-    DRYRUN_DIR.mkdir(parents=True)
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    cmds = {cell: ["-m", "repro_torch.launch.dryrun", "--arch", cell[0],
-                   "--shape", cell[1]] for cell in DRYRUN_CELLS}
-    cmds.update({name: ["-c", DRYRUN_ONE_RANK_CHILD, TRAIN_ARCH, kind,
-                        str(layers), str(seq), str(batch)]
-                 for name, (kind, layers, seq, batch)
-                 in DRYRUN_ONE_RANK.items()})
-    procs = {}
-    try:
-        for key, cmd in cmds.items():
-            stem = "_".join(key) if isinstance(key, tuple) else key
-            out, log_file = DRYRUN_DIR / f"{stem}.json", \
-                open(DRYRUN_DIR / f"{stem}.log", "w")
-            args = cmd + (["--out", str(out)] if cmd[0] == "-m"
-                          else [str(out)])
-            procs[key] = (out, log_file, subprocess.Popen(
-                [sys.executable, *args], stdout=log_file,
-                stderr=subprocess.STDOUT, env=env, cwd=ROOT))
-        deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+class DryRuns:
+    """Every dry-run cell of phase (q), each in a child process, all
+    started on entry; ``results()`` waits for them → {key: its result};
+    each child's output in DRYRUN_DIR.  The children use the host alone,
+    so the whole script starts them before phase (p), whose ranks spend
+    their time in gloo, and reads them in (q); on exit any child still
+    running is killed."""
+
+    def __enter__(self):
+        import shutil
+        shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+        DRYRUN_DIR.mkdir(parents=True)
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        cmds = {cell: ["-m", "repro_torch.launch.dryrun", "--arch", cell[0],
+                       "--shape", cell[1]] for cell in DRYRUN_CELLS}
+        cmds.update({cell: ["-m", "repro_torch.launch.dryrun", "--arch",
+                            cell[0], "--shape", cell[1]]
+                     + (["--seq-shard-prefill"] if cell[2] == "seq_shard"
+                        else []) for cell in DRYRUN_SEQ_CELLS})
+        cmds.update({name: ["-c", DRYRUN_ONE_RANK_CHILD, TRAIN_ARCH, kind,
+                            str(layers), str(seq), str(batch)]
+                     for name, (kind, layers, seq, batch)
+                     in DRYRUN_ONE_RANK.items()})
+        self.t0, self.procs = time.perf_counter(), {}
+        try:
+            for key, cmd in cmds.items():
+                stem = "_".join(key) if isinstance(key, tuple) else key
+                out, log_file = DRYRUN_DIR / f"{stem}.json", \
+                    open(DRYRUN_DIR / f"{stem}.log", "w")
+                args = cmd + (["--out", str(out)] if cmd[0] == "-m"
+                              else [str(out)])
+                self.procs[key] = (out, log_file, subprocess.Popen(
+                    [sys.executable, *args], stdout=log_file,
+                    stderr=subprocess.STDOUT, env=env, cwd=ROOT))
+        except BaseException:
+            self.__exit__()
+            raise
+        return self
+
+    def results(self) -> dict:
+        deadline = self.t0 + DRYRUN_TIMEOUT_S
         results = {}
-        for key, (out, log_file, proc) in procs.items():
-            rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        for key, (out, log_file, proc) in self.procs.items():
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
             log_file.close()
             check(rc == 0, f"(q) the dry run of {key} exited {rc}: "
                            + Path(log_file.name).read_text()[-2000:])
             cells = json.loads(out.read_text())
             results[key] = cells[0] if isinstance(cells, list) else cells
+        self.seconds = time.perf_counter() - self.t0
         return results
-    finally:
-        for _, log_file, proc in procs.values():
+
+    def __exit__(self, *exc):
+        for _, log_file, proc in self.procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -6830,8 +6925,11 @@ def roofline_terms(r: dict) -> str:
             f"{r['useful_flops_ratio']:.3f}")
 
 
-def phase_dryrun(measured=None):
-    """(q) the dry run.  (q1) ``DRYRUN_CELLS`` on the fake 256-rank world
+def phase_dryrun(measured=None, dry_runs=None):
+    """(q) the dry run: the children of ``dry_runs`` (a ``DryRuns``
+    entered earlier), else of one started here.  (q3) ``DRYRUN_SEQ_CELLS``: context-parallel
+    prefill rows, the moe one's collectives held apart from its flagless
+    row's.  (q1) ``DRYRUN_CELLS`` on the fake 256-rank world
     through ``python -m repro_torch.launch.dryrun``, their rooflines in the
     H100's rates printed, written to one artifact and read by
     ``benchmarks/torch_roofline_report.py``.  (q2) phase (g)'s prefill and
@@ -6845,8 +6943,10 @@ def phase_dryrun(measured=None):
     holds S; the kernels do not)."""
     from repro_torch.launch.mesh import HBM_BW, ICI_BW, PEAK_FLOPS_BF16
 
-    t0 = time.perf_counter()
-    res = dryrun_children()
+    if dry_runs is None:
+        with DryRuns() as dry_runs:
+            return phase_dryrun(measured, dry_runs)
+    res = dry_runs.results()
     read = {"cells": {}, "one_rank": {}}
     for arch, shape in DRYRUN_CELLS:
         c = res[(arch, shape)]
@@ -6876,6 +6976,23 @@ def phase_dryrun(measured=None):
           and all(row["us_per_call"] == res[cell]["roofline"]["step_s"] * 1e6
                   for row, cell in zip(rows, DRYRUN_CELLS)),
           f"(q1) the report's rows {rows}")
+    read["seq_shard_prefill"] = {}
+    for cell in DRYRUN_SEQ_CELLS:
+        c = res[cell]
+        check("roofline" in c, f"(q3) {cell}: no roofline: {c}")
+        r = c["roofline"]
+        log(f"(q3) {cell[0]} x {cell[1]} {cell[2]} on the fake 16x16 world: "
+            f"{roofline_terms(r)}; collective GB a rank "
+            f"{ {k: v / 1e9 for k, v in r['coll_breakdown'].items()} }; "
+            f"{c['bytes_per_device'] / 2**30:.2f} GiB a rank at the peak")
+        read["seq_shard_prefill"][" ".join(cell)] = dict(
+            roofline=r, bytes_per_device=c["bytes_per_device"],
+            lower_s=c["lower_s"])
+    on, off = (res[cell]["roofline"]["coll_breakdown"]
+               for cell in DRYRUN_SEQ_CELLS[1:])
+    check(on != off and on["all-reduce"] < off["all-reduce"],
+          f"(q3) --seq-shard-prefill left a moe cell's collectives as they "
+          f"were: {on} against {off}")
     for name, (kind, layers, seq, batch) in DRYRUN_ONE_RANK.items():
         c = res[name]
         r = c["roofline"]
@@ -6906,9 +7023,9 @@ def phase_dryrun(measured=None):
                   f"{floor_s * 1e3:.1f} ms is above the measured {ms:.1f} "
                   f"ms")
         read["one_rank"][name] = got
-    read["seconds"] = time.perf_counter() - t0
-    log(f"(q) took {read['seconds']:.1f} s: {len(res)} dry runs on the "
-        f"host, no kernel launched")
+    read["seconds"] = dry_runs.seconds
+    log(f"(q) {len(res)} dry runs on the host, no kernel launched, done "
+        f"{read['seconds']:.1f} s after they started")
     return read
 
 
@@ -7132,12 +7249,14 @@ def main(argv=None) -> int:
     paths["(o) qwen3-14b compressed DP"] = dp_launches
     paths["(o) one-stage pipeline"] = pipe_launches
     paths["(o) one-stage pipeline with its backward"] = pipe_grad
-    tp_paths, tp = phase_tensor_parallel(card)
-    took("(p)")
+    with DryRuns() as dry_runs:
+        tp_paths, tp = phase_tensor_parallel(card)
+        took("(p)")
+        dry = phase_dryrun({"prefill": prefill,
+                            "train": (train["step_ms"],
+                                      train["peak_gb"] * 1e9)}, dry_runs)
+        took("(q)")
     paths.update(tp_paths)
-    dry = phase_dryrun({"prefill": prefill,
-                        "train": (train["step_ms"], train["peak_gb"] * 1e9)})
-    took("(q)")
     ex_launches, examples = phase_examples(card)
     took("(r)")
     paths["(r) examples"] = ex_launches

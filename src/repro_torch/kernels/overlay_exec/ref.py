@@ -5,16 +5,20 @@ of (R, N) values, one instruction at a time, on whatever device the inputs
 lie.  It restates ``repro/kernels/overlay_exec/ref.py::execute_image`` (the
 numpy oracle) operation for operation, so both give the same float32 bits:
 every instruction is one separately rounded torch op, ``a*b + c`` included.
+:func:`execute` runs an ``OverlayProgram`` on its raw inputs through it,
+as the JAX package's ``ref.execute`` does.
 """
 
 from __future__ import annotations
+
+from typing import List, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.dfg import tensor_maximum, tensor_minimum
 from repro_torch.core.program import (
-    OP_ABS, OP_ADD, OP_IMULADD, OP_IMULSUB, OP_MAX, OP_MIN, OP_MUL,
+    OverlayProgram, OP_ABS, OP_ADD, OP_IMULADD, OP_IMULSUB, OP_MAX, OP_MIN, OP_MUL,
     OP_MULADD, OP_MULSUB, OP_NEG, OP_NOP, OP_PASS, OP_RSUB, OP_SUB)
 
 
@@ -72,3 +76,16 @@ def execute_image(instrs, imms, n_regs: int, inputs: torch.Tensor,
         regs[d] = _apply(op, va, vb, vc, imm)
     return regs[n_regs - n_out:].clone()
 
+
+
+def execute(program: OverlayProgram, inputs: Sequence) -> List[torch.Tensor]:
+    """Plain execution of an OverlayProgram on raw (unpadded) inputs, one
+    tensor (or array) per input slot, all of one shape → one tensor per
+    output slot, of that shape, float32, on the inputs' device (the CPU
+    for arrays)."""
+    from repro_torch.kernels.overlay_exec.ops import build_image
+    ts = [torch.as_tensor(x) for x in inputs]
+    arrs = torch.stack([t.to(torch.float32).reshape(-1) for t in ts])
+    instrs, imms, n_regs, n_out = build_image(program)
+    out = execute_image(instrs, imms, n_regs, arrs, n_out)
+    return [out[j].reshape(ts[0].shape) for j in range(n_out)]

@@ -14,7 +14,10 @@ group of 256 ranks (512 with ``--multi-pod``) in this one process, whose
 collectives return at once, the production mesh over it, and every
 parameter, optimizer leaf, cache and input a fake tensor
 (``FakeTensorMode``: shapes, dtypes and placements, no storage) placed by
-its sharding spec.  The per-rank program is counted as it runs:
+its sharding spec.  A context-parallel prefill (``--seq-shard-prefill``)
+is traced on rank 15 instead, the last block of the sequence on 'model'
+(``LAST_BLOCK_RANK``): the ranks' work differs there, and that block's
+queries attend every key.  The per-rank program is counted as it runs:
 
 - FLOPs by ``FlopCounterMode``;
 - bytes: each op's inputs and outputs (views, allocations and
@@ -69,6 +72,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _disable_current_modes)
@@ -78,7 +82,8 @@ from repro_torch.configs.registry import (ALL_ARCHS, SHAPES, get_arch,
                                           shape_applicable)
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import (check_widths, make_production_mesh,
-                                     place)
+                                     place, placements)
+from repro_torch.models.common import P
 from repro_torch.models.registry import (build_model, input_shardings,
                                          input_specs)
 from repro_torch.optim.adamw import AdamWConfig
@@ -223,8 +228,8 @@ def _step_inputs(cfg, model, seq: int, batch: int, kind: str, mesh,
 
 def trace_cell(cfg, model, seq: int, batch: int, kind: str, mesh,
                multi_pod: bool = False, grad_accum: int = 1) -> Trace:
-    """One (cfg × shape) step of ``model`` on rank 0 of ``mesh`` (a mesh
-    over a fake world, :func:`fake_world`), traced under
+    """One (cfg × shape) step of ``model`` on this process's rank of
+    ``mesh`` (a mesh over a fake world, :func:`fake_world`), traced under
     ``FakeTensorMode`` with its counts."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
@@ -258,10 +263,14 @@ def trace_cell(cfg, model, seq: int, batch: int, kind: str, mesh,
 
 
 @contextlib.contextmanager
-def fake_world(n: int) -> Iterator[None]:
+def fake_world(n: int, rank: int = 0) -> Iterator[None]:
     """A fake process group of ``n`` ranks in this process, this one rank
-    0; ended on leaving unless it was there before.  Raises beside a
-    process group that is not fake, or a fake one of another size."""
+    ``rank``; ended on leaving unless it was there before (then this
+    process keeps the rank it has there).  Raises beside a process group
+    that is not fake, or a fake one of another size.  Worlds of other
+    ranks one after another in one process can fail: DTensor's dispatch
+    caches keep the meshes, and so the groups' names, of a world that
+    ended (one world serves :func:`main`'s cells)."""
     if dist.is_initialized():
         if dist.get_backend() != "fake":
             raise RuntimeError(
@@ -274,11 +283,26 @@ def fake_world(n: int) -> Iterator[None]:
         yield
         return
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
     try:
         yield
     finally:
         dist.destroy_process_group()
+
+
+def _seq_sharded(model, kind: str, seq_shard_prefill: bool) -> bool:
+    """Whether a cell runs context-parallel prefill: the flag, a prefill
+    cell and a model with ``act_sharding``, as the JAX package decides."""
+    return seq_shard_prefill and kind == "prefill" and \
+        hasattr(model, "act_sharding")
+
+
+# a context-parallel prefill is traced on the rank of the sequence's last
+# block on 'model' (rank 15 of the production mesh, the last of the first
+# data group): the ranks' work differs there, and that block's queries
+# attend every key (rank 0's the fewest)
+LAST_BLOCK_RANK = 15
 
 
 def dryrun_cell(arch: str, shape: str, multi_pod: bool = False,
@@ -298,20 +322,20 @@ def dryrun_cell(arch: str, shape: str, multi_pod: bool = False,
     skip = shape_applicable(cfg, shape)
     if skip:
         return {"arch": arch, "shape": shape, "skipped": skip}
-    if seq_shard_prefill and kind == "prefill" and \
-            cfg.family in ("dense", "vlm"):
-        raise NotImplementedError(
-            "context-parallel prefill (the activations' sequence on "
-            "'model') is not ported")
-
-    with fake_world(512 if multi_pod else 256):
+    opts = dict(remat_policy=remat, attn_impl=attn_impl,
+                ssd_dtype=ssd_dtype, moe_grouped=moe_grouped,
+                parallel_block=parallel_block)
+    model = build_model(cfg, **opts)
+    seq_sharded = _seq_sharded(model, kind, seq_shard_prefill)
+    with fake_world(512 if multi_pod else 256,
+                    LAST_BLOCK_RANK if seq_sharded else 0):
         mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
         n_dev = mesh.size()
         check_widths(cfg, mesh)
-        opts = dict(remat_policy=remat, attn_impl=attn_impl,
-                    ssd_dtype=ssd_dtype, moe_grouped=moe_grouped,
-                    parallel_block=parallel_block)
-        model = build_model(cfg, **opts)
+        if seq_sharded:
+            batch_ax = ("pod", "data") if multi_pod else "data"
+            model.act_sharding = placements(P(batch_ax, "model", None),
+                                            mesh)
         tr = trace_cell(cfg, model, seq, batch, kind, mesh, multi_pod,
                         grad_accum=grad_accum)
     roof = rl.analyze(tr.counts, cfg, seq, batch, kind, n_dev, remat=remat)
@@ -344,19 +368,23 @@ def dryrun_cell(arch: str, shape: str, multi_pod: bool = False,
 
 def host_cell(cfg, seq: int, batch: int, kind: str,
               mesh_shape: Tuple[int, int] = (1, 1), remat: str = "full",
-              grad_accum: int = 1) -> Dict[str, Any]:
+              grad_accum: int = 1,
+              seq_shard_prefill: bool = False) -> Dict[str, Any]:
     """One step of ``cfg`` (any depth) on a ("data", "model") mesh of
     ``mesh_shape`` over a fake world of its size, traced as
-    :func:`dryrun_cell` traces a production cell: ``chip_smoke.py``'s
-    one-rank cells, the tests' small meshes.  Its own process group, so
-    not beside another."""
-    from torch.distributed.device_mesh import DeviceMesh
+    :func:`dryrun_cell` traces a production cell (``seq_shard_prefill``
+    as there): ``chip_smoke.py``'s one-rank cells, the tests' small
+    meshes.  Its own process group, so not beside another."""
     n = mesh_shape[0] * mesh_shape[1]
-    with fake_world(n):
+    model = build_model(cfg, remat_policy=remat, attn_impl="ref")
+    seq_sharded = _seq_sharded(model, kind, seq_shard_prefill)
+    # context-parallel: the last 'model' rank of the first data group
+    with fake_world(n, mesh_shape[1] - 1 if seq_sharded else 0):
         mesh = DeviceMesh("cpu", torch.arange(n).reshape(mesh_shape),
                           mesh_dim_names=("data", "model"))
         check_widths(cfg, mesh)
-        model = build_model(cfg, remat_policy=remat, attn_impl="ref")
+        if seq_sharded:
+            model.act_sharding = placements(P("data", "model", None), mesh)
         tr = trace_cell(cfg, model, seq, batch, kind, mesh,
                         grad_accum=grad_accum)
     roof = rl.analyze(tr.counts, cfg, seq, batch, kind, n, remat=remat)
@@ -391,7 +419,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--seq-shard-prefill", action="store_true",
                     help="context-parallel prefill: activations seq-sharded "
-                         "over the model axis (not ported: such cells fail)")
+                         "over the model axis")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -406,7 +434,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         cells = [(args.arch, args.shape)]
 
     results = []
-    with fake_world(512 if args.multi_pod else 256):
+    # one world for every cell; as rank LAST_BLOCK_RANK with
+    # --seq-shard-prefill (the other cells' ranks are alike)
+    with fake_world(512 if args.multi_pod else 256,
+                    LAST_BLOCK_RANK if args.seq_shard_prefill else 0):
         for a, s in cells:
             try:
                 r = dryrun_cell(a, s, multi_pod=args.multi_pod,

@@ -292,6 +292,11 @@ def stack_spec(tree: Any) -> Any:
 # weight (``Partial`` wherever the activation is sharded), and the
 # train step's redistribution to the parameter's placements sums them.
 #
+# A dimension that its mesh axes do not divide evenly (a context-parallel
+# prefill's sequence) is split as ``torch.chunk`` splits it (:func:`block`):
+# such a DTensor is made with its global shape (:func:`from_local`) and
+# gathered padded to its blocks' ceiling.
+#
 # Gathers go through ``torch.distributed.all_gather_into_tensor``
 # (:func:`gather`, :func:`full`), never DTensor's own all-gather: torch
 # 2.11's functional all-gather, which DTensor calls, crashes the process on
@@ -325,9 +330,20 @@ def replicated(mesh: DeviceMesh) -> Placements:
 
 
 def from_local(t: torch.Tensor, mesh: DeviceMesh,
-               placements: Sequence[Placement]) -> DTensor:
-    """``t`` as the local shard of a DTensor (shards of equal size)."""
-    return DTensor.from_local(t, mesh, tuple(placements), run_check=False)
+               placements: Sequence[Placement],
+               shape: Optional[Sequence[int]] = None) -> DTensor:
+    """``t`` as the local shard of a DTensor of shards of equal size, or,
+    where the global ``shape`` given is not what those would make, of
+    shards split as ``torch.chunk`` splits (the last ones shorter): such a
+    DTensor takes a contiguous tensor's strides, as the activations split
+    so are."""
+    out = DTensor.from_local(t, mesh, tuple(placements), run_check=False)
+    if shape is None or out.shape == torch.Size(shape):
+        return out
+    shape = torch.Size(shape)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(t, mesh, tuple(placements), run_check=False,
+                              shape=shape, stride=stride)
 
 
 def mesh_dims(t, dim: int) -> Tuple[int, ...]:
@@ -340,18 +356,35 @@ def mesh_dims(t, dim: int) -> Tuple[int, ...]:
                  if isinstance(p, Shard) and p.dim % t.ndim == dim)
 
 
+def _split(size: int, mesh: DeviceMesh, dims: Sequence[int]):
+    """``size`` positions split over the mesh dimensions ``dims``, taken
+    left to right, each as ``torch.chunk`` (and DTensor's ``Shard``)
+    splits: blocks of the ceiling, the last ones shorter or empty where
+    the split is uneven → (this rank's start, its length, and for each of
+    ``dims`` the length it splits on this rank and its blocks' ceiling)."""
+    start, levels = 0, []
+    for i in dims:
+        step, r = -(-size // mesh.size(i)), mesh.get_local_rank(i)
+        levels.append((size, step))
+        start += r * step
+        size = max(0, min(step, size - r * step))
+    return start, size, levels
+
+
+def block(size: int, mesh: DeviceMesh, dims: Sequence[int]
+          ) -> Tuple[int, int]:
+    """(start, length) of this rank's block of ``size`` positions split
+    over the mesh dimensions ``dims`` (:func:`_split`)."""
+    return _split(size, mesh, dims)[:2]
+
+
 def offset(t, dim: int) -> int:
     """Where this rank's shard of ``t`` starts along ``dim`` (the mesh
     dimensions that shard it taken left to right, as DTensor does; 0 for
     a plain tensor)."""
     if not isinstance(t, DTensor):
         return 0
-    mesh, start = t.device_mesh, 0
-    size = t.shape[dim]
-    for i in mesh_dims(t, dim):
-        size //= mesh.size(i)
-        start = start * mesh.size(i) + mesh.get_local_rank(i)
-    return start * size
+    return block(t.shape[dim], t.device_mesh, mesh_dims(t, dim))[0]
 
 
 def with_placement(pl: Sequence[Placement], dims: Sequence[int],
@@ -406,40 +439,67 @@ def all_reduce(t: torch.Tensor, mesh: DeviceMesh, dims: Sequence[int],
 
 def gather(t: DTensor, dim: int) -> DTensor:
     """``t`` whole along ``dim`` on every rank (an all-gather over the mesh
-    dimensions that shard it); in the backward the gradient's partial
-    terms are summed (an all-reduce) and each rank keeps its shard."""
+    dimensions that shard it; an uneven split is padded to its blocks'
+    ceiling for the exchange and trimmed); in the backward the gradient's
+    partial terms are summed (an all-reduce) and each rank keeps its
+    shard."""
     mesh, dim = t.device_mesh, dim % t.ndim
     dims = mesh_dims(t, dim)
-    whole = _Gather.apply(t.to_local(), mesh, dims, dim)
+    whole = gather_local(t.to_local(), mesh, dims, dim, t.shape[dim])
     return from_local(whole, mesh,
-                      with_placement(t.placements, dims, Replicate()))
+                      with_placement(t.placements, dims, Replicate()),
+                      shape=t.shape)
+
+
+def gather_local(x: torch.Tensor, mesh: DeviceMesh, dims: Sequence[int],
+                 dim: int, size: int) -> torch.Tensor:
+    """This rank's block ``x`` of a tensor of ``size`` positions along
+    ``dim``, split over the mesh dimensions ``dims`` as :func:`block`
+    says → the whole tensor, on every rank (differentiable as
+    :func:`gather`)."""
+    return _Gather.apply(x, mesh, tuple(dims), dim % x.ndim, size)
 
 
 class _Gather(torch.autograd.Function):
-    """A local shard → the whole tensor along ``dim`` over mesh dimensions
-    ``dims`` (the innermost gathered first); the backward is given the
-    whole, summed gradient and returns this rank's shard of it."""
+    """A local shard → the whole tensor of ``size`` positions along
+    ``dim`` over mesh dimensions ``dims`` (the innermost gathered first,
+    each level's blocks padded to their ceiling and the result trimmed);
+    the backward is given the whole, summed gradient and returns this
+    rank's shard of it."""
 
     @staticmethod
-    def forward(ctx, x, mesh: DeviceMesh, dims, dim: int):
-        ctx.mesh, ctx.dims, ctx.dim = mesh, dims, dim
+    def forward(ctx, x, mesh: DeviceMesh, dims, dim: int, size: int):
+        ctx.mesh, ctx.dims, ctx.dim, ctx.size = mesh, dims, dim, size
         y = x.movedim(dim, 0).contiguous()
-        for i in reversed(dims):
-            out = y.new_empty((mesh.size(i) * y.shape[0], *y.shape[1:]))
+        for i, (length, step) in reversed(list(zip(
+                dims, _split(size, mesh, dims)[2]))):
+            if y.shape[0] < step:
+                y = torch.cat([y, y.new_zeros((step - y.shape[0],
+                                               *y.shape[1:]))])
+            out = y.new_empty((mesh.size(i) * step, *y.shape[1:]))
             dist.all_gather_into_tensor(out, y, group=mesh.get_group(i))
-            y = out
+            y = out[:length]
         # in ``x``'s own layout: the kernels take rows of unit stride
         return y.movedim(0, dim).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        mesh, start, n = ctx.mesh, 0, 1
-        for i in ctx.dims:
-            n *= mesh.size(i)
-            start = start * mesh.size(i) + mesh.get_local_rank(i)
-        size = g.shape[ctx.dim] // n
-        return (g.narrow(ctx.dim, start * size, size).contiguous(), None,
-                None, None)
+        start, n = block(ctx.size, ctx.mesh, ctx.dims)
+        return (g.narrow(ctx.dim, start, n).contiguous(), None, None, None,
+                None)
+
+
+def whole(w, act):
+    """Weight ``w`` gathered whole on every rank over the mesh dimensions
+    that shard it (through :func:`gather`), as a local tensor whose
+    gradient is a partial sum wherever ``act`` is sharded (as
+    :func:`local_weight` labels it); a plain ``w`` as it is."""
+    if not isinstance(w, DTensor):
+        return w
+    for d in sorted({p.dim % w.ndim for p in w.placements
+                     if isinstance(p, Shard)}):
+        w = gather(w, d)
+    return local_weight(w, act)
 
 
 def same_placements(fn: Callable, *ts):

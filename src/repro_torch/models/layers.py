@@ -14,12 +14,17 @@ DTensor products (heads, ff width and vocabulary on 'model', the batch on
 'data'), the row-parallel ones all-reduced by ``reduce``; the norms, the
 attention core, the pointwise datapaths, the embedding lookup and the
 cross-entropy run on each rank's local shards, the kernels included.
+Where the activations' sequence is sharded on 'model' (context-parallel
+prefill, ``DenseLM.act_sharding``) the seams gather a layer's weights
+whole and run each rank's block of positions through them: attention
+gathers the rotated keys and values along the sequence, the embedding
+gathers its table once.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -52,7 +57,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
             lambda t: dt.all_reduce(t, mesh, dims), impl=impl)
     else:
         y = rn_ops.rmsnorm(x.to_local(), w, eps, impl=impl)
-    return dt.from_local(y, mesh, x.placements)
+    return dt.from_local(y, mesh, x.placements, shape=x.shape)
 
 
 # -------------------------------------------------------------------- rope
@@ -136,6 +141,9 @@ def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
 
     memory: if given (B, Sm, d), cross-attention: keys and values come from
     it, neither side is rotated (no RoPE) and no causal mask applies."""
+    if memory is None and dt.mesh_dims(x, 1):
+        return _attention_block(p, x, cfg, pos=pos, causal=causal,
+                                attn_impl=attn_impl)
     src = x if memory is None else memory
     q, k, v = x @ p["wq"], src @ p["wk"], src @ p["wv"]
     causal = causal and memory is None
@@ -149,12 +157,40 @@ def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     return dt.reduce(out @ p["wo"])
 
 
+def _attention_block(p: Dict[str, torch.Tensor], x: DTensor,
+                     cfg: ArchConfig, *, pos: torch.Tensor, causal: bool,
+                     attn_impl: Optional[str]) -> DTensor:
+    """Self-attention on a block of the sequence (context-parallel
+    prefill): x (B, S, d) is a DTensor whose sequence is sharded on
+    'model'.  The layer's weights are gathered whole (one layer at a time;
+    they are freed when it returns), q, k and v are projected from the
+    rank's rows, normed and rotated at the block's global positions
+    ``pos``; the rotated keys and values are gathered along the sequence
+    and the rank's queries attend the keys up to its block's end →
+    (B, S, d) sharded as x."""
+    mesh, dims = x.device_mesh, dt.mesh_dims(x, 1)
+    w = {name: dt.whole(t, x) for name, t in p.items()}
+    xl = x.to_local()
+    q, k, v = xl @ w["wq"], xl @ w["wk"], xl @ w["wv"]
+    out = _attend(q, k, v, w.get("q_norm"), w.get("k_norm"), cfg,
+                  cfg.n_heads, cfg.n_kv_heads, pos=pos, causal=causal,
+                  attn_impl=attn_impl, rotate=True,
+                  kv_seq=(mesh, dims, x.shape[1], dt.offset(x, 1)))
+    return dt.from_local(out @ w["wo"], mesh, x.placements, shape=x.shape)
+
+
 def _attend(q, k, v, q_norm, k_norm, cfg: ArchConfig, hq: int, hkv: int, *,
-            pos, causal: bool, attn_impl, rotate: bool, kv_heads=None):
+            pos, causal: bool, attn_impl, rotate: bool, kv_heads=None,
+            kv_seq=None):
     """The attention core on one rank's projections (B, S, heads * hd):
     heads views, q/k norms, RoPE, the flash-attention dispatch → (B, S,
     hq * hd).  ``kv_heads`` (lo, hi) keeps those key/value heads of the
-    ``hkv`` projected."""
+    ``hkv`` projected.  ``kv_seq`` (mesh, mesh dimensions, S, s0): the
+    rows are the block of a sequence of S positions from s0, split over
+    those mesh dimensions; the rotated keys and values are gathered
+    whole along it and cut at the block's end, so that the kernels'
+    causal mask, aligned to the last key, is the sequence's own (and the
+    keys after the block, all masked, are never read)."""
     hd = cfg.hd
     q = _split_heads(q, hq, hd)
     k = _split_heads(k, hkv, hd)
@@ -167,6 +203,11 @@ def _attend(q, k, v, q_norm, k_norm, cfg: ArchConfig, hq: int, hkv: int, *,
     if rotate:                                             # self-attn: RoPE
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
+    if kv_seq is not None:
+        mesh, dims, size, s0 = kv_seq
+        end = s0 + q.shape[2]
+        k, v = (dt.gather_local(t, mesh, dims, 2, size)[:, :, :end]
+                for t in (k, v))
     out = fa_ops.attention(q, k, v, causal=causal, window=cfg.window,
                            impl=attn_impl)
     return _merge_heads(out)
@@ -450,6 +491,13 @@ def mlp_specs(cfg: ArchConfig, multi_pod: bool = False) -> Dict[str, Any]:
 
 def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
         cfg: ArchConfig) -> torch.Tensor:
+    """The MLP; on a DTensor x whose sequence is sharded on 'model'
+    (context-parallel prefill) the weights are gathered whole and the
+    rank's rows run through them alone."""
+    if dt.mesh_dims(x, 1):
+        w = {name: dt.whole(t, x) for name, t in p.items()}
+        return dt.from_local(mlp(w, x.to_local(), cfg), x.device_mesh,
+                             x.placements, shape=x.shape)
     if cfg.activation == "swiglu":
         g = x @ p["w_gate"]
         u = x @ p["w_up"]
@@ -500,10 +548,18 @@ def kv_cache_spec(cfg: ArchConfig, multi_pod: bool, seq_sharded: bool,
     return P(None, batch, None, "model", None)
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          seq: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
     """``table[tokens]``: (V, d), (B, S) → (B, S, d).  Each rank looks up
     the ids its shard of the vocabulary holds and zeros the rest; on a
-    sharded table the rows are then all-reduced: the table never moves."""
+    sharded table the rows are then all-reduced: the table never moves.
+
+    ``seq``: the mesh dimensions ('model') that shard the sequence
+    (context-parallel prefill).  The table is then gathered whole, once,
+    and each rank looks up its block of the sequence → (B, S, d), the
+    batch placed as ``tokens``, the sequence sharded over ``seq``."""
+    if seq is not None:
+        return _embed_block(table, tokens, seq)
     if not isinstance(tokens, DTensor):
         tokens = torch.as_tensor(tokens, device=table.device)
     if isinstance(table, DTensor):
@@ -518,6 +574,40 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     pl = dt.with_placement(tokens.placements, dt.mesh_dims(table, 0),
                            Partial())
     return dt.reduce(dt.from_local(rows, table.device_mesh, pl))
+
+
+def _embed_block(table: DTensor, tokens, dims: Tuple[int, ...]) -> DTensor:
+    """:func:`embed` with the sequence sharded over the mesh dimensions
+    ``dims``: the rank's block of rows of every sequence it holds."""
+    mesh = table.device_mesh
+    tokens = dt.as_dtensor(tokens, mesh)
+    b, s = tokens.shape
+    seq = dt.with_placement(tokens.placements, dims, Shard(1))
+    s0, n = dt.block(s, mesh, dims)
+    if n == 0:
+        raise ValueError(f"a sequence of {s} positions leaves a 'model' "
+                         f"rank no position over {mesh.shape}")
+    act = dt.from_local(tokens.to_local()[:, s0:s0 + n], mesh, seq,
+                        shape=(b, s))
+    rows = dt.whole(table, act)[tokens.to_local()[:, s0:s0 + n].long()]
+    return dt.from_local(rows, mesh, seq, shape=(b, s, table.shape[1]))
+
+
+def last_position(x: DTensor) -> DTensor:
+    """x (B, S, d) with its sequence sharded on 'model' → its last
+    position (B, 1, d), whole on those ranks: the rank whose block holds
+    it contributes the row, the rest zeros, and the rows are summed (an
+    all-reduce of one row a sequence)."""
+    mesh, dims = x.device_mesh, dt.mesh_dims(x, 1)
+    s0, n = dt.block(x.shape[1], mesh, dims)
+    xl = x.to_local()
+    row = xl[:, n - 1:n] if s0 + n == x.shape[1] else \
+        xl.new_zeros((xl.shape[0], 1, xl.shape[2]))
+    row = dt.all_reduce(row, mesh, dims)
+    b, _, d = x.shape
+    return dt.from_local(row, mesh, dt.with_placement(x.placements, dims,
+                                                      Replicate()),
+                         shape=(b, 1, d))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,9 @@ experts over 'model' where they divide it, else each expert's FFN width.
 On DTensors (:func:`moe_mlp`) every rank routes all of its tokens, which
 are replicated over 'model', identically, and runs the batched products of
 its own experts (or its own FFN columns of every expert); each rank's
-combine is a partial sum, all-reduced.  No expert weight moves.
+combine is a partial sum, all-reduced.  No expert weight moves.  With the
+sequence sharded on 'model' (context-parallel prefill) the activations
+are gathered along it first and each rank keeps its block of the output.
 """
 
 from __future__ import annotations
@@ -141,8 +143,25 @@ def moe_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     whole batch).  grouped=True: one dispatch group per sequence (batch
     row), each with its own capacity."""
     if isinstance(x, DTensor):
+        if dt.mesh_dims(x, 1):
+            return _sequence_moe(p, x, cfg, grouped)
         return _sharded_moe(p, x, cfg, grouped)
     return _moe_local(p, x, cfg, grouped)
+
+
+def _sequence_moe(p, x: DTensor, cfg: ArchConfig, grouped: bool) -> DTensor:
+    """:func:`moe_mlp` on x whose sequence is sharded on 'model'
+    (context-parallel prefill): the activations are gathered along the
+    sequence, the block runs on each rank's experts as on a whole
+    sequence (so each dispatch group, and its capacity, is the one it is
+    without the sharding), and each rank keeps its block of the output."""
+    mesh, dims = x.device_mesh, dt.mesh_dims(x, 1)
+    y = _sharded_moe(p, dt.gather(x, 1), cfg, grouped)
+    s0, n = dt.block(x.shape[1], mesh, dims)
+    yl = y.to_local(grad_placements=dt.with_placement(y.placements, dims,
+                                                      Partial()))
+    return dt.from_local(yl[:, s0:s0 + n], mesh, x.placements,
+                         shape=x.shape)
 
 
 def _moe_local(p, x, cfg: ArchConfig, grouped: bool, e0: int = 0,

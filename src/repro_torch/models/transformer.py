@@ -7,7 +7,9 @@ loops over the layer index in Python.  Training bodies are checkpointed by
 ``remat_policy`` (:func:`repro_torch.models.common.remat`), as the JAX
 model's are ``jax.checkpoint``-ed.  On a mesh with an axis above 1 the
 parameters, the cache and the inputs are DTensors and the layers run
-through the seams of :mod:`repro_torch.models.layers`.
+through the seams of :mod:`repro_torch.models.layers`; with
+``act_sharding`` set, a prefill shards the activations' sequence on
+'model' (context-parallel prefill).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Shard
 
 from repro_torch.models import common as dt
 from repro_torch.models import layers as L
@@ -30,11 +33,39 @@ def layer_params(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
             for k, v in stacked.items()}
 
 
-def _frontend_first(embeds: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """The stub frontend's (B, P, d) embeddings in place of the first P
-    token embeddings of x (B, S, d)."""
-    p = embeds.shape[1]
-    return torch.cat([embeds.to(x.dtype), x[:, p:]], dim=1)
+def _frontend(embeds: torch.Tensor, x: torch.Tensor,
+              s0: int = 0) -> torch.Tensor:
+    """The stub frontend's (B, P, d) embeddings in place of the token
+    embeddings at positions below P of x (B, n, d), the block of a
+    sequence that starts at position ``s0`` (the whole sequence at 0)."""
+    k = max(0, min(embeds.shape[1] - s0, x.shape[1]))
+    if not k:
+        return x
+    return torch.cat([embeds[:, s0:s0 + k].to(x.dtype), x[:, k:]], dim=1)
+
+
+def _sequence_dims(act_sharding, table):
+    """The mesh dimensions that ``act_sharding`` shards the sequence over
+    (``Shard(1)``), where the parameters (``table``) are DTensors; else
+    None: the activations then take the parameters' layout."""
+    if act_sharding is None or not isinstance(table, DTensor):
+        return None
+    dims = tuple(i for i, p in enumerate(act_sharding) if p == Shard(1))
+    return dims or None
+
+
+def _with_frontend(embeds, x, s0: int):
+    """:func:`_frontend` on x's rows (a DTensor's local block, its
+    gradient of ``embeds`` a partial sum where x's sequence is sharded
+    and ``embeds``' is not)."""
+    if not isinstance(x, DTensor):
+        return _frontend(embeds, x, s0)
+    embeds = dt.as_dtensor(embeds, x.device_mesh)
+    seq = dt.mesh_dims(x, 1)
+    el = embeds.to_local(grad_placements=dt.with_placement(
+        embeds.placements, seq, Partial()))
+    return dt.from_local(_frontend(el, x.to_local(), s0), x.device_mesh,
+                         x.placements, shape=x.shape)
 
 
 class DenseLM:
@@ -49,6 +80,13 @@ class DenseLM:
         # changes layer topology, so it is never the default for an
         # assigned arch.
         self.parallel_block = parallel_block
+        # context-parallel prefill: None, or the DTensor placements of the
+        # (B, S, d) layer-boundary activations on the parameters' mesh
+        # (the batch on the data axes, the sequence, Shard(1), on
+        # 'model'), which forward_train pins to the embedding output and
+        # to every layer's output.  The dry run sets it on prefill cells
+        # (--seq-shard-prefill); the loss and decode never read it.
+        self.act_sharding = None
 
     # ------------------------------------------------------------- params
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
@@ -93,23 +131,49 @@ class DenseLM:
 
         input_embeds: optional (B, P, d) stub-frontend embeddings (vision
         patches / audio frames) that REPLACE the first P token embeddings.
+
+        With ``act_sharding`` set and the parameters on a mesh whose
+        'model' axis is above 1, the sequence is sharded on 'model' from
+        the embedding output on (context-parallel prefill): each rank runs
+        every layer on its block of positions (see
+        :func:`repro_torch.models.layers.attention`), ``last_only`` takes
+        the last position from the rank that holds it, and the whole
+        logits come back sharded along the sequence.
         """
+        return self._forward(params, tokens, input_embeds, last_only,
+                             self.act_sharding)
+
+    def _forward(self, params, tokens, input_embeds, last_only: bool,
+                 act_sharding):
         cfg = self.cfg
-        x = L.embed(params["lm"]["embed"], tokens)         # (B, S, d)
+        table = params["lm"]["embed"]
+        seq = _sequence_dims(act_sharding, table)
+        x = L.embed(table, tokens, seq)                    # (B, S, d)
+        s0, n = dt.offset(x, 1), dt.local(x).shape[1]
         if input_embeds is not None:
-            x = dt.same_placements(_frontend_first, input_embeds, x)
-        pos = torch.arange(tokens.shape[1], device=x.device)
+            x = _with_frontend(input_embeds, x, s0)
+        pos = torch.arange(s0, s0 + n, device=dt.local(x).device)
         body = remat(self._layer_train, self.remat_policy)
+        # every seam returns x's placements: each layer's output keeps the
+        # embedding output's, as the reference's constraint pins them
         for i in range(cfg.n_layers):
             x = body(x, layer_params(params["layers"], i), pos)
+        w = params["lm"]["unembed"]
         if last_only:
-            x = dt.same_placements(lambda t: t[:, -1:], x)
+            x = L.last_position(x) if seq else \
+                dt.same_placements(lambda t: t[:, -1:], x)
+        elif seq:
+            # the whole logits, sharded along the sequence as x
+            x = L.rmsnorm(x, params["lm"]["final_norm"], cfg.norm_eps)
+            return dt.from_local(dt.local(x) @ dt.whole(w, x),
+                                 x.device_mesh, x.placements,
+                                 shape=(*x.shape[:2], w.shape[1]))
         x = L.rmsnorm(x, params["lm"]["final_norm"], cfg.norm_eps)
-        return x @ params["lm"]["unembed"]
+        return x @ w
 
     def loss(self, params, batch) -> torch.Tensor:
-        logits = self.forward_train(params, batch["tokens"],
-                                    batch.get("input_embeds"))
+        logits = self._forward(params, batch["tokens"],
+                               batch.get("input_embeds"), False, None)
         return L.cross_entropy(logits, batch["labels"])
 
     # ------------------------------------------------------------- serving

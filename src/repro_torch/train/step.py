@@ -166,7 +166,10 @@ def make_train_step(model, opt_cfg: AdamWConfig,
 
 def make_prefill_step(model) -> Callable:
     """Forward-only full-sequence step (inference prefill): returns logits
-    of the last position (next-token), (B, V)."""
+    of the last position (next-token), (B, V).  The tokens are placed as
+    ever; where the model's ``act_sharding`` is set, the activations'
+    sequence is sharded from the embedding output on (context-parallel
+    prefill; the train and serve steps never read it)."""
 
     def prefill_step(params, batch: Dict[str, Any]) -> torch.Tensor:
         # last_only: the (B, S, V) logits tensor is never materialised —

@@ -219,6 +219,69 @@ def test_persistent_cache_restores_the_reference_artifacts(tmp_path):
             if "faster than cold" not in f] == []
 
 
+@pytest.mark.parametrize("faulty_round", [None, 0, 2])
+def test_persistent_cache_keeps_the_least_of_its_rounds(monkeypatch,
+                                                        faulty_round):
+    """Each timing is the least over the rounds, the cold boot's as the
+    warm restart's, the totals per round; an artifact that differs in any
+    round fails its row."""
+    port = load("torch_persistent_cache_perf")
+    kernels = ("chebyshev", "sgfilter")
+    # (cold, warm) ms of each kernel in each of three rounds
+    times = [((300.0, 40.0), (9.0, 1.0)), ((250.0, 50.0), (2.0, 30.0)),
+             ((280.0, 45.0), (3.0, 2.0))]
+    calls = []
+
+    class Child:
+        def __init__(self, d, names):
+            self.rnd, self.side = divmod(len(calls), 2)
+            self.d, self.names = d, names
+            calls.append(self)
+
+        def ready(self):
+            # every child is started before any builds
+            assert len(calls) == 6
+
+        def run(self):
+            bs = "bad" if (self.rnd, self.side) == (faulty_round, 1) \
+                else "bs"
+            return dict(rows=[dict(kernel=k, ms=ms, replicas=1,
+                                   pr_path="p", bs=bs + k, prog="prog" + k)
+                              for k, ms in zip(self.names,
+                                               times[self.rnd][self.side])],
+                        disk_hits=2 * self.side,
+                        disk_writes=2 * (1 - self.side))
+
+        def close(self):
+            pass
+
+    def restore(d, names, device):
+        assert d == calls[-1].d
+        return [dict(kernel=k, disk_hit=True, bs="bs" + k, prog="prog" + k,
+                     bit_exact=True) for k in names]
+    monkeypatch.setattr(port, "_Child", Child)
+    monkeypatch.setattr(port, "restore_and_launch", restore)
+    assert port.ROUNDS == 3
+    got = port.bench("cpu", kernels)
+    assert [c.d for c in calls[0::2]] == [c.d for c in calls[1::2]]
+    assert len({c.d for c in calls}) == 3
+    assert [(r["cold_ms"], r["warm_ms"]) for r in got["rows"]] == \
+        [(250.0, 2.0), (40.0, 1.0)]
+    assert got["rounds"] == [dict(cold_ms=340.0, warm_ms=10.0),
+                             dict(cold_ms=300.0, warm_ms=32.0),
+                             dict(cold_ms=325.0, warm_ms=5.0)]
+    assert (got["total_cold_ms"], got["total_warm_ms"],
+            got["speedup_total"]) == (300.0, 5.0, 60.0)
+    failures = port.check_gate(got)
+    if faulty_round is None:
+        assert failures == []
+    else:
+        assert failures == [f"{k}: warm artifact differs from persisted "
+                            f"cold artifact" for k in kernels]
+    assert port.check_gate(got, gate=61.0) == \
+        ["warm restart only 60.0x faster than cold (gate 61.0x)"] + failures
+
+
 class StepClock:
     """A monotonic clock that advances 1 ms at every reading."""
 

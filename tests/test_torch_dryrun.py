@@ -22,7 +22,14 @@ process group: the port's on fake worlds (a ``"fake"`` process group of
 - (f) the CLI's artifact read by both reports: the same rows;
 - (g) reduced mamba2 on (2, 2), train, prefill and decode: FLOPs, bytes
   and collective payloads by kind against the reference's;
-- and a thin decode batch (one sequence) on (2, 2), replicated.
+- and a thin decode batch (one sequence) on (2, 2), replicated;
+- (h) context-parallel prefill (``act_sharding``, the activations'
+  sequence on 'model') on (2, 2) for reduced qwen3-14b and
+  qwen3-moe-235b-a22b against the reference's ``_lower_cell`` with
+  ``act_sharding = NamedSharding(mesh, P("data", "model", None))``:
+  FLOPs, bytes and collective payloads by kind; and on 256 fake ranks,
+  ``--seq-shard-prefill``'s rows of qwen3-14b and mixtral-8x22b ×
+  prefill_32k (F4: mixtral's differs from its flagless row).
 """
 
 import ast
@@ -82,6 +89,25 @@ SSM_XLA_FLOPS_RATIO = (0.95, 1.15)
 # sums, out_proj's reduce and the layers' data-parallel gradients.
 SSM_COLL_TOTAL_RATIO = (1.0, 2.0)
 
+# (h)'s cells: the context-parallel prefill of a dense and a moe model
+CP_ARCHS = ("qwen3-14b", "qwen3-moe-235b-a22b")
+# (h)'s bounds beyond (a)'s, each with its reason (readings in PERF.md,
+# section 6).  The last position: XLA moves it from the last 'model' rank
+# by a collective-permute and two masked all-reduces in float32 (f32[8,1]
+# and f32[8,1,64]: 2,048 + 4,160 bytes); the port by one masked
+# all-reduce of the bfloat16 row (2,048 bytes), against both of XLA's
+# kinds together (read 0.33).
+CP_LAST_ROW_RATIO = (0.25, 1.0)
+# moe: XLA all-reduces the dispatch buffers (f32[4,320,64] twice,
+# f32[512,64], f32[256,64]) besides the combine, with or without the
+# constraint; the port all-reduces the combine alone (read 0.078; 0.167
+# of XLA's without the constraint).  At most XLA's.
+CP_MOE_ALL_REDUCE_RATIO = (0.0, 1.0)
+# full-width cells of the dry run's --seq-shard-prefill on 256 fake ranks
+# (arch, flag), each traced in a child of its own
+WIDE_CELLS = (("qwen3-14b", True), ("mixtral-8x22b", True),
+              ("mixtral-8x22b", False))
+
 _PORT = r"""
 import contextlib, dataclasses, io, json, sys
 from repro_torch.configs.registry import get_arch, reduced_config
@@ -124,11 +150,55 @@ def cli(name, *args):
 ssm = reduced_config(get_arch("mamba2-370m"))
 res["g"] = {k: trace((2, 2), ssm, k) for k in cells}
 
+# (h): context-parallel prefill on (2, 2)
+seq, batch = cells["prefill"]
+res["h"] = {}
+for arch in json.loads(sys.argv[5]):
+    r = dryrun.host_cell(reduced_config(get_arch(arch)), seq, batch,
+                         "prefill", (2, 2), seq_shard_prefill=True)
+    c = r["counted"]
+    res["h"][arch] = dict(flops=c["flops"], bytes=c["bytes"],
+                          coll=c["collectives"])
+
 cli("d", "--arch", "qwen3-14b", "--shape", "train_4k")
 cli("e", "--arch", "mamba2-370m", "--shape", "train_4k")
 cli("skip", "--arch", "qwen3-14b", "--shape", "long_500k")
 with open(f"{out_dir}/port.json", "w") as f:
     json.dump(res, f)
+"""
+
+_WIDE = r"""
+import json, sys
+from repro_torch.launch import dryrun
+r = dryrun.dryrun_cell(sys.argv[2], "prefill_32k",
+                       seq_shard_prefill=sys.argv[3] == "1", verbose=False)
+with open(sys.argv[1], "w") as f:
+    json.dump(r, f)
+"""
+
+_REF_CP = r"""
+import json, sys
+import jax
+import numpy as np
+jax.devices()          # 4 devices, before repro.launch.dryrun sets 512
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.configs.registry import get_arch, reduced_config
+from repro.launch.dryrun import _costs, _lower_cell
+from repro.models.registry import build_model
+
+out, (seq, batch) = sys.argv[1], json.loads(sys.argv[2])
+mesh = Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
+res = {}
+for arch in json.loads(sys.argv[3]):
+    cfg = reduced_config(get_arch(arch))
+    model = build_model(cfg, remat_policy="full", attn_impl="ref")
+    model.act_sharding = NamedSharding(mesh, P("data", "model", None))
+    compiled = _lower_cell(cfg, model, seq, batch, "prefill", False,
+                           mesh).compile()
+    f, b, coll = _costs(compiled)
+    res[arch] = dict(flops=f, bytes=b, coll=coll)
+with open(out, "w") as fh:
+    json.dump(res, fh)
 """
 
 _REF = r"""
@@ -164,16 +234,39 @@ def runs(tmp_path_factory):
     reference's (2, 2) cells."""
     d = tmp_path_factory.mktemp("dryrun")
     cells = json.dumps(CELLS)
-    with jax_running(_REF, 4, str(d / "ref.json"), cells, ARCH), \
-            jax_running(_REF, 4, str(d / "ssm.json"), cells, SSM_ARCH):
-        out = subprocess.run(
-            [sys.executable, "-c", _PORT, str(d), cells, json.dumps(DEPTHS),
-             ARCH], capture_output=True, text=True, timeout=600, cwd=ROOT,
-            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-        assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    wide = [subprocess.Popen(
+        [sys.executable, "-c", _WIDE, str(d / f"wide_{a}_{int(f)}.json"), a,
+         str(int(f))], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=ROOT, env=env) for a, f in WIDE_CELLS]
+    try:
+        with jax_running(_REF, 4, str(d / "ref.json"), cells, ARCH), \
+                jax_running(_REF, 4, str(d / "ssm.json"), cells,
+                            SSM_ARCH), \
+                jax_running(_REF_CP, 4, str(d / "ref_cp.json"),
+                            json.dumps(CELLS["prefill"]),
+                            json.dumps(CP_ARCHS)):
+            out = subprocess.run(
+                [sys.executable, "-c", _PORT, str(d), cells,
+                 json.dumps(DEPTHS), ARCH, json.dumps(CP_ARCHS)],
+                capture_output=True, text=True, timeout=600, cwd=ROOT,
+                env=env)
+            assert out.returncode == 0, \
+                out.stdout[-3000:] + out.stderr[-3000:]
+        for proc in wide:
+            stdout, stderr = proc.communicate(timeout=600)
+            assert proc.returncode == 0, stdout[-3000:] + stderr[-3000:]
+    finally:
+        for proc in wide:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     port = json.loads((d / "port.json").read_text())
+    port["wide"] = {(a, f): json.loads(
+        (d / f"wide_{a}_{int(f)}.json").read_text()) for a, f in WIDE_CELLS}
     ref = json.loads((d / "ref.json").read_text())
     ref["g"] = json.loads((d / "ssm.json").read_text())
+    ref["h"] = json.loads((d / "ref_cp.json").read_text())
     return d, port, ref
 
 
@@ -405,3 +498,112 @@ def test_ssm_gathers_are_the_activations_alone(runs, kind):
     projection and conv output: no weight is gathered."""
     _, port, _ = runs
     assert port["g"][kind]["coll"]["all-gather"] == _ssm_layer_gathers(kind)
+
+
+# ------------------------------------- (h) context-parallel prefill, (2, 2)
+
+def _cp_gathers(arch: str) -> float:
+    """The bytes the port's gathers deliver a rank in (h)'s prefill cell,
+    bfloat16: the embedding table once; each layer's weights that 'model'
+    shards (attention's four, and a dense MLP's), its rotated keys and
+    values (the rank's B / 2 sequences, whole), and for moe the
+    activations along the sequence before the block, and the ranks'
+    tokens-per-expert counts (int32) of the dispatch over 'data'."""
+    cfg = ref_reduced(REF_ARCHS[arch])
+    seq, batch = CELLS["prefill"]
+    d, hd, b = cfg.d_model, cfg.hd, batch // 2
+    attn = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    kv = 2 * b * cfg.n_kv_heads * seq * hd
+    if cfg.family == "moe":
+        layer = (attn + kv + b * seq * d) * 2 + 2 * cfg.n_experts * 4
+    else:
+        layer = (attn + kv + 3 * d * cfg.d_ff) * 2
+    return cfg.vocab_padded * d * 2 + cfg.n_layers * layer
+
+
+@pytest.mark.parametrize("arch", CP_ARCHS)
+def test_cp_flops_and_bytes_against_the_reference(runs, arch):
+    """The FLOPs within (a)'s XLA_FLOPS_RATIO of XLA's and the bytes
+    within BYTES_RATIO.  The traced rank holds the sequence's last block,
+    whose queries attend every key: a dense cell's FLOPs are exactly the
+    unconstrained cell's (half the rows through whole weights against all
+    the rows through half the columns)."""
+    _, port, ref = runs
+    got, want = port["h"][arch], ref["h"][arch]
+    assert _within(got["flops"], want["flops"], XLA_FLOPS_RATIO), \
+        (got["flops"], want["flops"])
+    assert _within(got["bytes"], want["bytes"], BYTES_RATIO), \
+        (got["bytes"], want["bytes"])
+    if arch == ARCH:
+        assert got["flops"] == port["a"]["prefill"]["flops"]
+
+
+@pytest.mark.parametrize("arch", CP_ARCHS)
+def test_cp_collectives_against_the_reference(runs, arch):
+    """The reference's plan: the weights, the rotated keys and values
+    (and for moe the activations) all-gathered, exactly
+    :func:`_cp_gathers`' bytes, within COLL_RATIO of XLA's all-gathers;
+    no all-reduce of a dense layer's residual: a dense cell all-reduces
+    the last position alone (one bfloat16 row a sequence), against XLA's
+    move of it within CP_LAST_ROW_RATIO; moe adds the combine's
+    all-reduce a layer, at most XLA's (CP_MOE_ALL_REDUCE_RATIO).  The
+    port's kinds are XLA's all-gather and all-reduce; XLA adds a
+    collective-permute (the last position, and for moe the experts'
+    weights, which it permutes without the constraint too)."""
+    _, port, ref = runs
+    got, want = port["h"][arch]["coll"], ref["h"][arch]["coll"]
+    assert set(got) == {"all-gather", "all-reduce"}, got
+    assert set(want) == set(got) | {"collective-permute"}, want
+    assert got["all-gather"] == _cp_gathers(arch)
+    assert _within(got["all-gather"], want["all-gather"], COLL_RATIO), \
+        (got, want)
+    cfg = ref_reduced(REF_ARCHS[arch])
+    seq, batch = CELLS["prefill"]
+    last_row = batch // 2 * cfg.d_model * 2 * 2      # bf16, all-reduce ×2
+    if cfg.family == "moe":
+        combine = batch // 2 * seq * cfg.d_model * 2 * 2
+        assert got["all-reduce"] == last_row + cfg.n_layers * combine
+        assert _within(got["all-reduce"], want["all-reduce"],
+                       CP_MOE_ALL_REDUCE_RATIO), (got, want)
+    else:
+        assert got["all-reduce"] == last_row
+        assert _within(got["all-reduce"], want["all-reduce"]
+                       + want["collective-permute"], CP_LAST_ROW_RATIO), \
+            (got, want)
+
+
+def test_a_dense_prefill_cell_with_the_flag_is_a_roofline_row(runs):
+    """qwen3-14b × prefill_32k with --seq-shard-prefill on 256 fake ranks:
+    a roofline row (the port raised NotImplementedError before it held
+    context-parallel prefill), its collectives the weights' and keys'
+    all-gathers with a last position's all-reduce, no longer each
+    layer's all-reduce of the residual."""
+    r = port_row = runs[1]["wide"][("qwen3-14b", True)]
+    assert "roofline" in port_row, r
+    roof = r["roofline"]
+    assert roof["flops_per_device"] > 0 and roof["step_s"] > 0
+    coll = roof["coll_breakdown"]
+    assert set(coll) == {"all-gather", "all-reduce"}, coll
+    cfg = REF_ARCHS["qwen3-14b"]
+    # the last position, one bf16 row of d a sequence of the rank's 2
+    assert coll["all-reduce"] == 2 * cfg.d_model * 2 * 2, coll
+    assert 0 < r["output_bytes"] < r["bytes_per_device"] < 80e9
+
+
+def test_f4_the_flag_shards_a_moe_prefill_cell(runs):
+    """F4: mixtral-8x22b × prefill_32k with --seq-shard-prefill on 256
+    fake ranks is the context-parallel row, not the flagless one: its
+    collectives differ (the attention's weights and keys all-gathered,
+    no all-reduce of the attention's residual), and the row keeps the
+    reference's schema, whose opts do not record the flag."""
+    wide = runs[1]["wide"]
+    on, off = wide[("mixtral-8x22b", True)], wide[("mixtral-8x22b", False)]
+    assert "roofline" in on and "roofline" in off, (on, off)
+    c_on = on["roofline"]["coll_breakdown"]
+    c_off = off["roofline"]["coll_breakdown"]
+    assert c_on != c_off, c_on
+    assert c_on["all-gather"] > c_off.get("all-gather", 0.0)
+    assert c_on["all-reduce"] < c_off["all-reduce"]
+    keys, opts = _ref_result_keys()
+    assert list(on) == keys and list(on["opts"]) == opts
+    assert on["opts"] == off["opts"]

@@ -103,6 +103,42 @@ def test_executor_matches_oracle_on_specials(name):
         assert_same_bits(g, w)
 
 
+PAPER_SUITE = ("chebyshev", "mibench", "poly1", "poly2", "qspline",
+               "sgfilter")
+
+
+@pytest.mark.parametrize("specials", [False, True])
+@pytest.mark.parametrize("name", PAPER_SUITE)
+def test_execute_matches_the_reference_on_the_paper_suite(name, specials):
+    """``ref.execute`` (an OverlayProgram and its raw inputs → its
+    outputs) bit for bit against the reference's ``ref.execute`` on each
+    of the paper suite's six programs, each package compiling its own for
+    an 8x8 overlay, on inputs of shape (3, 37) or on the specials; the
+    outputs keep the inputs' shape."""
+    from repro.configs.paper_suite import BENCHMARKS as R_BENCHMARKS
+    from repro.core.jit import jit_compile as r_jit_compile
+    from repro.core.overlay import OverlaySpec as ROverlaySpec
+    from repro_torch.configs.paper_suite import BENCHMARKS
+    from repro_torch.core.jit import jit_compile
+    from repro_torch.core.overlay import OverlaySpec
+    assert sorted(BENCHMARKS) == sorted(PAPER_SUITE)
+    prog = jit_compile(BENCHMARKS[name][0], OverlaySpec(8, 8, 2)).program
+    r_prog = r_jit_compile(R_BENCHMARKS[name][0],
+                           ROverlaySpec(8, 8, 2)).program
+    n_in = len(prog.in_slots)
+    assert n_in == len(r_prog.in_slots)
+    xs = _inputs(n_in, (3, 37))
+    if specials:
+        xs = [np.roll(SPECIALS, i) for i in range(n_in)]
+    want = r_ref.execute(r_prog, xs)
+    got = ref.execute(prog, xs)
+    assert len(got) == len(want) == len(prog.out_slots)
+    for g, w in zip(got, want):
+        assert isinstance(g, torch.Tensor) and g.device == CPU
+        assert tuple(g.shape) == xs[0].shape
+        assert_same_bits(g, w)
+
+
 @pytest.mark.parametrize("shape", [(4, 4), (2, 3, 5), (128,), ()])
 def test_executor_preserves_shape(shape):
     prog, r_prog, _ = _programs("poly")

@@ -965,3 +965,173 @@ def card_rank(rank, n, out):
             losses=[abs(a - b) for a, b in zip(got[4], one[4])])
     with open(out % rank, "w") as f:
         json.dump(res, f)
+
+
+# ------------------------------------------------ context-parallel prefill
+# The reference's context-parallel prefill: DenseLM.act_sharding =
+# NamedSharding(mesh, P("data", "model", None)) on a (data, model) mesh of 4
+# XLA:CPU devices, the prefill step and forward_train jitted with the
+# parameters and inputs placed by their specs, for each job of
+# <dir>/jobs.json from <dir>/init_<i>.npz → <dir>/jax_<i>.npz
+CP_JAX_REF = """
+import dataclasses, json, sys
+import numpy as np, jax, jax.numpy as jnp
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.configs.registry import ALL_ARCHS, reduced_config
+from repro.models.registry import build_model, input_shardings
+from repro.train.step import make_prefill_step
+sys.path.insert(0, "tests")
+from torch_dist_pair import cp_batch, nested
+
+d = sys.argv[1]
+jobs = json.load(open(f"{d}/jobs.json"))
+
+
+def named(mesh, tree):
+    return jax.tree.map(lambda s: NamedSharding(mesh, s), tree,
+                        is_leaf=lambda x: isinstance(x, P))
+
+
+for i, job in enumerate(jobs):
+    cfg = dataclasses.replace(reduced_config(ALL_ARCHS[job["arch"]]),
+                              dtype=jnp.float32)
+    model = build_model(cfg, remat_policy="none")
+    mesh = Mesh(np.array(jax.devices()).reshape(job["mesh"]),
+                ("data", "model"))
+    model.act_sharding = NamedSharding(mesh, P("data", "model", None))
+    params = jax.tree.map(jnp.asarray, nested(np.load(f"{d}/init_{i}.npz")))
+    batch = {k: jnp.asarray(v) for k, v in cp_batch(cfg, job["s"]).items()}
+    p_sh = named(mesh, model.param_specs())
+    b_sh = {k: v for k, v in named(mesh, input_shardings(
+        cfg, "prefill")).items() if k in batch}
+    prefill = jax.jit(make_prefill_step(model), in_shardings=(p_sh, b_sh))
+    forward = jax.jit(lambda p, b: model.forward_train(
+        p, b["tokens"], b.get("input_embeds")), in_shardings=(p_sh, b_sh))
+    np.savez(f"{d}/jax_{i}.npz", prefill=np.asarray(prefill(params, batch)),
+             logits=np.asarray(forward(params, batch)))
+"""
+
+CP_BATCH = 4
+
+
+def cp_batch(cfg, s: int) -> dict:
+    """A prefill batch of CP_BATCH sequences of ``s`` tokens, with the stub
+    vision frontend's patches (s // 8 of them) for the vlm family."""
+    batch = {"tokens": tp_tokens(cfg, CP_BATCH, s)}
+    if cfg.frontend == "vision":
+        batch["input_embeds"] = np.random.default_rng(2).standard_normal(
+            (CP_BATCH, s // 8, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def cp_rank(rank: int, n: int, d: str) -> None:
+    """The port's context-parallel prefill on ``n`` gloo ranks for each job
+    of ``d``/jobs.json (an arch, a (data, model) mesh and a sequence
+    length), from ``d``/init_<i>.npz: the one-rank prefill step and
+    ``forward_train`` of the plain parameters, then both with the
+    parameters placed on the mesh and ``act_sharding`` the placements of
+    P("data", "model", None) → ``d``/port_<i>.npz (rank 0's logits, every
+    rank's (Sq, Skv) of each attention call, its DTensor collectives and
+    its c10d gathers in the step).  Then, on (1, n), a train step and a
+    serve step of a model whose ``act_sharding`` counts its reads →
+    ``d``/reads.json."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch.mesh import make_host_mesh, place, placements
+    from repro_torch.models.common import P, full, params_from_numpy
+    from repro_torch.train.step import make_prefill_step, place_inputs
+    jobs = json.loads(Path(d, "jobs.json").read_text())
+    for i, job in enumerate(jobs):
+        cfg, model = tp_model(job["arch"], {})
+        params = params_from_numpy(nested(np.load(f"{d}/init_{i}.npz")),
+                                   cfg, "cpu")
+        batch = cp_batch(cfg, job["s"])
+        plain = {k: torch.from_numpy(v) for k, v in batch.items()}
+        with torch.no_grad():
+            one_prefill = make_prefill_step(model)(params, plain)
+            one_logits = model.forward_train(params, plain["tokens"],
+                                             plain.get("input_embeds"))
+        mesh = make_host_mesh(job["mesh"][1], device="cpu")
+        assert tuple(mesh.shape) == tuple(job["mesh"]), tuple(mesh.shape)
+        placed = place(params, model.param_specs(), mesh)
+        model.act_sharding = placements(P("data", "model", None), mesh)
+        with attention_shapes() as shapes, CommDebugMode() as cm, \
+                gathers() as sent:
+            prefill = make_prefill_step(model)(placed, batch)
+        comms = {str(k).split(".")[-1]: v
+                 for k, v in cm.get_comm_counts().items() if v}
+        inputs = place_inputs(model, placed, batch, "prefill")
+        with torch.no_grad():
+            logits = model.forward_train(placed, inputs["tokens"],
+                                         inputs.get("input_embeds"))
+        res = dict(attention=np.array(shapes), comms=json.dumps(comms),
+                   gathers=len(sent), logits_placements=str(
+                       logits.placements),
+                   prefill=full(prefill).numpy(),
+                   logits=full(logits).numpy(),
+                   one_prefill=one_prefill.numpy(),
+                   one_logits=one_logits.numpy())
+        np.savez(f"{d}/port_{i}_{rank}.npz", **res)
+    reads = attribute_reads(make_host_mesh(n, device="cpu"))
+    if rank == 0:
+        Path(d, "reads.json").write_text(json.dumps(reads))
+
+
+@contextlib.contextmanager
+def attention_shapes():
+    """Within the block, (Sq, Skv) of every call of the flash-attention
+    dispatch from the model's layers."""
+    from repro_torch.models import layers
+    shapes, real = [], layers.fa_ops
+
+    def attention(q, k, v, **kw):
+        shapes.append((q.shape[2], k.shape[2]))
+        return real.attention(q, k, v, **kw)
+    layers.fa_ops = _Patched(real, attention=attention)
+    try:
+        yield shapes
+    finally:
+        layers.fa_ops = real
+
+
+def attribute_reads(mesh) -> dict:
+    """Reads of ``act_sharding`` by a train step, a serve step and a
+    prefill step of reduced qwen3-14b placed on ``mesh``, the attribute
+    set to sequence-sharding placements."""
+    from repro_torch.launch.mesh import place, placements
+    from repro_torch.models.common import P
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import (init_state, make_prefill_step,
+                                        make_serve_step, make_train_step,
+                                        state_specs)
+    cfg, model = tp_model("qwen3-14b", {})
+    reads = {"n": 0}
+
+    class Watched(type(model)):
+        @property
+        def act_sharding(self):
+            reads["n"] += 1
+            return self._act
+
+        @act_sharding.setter
+        def act_sharding(self, value):
+            self._act = value
+    model.__class__ = Watched
+    model.act_sharding = placements(P("data", "model", None), mesh)
+    state = place(init_state(model, torch.Generator().manual_seed(0)),
+                  state_specs(model), mesh)
+    toks = tp_tokens(cfg, CP_BATCH, 17)
+    out = {}
+    reads["n"] = 0
+    make_train_step(model, AdamWConfig(**TP_OPT))(
+        state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    out["train"] = reads["n"]
+    reads["n"] = 0
+    cache = place(model.init_cache(CP_BATCH, 8), model.cache_specs(
+        model_axis=mesh.size(1)), mesh)
+    make_serve_step(model)(state["params"], cache, toks[:, :1], 0)
+    out["decode"] = reads["n"]
+    reads["n"] = 0
+    make_prefill_step(model)(state["params"], {"tokens": toks})
+    out["prefill"] = reads["n"]
+    return out
