@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's RMSNorm and overlay-executor kernels on one CUDA card.
+"""Time the port's RMSNorm, overlay-executor and SIMT attention kernels on one card.
 
     python3 benchmarks/torch_kernel_times.py [--src DIR] [--label NAME]
                                              [--parts P,...] [--alternatives]
@@ -28,8 +28,22 @@ main paths:
     backward through the public wrappers with an all-reduce that sums
     nothing, beside the plain versions (phases (f), (n1)).
 
-``--parts`` picks which of ``executor``, ``rmsnorm``, ``rmsnorm_bwd`` and
-``rmsnorm_split`` run (default: all four).
+  - the SIMT flash-attention route (``attention_simt``, the private
+    ``_launch``/``_launch_bwd`` entries with ``route="simt"``, so a checkout
+    from before their launch plans times too): the float32 forward at the
+    prefill shape q (4, 40, 4096, 128), k/v (4, 8, 4096, 128) causal, the
+    float32 backward at the training shape q (2, 40, 2048, 128), k/v (2, 8,
+    2048, 128) causal with the forward's row statistics, zamba2-7b's D 112
+    in float32 at q, k, v (4, 32, 4096, 112) causal, bfloat16 at D 32, q, k,
+    v (4, 32, 4096, 32) causal, and the float32 agreement runs' shapes of
+    phases (k) and (l) and bfloat16 at D 16 (SIMT_CASES); each beside its
+    bound (4 D operations a visible pair forward, ten backward, at the
+    float32 rate outside the tensor cores, or the bytes) and the library
+    call: ``scaled_dot_product_attention`` in float32, autograd through it
+    in float32, and in bfloat16 (phases (f), (n1)).
+
+``--parts`` picks which of ``executor``, ``rmsnorm``, ``rmsnorm_bwd``,
+``rmsnorm_split`` and ``attention_simt`` run (default: all five).
 
 Each time is the median of ``--reps`` CUDA-event windows.  Before each
 window the L2 is evicted by reading a 100 MB scratch tensor and the card
@@ -62,6 +76,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 MEM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12          # float32 FMAs outside the tensor cores
 L2_FLUSH_BYTES = 100 << 20
 HIDE_HOST_CYCLES = 1_000_000
 N_EXEC = 1 << 24
@@ -70,7 +85,32 @@ SPECS = ((8, 8, 2), (32, 8, 2))
 D, HQ, HKV, HD, LAYERS = 5120, 40, 8, 128, 40
 PREFILL_B, PREFILL_S, DECODE_B = 4, 4096, 4
 TRAIN_B, TRAIN_S, TRAIN_LAYERS = 2, 2048, 12
-PARTS = ("executor", "rmsnorm", "rmsnorm_bwd", "rmsnorm_split")
+PARTS = ("executor", "rmsnorm", "rmsnorm_bwd", "rmsnorm_split",
+         "attention_simt")
+# attention_simt: (name, b, hq, hkv, sq, skv, d, dtype name, causal,
+# backward); after the four main cases, the float32 agreement runs' shapes
+# of phases (k) and (l) (qwen3-moe's prefill, zamba2's, whisper's decode
+# steps: cross-attention and self-attention with one query row) and
+# bfloat16 at D 16
+SIMT_CASES = (
+    ("forward float32, prefill shape", 4, 40, 8, 4096, 4096, 128, "float32",
+     True, False),
+    ("backward float32, training shape", 2, 40, 8, 2048, 2048, 128,
+     "float32", True, True),
+    ("forward float32, zamba2-7b D 112", 4, 32, 32, 4096, 4096, 112,
+     "float32", True, False),
+    ("forward bfloat16, D 32", 4, 32, 32, 4096, 4096, 32, "bfloat16", True,
+     False),
+    ("forward float32, qwen3-moe agreement", 1, 64, 4, 256, 256, 128,
+     "float32", True, False),
+    ("forward float32, zamba2-7b agreement", 1, 32, 32, 256, 256, 112,
+     "float32", True, False),
+    ("forward float32, whisper decode cross-attention", 4, 20, 20, 1, 1500,
+     64, "float32", False, False),
+    ("forward float32, whisper decode self-attention", 4, 20, 20, 1, 160,
+     64, "float32", True, False),
+    ("forward bfloat16, D 16", 4, 32, 32, 4096, 4096, 16, "bfloat16", True,
+     False))
 # the split rows: a rank's block (B*S, inner / 4) of each gated norm
 SPLIT_BLOCKS = (("zamba2-7b", 7168), ("mamba2-370m", 2048))
 SPLIT_WAYS = 4
@@ -342,6 +382,72 @@ def time_rmsnorm_split(reps: int, scratch) -> dict:
     return out
 
 
+def time_attention_simt(reps: int, scratch) -> dict:
+    """The SIMT attention kernels at SIMT_CASES (causal, heads views of
+    (B, S, H*D) projections), each beside its bound and the library call
+    on the same inputs.  The backward is given the forward's row
+    statistics, as autograd gives them."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for name, b, hq, hkv, sq, skv, d, dname, causal, backward in SIMT_CASES:
+        dt = getattr(torch, dname)
+
+        def heads(h, s):
+            return torch.randn((b, s, h * d), generator=gen, device="cuda"
+                               ).to(dt).view(b, s, h, d).transpose(1, 2)
+        q, k, v = heads(hq, sq), heads(hkv, skv), heads(hkv, skv)
+        # visible pairs: row i (at position i + skv - sq) sees keys
+        # 0 .. its position, or all of them
+        pairs = b * hq * (sum(min(skv, i + skv - sq + 1)
+                              for i in range(sq)) if causal else sq * skv)
+        size = q.element_size()
+        io = 2 * (q.numel() + k.numel()) * size
+        if backward:
+            do = heads(hq, sq)
+            stats = torch.empty((2, b, hq, sq), device="cuda")
+            o = kernel._launch(q, k, v, route="simt", stats=stats)
+            k_ms = device_ms(lambda: kernel._launch_bwd(
+                q, k, v, o, do, stats, route="simt"), reps, scratch)
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            lo = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                enable_gqa=True)
+            l_ms = device_ms(lambda: torch.autograd.grad(
+                lo, (qs, ks, vs), do, retain_graph=True), reps, scratch)
+            ops, n_bytes = 10 * d * pairs, 2 * io + 2 * b * hq * sq * 4
+            extra = {"bound_ms_seven_products":
+                     14 * d * pairs / F32_OPS_PER_S * 1e3}
+            del do, stats, o, qs, ks, vs, lo
+        else:
+            k_ms = device_ms(lambda: kernel._launch(
+                q, k, v, causal=causal, route="simt"), reps, scratch)
+            # SDPA's causal mask is aligned at the start; the kernels' at
+            # the end (equal where Sq = Skv): an explicit mask otherwise
+            mask = None
+            if causal and sq != skv:
+                mask = (torch.arange(skv, device="cuda")[None, :]
+                        <= torch.arange(sq, device="cuda")[:, None]
+                        + skv - sq)
+            l_ms = device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True), reps, scratch)
+            ops, n_bytes, extra = 4 * d * pairs, io, {}
+        op_ms = ops / F32_OPS_PER_S * 1e3
+        byte_ms = n_bytes / MEM_BYTES_PER_S * 1e3
+        bound = max(op_ms, byte_ms)
+        out[name] = {"shape": f"q ({b},{hq},{sq},{d}) k/v "
+                              f"({b},{hkv},{skv},{d}) {dname}"
+                              + (" causal" if causal else ""),
+                     "ms": k_ms, "library_ms": l_ms, "bound_ms": bound,
+                     "bound_by": "operations" if op_ms >= byte_ms else
+                     "bytes", "share": bound / k_ms, **extra}
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"),
@@ -399,6 +505,16 @@ def main() -> int:
                   f"{r['backward_bound_ms']:.4f} and two-pass "
                   f"{r['backward_two_pass_bound_ms']:.4f}, plain "
                   f"{r['backward_plain']:.4f}); {card}")
+    if "attention_simt" in parts:
+        result["attention_simt"] = time_attention_simt(args.reps, scratch)
+        for name, r in result["attention_simt"].items():
+            seven = r.get("bound_ms_seven_products")
+            print(f"{args.label}: SIMT attention {name}, {r['shape']}: "
+                  f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
+                  f"{r['bound_by']}, share {r['share']:.3f}"
+                  + (f"; seven-product bound {seven:.4f}, share "
+                     f"{seven / r['ms']:.3f}" if seven else "")
+                  + f"; library {r['library_ms']:.4f} ms); {card}")
     if args.alternatives:
         result["alternatives"] = time_alternatives(args.reps, scratch)
     for kind, runs in result.get("alternatives", {}).items():

@@ -43,7 +43,10 @@ float32 SIMT kernels).  Phases:
       head dims 64, 112 and 128; then at the prefill shape q (4, 40,
       4096, 128) through the path's heads views, and timed there in turns with the
       SIMT kernel and ``scaled_dot_product_attention`` against the
-      operations bound, and at phase (k)'s q (4, 64, 4096, 128) with k/v
+      operations bound (in float32 too: the SIMT kernel, SDPA in float32,
+      the plain version and the float32 bound; and every SIMT kernel's
+      blocks an SM against ``kernel.simt_plan``), and at phase (k)'s q
+      (4, 64, 4096, 128) with k/v
       of 4 heads, timed in turns with ``scaled_dot_product_attention``;
       each case is run again writing the row statistics (m and l, what
       autograd's forward asks for), which must leave the output's bits
@@ -187,9 +190,12 @@ float32 SIMT kernels).  Phases:
       non-causal 448 -> 1500 at D 64, D 112 at group 1, group 16 and a
       D 64 window on the tensor-core backward (``BWD_TC_LIMIT``, with two
       faults planted in it that the limit must catch), D 32 and float32
-      on the SIMT one (``BWD_TOL``); then timed at the training shapes
-      beside the plain versions, the SIMT attention backward (in turns,
-      at every case of the tensor-core route too), autograd through
+      on the SIMT one (``BWD_TOL``, with its own two planted faults,
+      ``kernel.SIMT_BWD_FAULTS``, caught in float32 and in bfloat16);
+      then timed at the training shapes beside the plain versions, the
+      SIMT attention backward (in turns, at every case of the tensor-core
+      route too, and in float32 at the training shape beside autograd
+      through SDPA in float32 and the float32 bound), autograd through
       ``scaled_dot_product_attention`` and ``F.rms_norm`` (yardsticks
       only), and their bounds.  (n2) qwen3-14b at full width, cut to
       ``TRAIN_LAYERS`` of its 40 layers (the deepest that leaves
@@ -2538,12 +2544,14 @@ def attention_bound_ms(b, hq, sq, skv, d, causal, window, itemsize,
 def simt_f32_times(q, k, v) -> dict:
     """(f): the float32 route at the prefill shape (the SIMT kernel, which
     every float32 call takes) in turns with scaled_dot_product_attention
-    in float32, twice, beside the float32 bound: q, k, v read and the
+    in float32, twice, beside the float32 bound (q, k, v read and the
     output written in 4 bytes, 4*D operations per visible pair at the
-    card's float32 rate outside the tensor cores."""
+    card's float32 rate outside the tensor cores) and the plain version
+    (one sequence at a time); and each SIMT kernel's residency at every
+    head dim and dtype against its launch plan."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.flash_attention import kernel, ref
     b, hq, s, d = q.shape
     runs = {"simt": lambda: kernel._launch(q, k, v, route="simt"),
             "sdpa": lambda: F.scaled_dot_product_attention(
@@ -2552,20 +2560,41 @@ def simt_f32_times(q, k, v) -> dict:
     for _ in range(2):
         for name, fn in runs.items():
             times[name].append(cuda_ms(fn, reps=FA_REPS, warm=2)[0])
+
+    def plain():
+        for i in range(b):
+            ref.attention(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+    p_ms = cuda_ms(plain, reps=2, warm=1)[0]
     byte_ms, _ = attention_bound_ms(b, hq, s, s, d, True, None, 4,
                                     hkv=k.shape[1])
     pairs = b * hq * s * (s + 1) // 2
     op_ms = 4 * d * pairs / F32_OPS_PER_S * 1e3
     out = dict(ms=statistics.mean(times["simt"]), ms_turns=times["simt"],
                library_ms=statistics.mean(times["sdpa"]),
-               library_ms_turns=times["sdpa"], byte_ms=byte_ms, op_ms=op_ms,
-               bound_ms=max(byte_ms, op_ms))
+               library_ms_turns=times["sdpa"], plain_ms=p_ms,
+               byte_ms=byte_ms, op_ms=op_ms, bound_ms=max(byte_ms, op_ms))
     log(f"(f) prefill shape q ({b},{hq},{s},{d}) float32 causal, in turns: "
         f"SIMT kernel {out['ms']:.3f} ms ({times['simt']}), "
         f"scaled_dot_product_attention in float32 {out['library_ms']:.3f} "
-        f"ms ({times['sdpa']}); bound {out['bound_ms']:.3f} ms (operations "
-        f"at the float32 rate {op_ms:.3f}, bytes {byte_ms:.4f}; share "
+        f"ms ({times['sdpa']}); plain {p_ms:.3f} ms ({b} calls at B=1); "
+        f"bound {out['bound_ms']:.3f} ms (operations at the float32 rate "
+        f"{op_ms:.3f}, bytes {byte_ms:.4f}; share "
         f"{out['bound_ms'] / out['ms']:.3f})")
+    resident = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for hd in kernel.HEAD_DIMS:
+            if kernel.route(dt, hd) != "simt":
+                continue
+            got = kernel.simt_blocks_per_sm(hd, dt)
+            for name, n in got.items():
+                plan = kernel.simt_plan(name, hd, dt)
+                check(n >= plan.blocks_per_sm,
+                      f"the SIMT {name} kernel at D {hd} {dt}: {n} blocks "
+                      f"an SM, its plan {plan.blocks_per_sm}")
+            resident[f"{str(dt)[6:]} D {hd}"] = got
+    log(f"(f) SIMT kernels' blocks an SM (occupancy calculator), each at "
+        f"least its simt_plan: {resident}")
+    out["blocks_per_sm"] = resident
     return out
 
 
@@ -2911,9 +2940,31 @@ def reset_counts() -> None:
     from repro_torch.kernels.flash_attention import kernel as fa
     for name, m in kernel_modules().items():
         getattr(m, LAUNCHER[name]).launches = 0
-    for route in fa.flash_attention.launches_by_route:
-        fa.flash_attention.launches_by_route[route] = 0
+    zero_routes(fa.flash_attention, "forward")
     fa.flash_attention.stats_launches = 0
+
+
+# SIMT attention launches ("forward", "backward") of the route counters'
+# earlier runs: the phases set the counters to 0 at their start, so
+# main()'s count a phase reads simt_launches() around it
+SIMT_SEEN = {"forward": 0, "backward": 0}
+
+
+def zero_routes(fn, kind: str) -> None:
+    """Set the attention wrapper ``fn``'s launches_by_route to 0, first
+    adding its SIMT count to SIMT_SEEN[kind]."""
+    SIMT_SEEN[kind] += fn.launches_by_route["simt"]
+    for route in fn.launches_by_route:
+        fn.launches_by_route[route] = 0
+
+
+def simt_launches() -> dict:
+    """SIMT attention launches so far, forward and backward."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    return {"forward": SIMT_SEEN["forward"]
+            + fa.flash_attention.launches_by_route["simt"],
+            "backward": SIMT_SEEN["backward"]
+            + fa.flash_attention_bwd.launches_by_route["simt"]}
 
 
 def planted_faults():
@@ -4108,6 +4159,7 @@ def phase_backward_kernels():
     # planted fault
     by_route = fa.flash_attention_bwd.launches_by_route
     routes_seen, shares, fault_shares = set(), {}, {}
+    simt_faults = {}        # (planted fault, dtype) → its smallest error
     for case in FA_BWD_CASES:
         b, hq, hkv, sq, skv, d, causal, window, dname = case
         dt = getattr(torch, dname)
@@ -4142,12 +4194,30 @@ def phase_backward_kernels():
                 check(err <= tol, f"attention backward {shape} {what}: "
                                   f"{err} > {tol}")
         if route == "simt":
+            # the SIMT backward's planted faults, each beyond the limit;
+            # the mask's only where the case masks a pair
+            caught = {}
+            for fault, code in fa.SIMT_BWD_FAULTS.items():
+                if code == 1 and not (causal or window):
+                    continue
+                bad = fa._launch_bwd(q, k, v, o, do, stats, route="simt",
+                                     fault=code, **kw)
+                caught[fault] = max(bwd_error(g, w)
+                                    for g, w in zip(bad, want))
+                check(caught[fault] > tol,
+                      f"attention backward {shape}: the limit misses the "
+                      f"planted fault '{fault}' ({caught[fault]} <= {tol})")
+                key = (fault, dname)
+                simt_faults[key] = min(simt_faults.get(key, float("inf")),
+                                       caught[fault])
+                del bad
             log(f"(n1) attention backward {shape}, SIMT route: dq, dk, dv "
                 f"against ref.attention_bwd "
                 f"{', '.join(f'{e:.3g}' for e in errs)} and autograd "
                 f"through ref.attention "
                 f"{', '.join(f'{e:.3g}' for e in errs_auto)} of max |plain| "
-                f"(limit {tol:g}); two runs bit-equal")
+                f"(limit {tol:g}); two runs bit-equal; planted faults "
+                + ", ".join(f"{f} {e:.3g}" for f, e in caught.items()))
             del q, k, v, do, o, stats, got, again, want, auto, qa, ka, va
             continue
         limits = bwd_tc_limits(q, k, v, o, do, want, causal, window)
@@ -4190,8 +4260,13 @@ def phase_backward_kernels():
         torch.cuda.empty_cache()
     check(routes_seen == {"wgmma", "simt"},
           f"the backward cases took the routes {routes_seen}")
+    check(set(simt_faults) == {(f, dn) for f in fa.SIMT_BWD_FAULTS
+                               for dn in ("float32", "bfloat16")},
+          f"the SIMT backward's faults planted: {sorted(simt_faults)}")
     worst["tensor-core limit shares"] = max(shares.values())
     worst["planted fault shares (smallest)"] = fault_shares
+    worst["SIMT planted fault errors (smallest)"] = {
+        f"{f} ({dn})": e for (f, dn), e in simt_faults.items()}
 
     # ---- times at the training shapes, the L2 evicted before each launch
     evict = torch.empty(L2_FLUSH_BYTES // 4, device=DEVICE)
@@ -4297,6 +4372,45 @@ def phase_backward_kernels():
         f"{TRAIN_LAYERS} calls a training step")
     check(k_ms < simt_ms, "the tensor-core backward is not faster than the "
                           "SIMT one at the training shape")
+    del q, k, v, do, o, stats, qs, ks, vs, out
+    torch.cuda.empty_cache()
+
+    # the float32 route at the training shape: the SIMT backward and
+    # autograd through SDPA in float32, in turns, beside the plain
+    # backward and the float32 bound (five products, or the seven the
+    # kernels do, at the float32 rate outside the tensor cores)
+    q, k, v, do, o, stats = bwd_inputs(gen, FA_BWD_CASES[0][:-1]
+                                       + ("float32",))
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                         enable_gqa=True)
+    runs = {"simt": lambda: fa.flash_attention_bwd(q, k, v, o, do,
+                                                   stats=stats),
+            "library": lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                                   retain_graph=True)}
+    turns32 = {name: [] for name in runs}
+    for turn in range(2):
+        for name, fn in runs.items():
+            turns32[name].append(cuda_ms(fn, reps=FA_REPS, before=before)[0])
+    s_ms, sl_ms = (statistics.mean(turns32[n]) for n in runs)
+    sp_ms = cuda_ms(lambda: fref.attention_bwd(q, k, v, o, do, stats=stats),
+                    reps=2)[0]
+    byte32, ops_bf16 = attention_bwd_bound_ms(b, hq, hkv, sq, skv, d, causal,
+                                              window, 4)
+    op32 = ops_bf16 * BF16_OPS_PER_S / F32_OPS_PER_S
+    b32 = max(byte32, op32)
+    log(f"(n1) attention backward at q ({b},{hq},{sq},{d}) k/v "
+        f"({b},{hkv},{skv},{d}) float32 causal, the forward's statistics "
+        f"given: SIMT kernel {s_ms:.4f} ms (turns {turns32['simt']}), share "
+        f"of the bound {b32 / s_ms:.4f} (five products at the float32 rate "
+        f"{op32:.4f} ms; bytes {byte32:.4f} ms) and of the seven the "
+        f"kernels do {op32 * 7 / 5 / s_ms:.4f}; autograd through SDPA in "
+        f"float32 {sl_ms:.4f} ms (turns {turns32['library']}), "
+        f"{s_ms / sl_ms:.3f} x; plain {sp_ms:.3f} ms")
+    fa_bwd_f32 = dict(ms=s_ms, ms_turns=turns32["simt"], library_ms=sl_ms,
+                      library_ms_turns=turns32["library"], plain_ms=sp_ms,
+                      bound_ms=b32, bound_ms_seven_products=op32 * 7 / 5,
+                      bound_by="operations" if op32 >= byte32 else "bytes")
     del q, k, v, do, o, stats, qs, ks, vs, out, evict
     torch.cuda.empty_cache()
     fa_bwd = dict(ms=k_ms, ms_turns=turns["kernel"], simt_ms=simt_ms,
@@ -4304,7 +4418,7 @@ def phase_backward_kernels():
                   library_ms=l_ms, ratio_to_library=k_ms / l_ms,
                   bound_ms=b_ms,
                   bound_by="operations" if op_ms >= byte_ms else "bytes",
-                  at_other_cases=vs_simt)
+                  at_other_cases=vs_simt, simt_float32=fa_bwd_f32)
     return rms, fa_bwd, worst
 
 
@@ -4801,8 +4915,7 @@ def phase_train(card: str):
     rk.rmsnorm_bwd.launches = 0
     rk.rmsnorm_split.launches = rk.rmsnorm_split_bwd.launches = 0
     fa.flash_attention_bwd.launches = 0
-    for route in fa.flash_attention_bwd.launches_by_route:
-        fa.flash_attention_bwd.launches_by_route[route] = 0
+    zero_routes(fa.flash_attention_bwd, "backward")
     readings = {}
     for layers, ckpt, tag in runs:
         model, ds, opt_cfg, readings[tag] = train_loop_run(layers, ckpt, tag,
@@ -5201,8 +5314,7 @@ def phase_dp(card: str):
     rk.rmsnorm_bwd.launches = 0
     rk.rmsnorm_split.launches = rk.rmsnorm_split_bwd.launches = 0
     fa.flash_attention_bwd.launches = 0
-    for route in fa.flash_attention_bwd.launches_by_route:
-        fa.flash_attention_bwd.launches_by_route[route] = 0
+    zero_routes(fa.flash_attention_bwd, "backward")
     events = []
     with timed_compression(events):
         state, comp = dp_run(dp_step,
@@ -5681,8 +5793,7 @@ def tp_reset_counts() -> None:
     rk.rmsnorm_bwd.launches = 0
     rk.rmsnorm_split.launches = rk.rmsnorm_split_bwd.launches = 0
     fa.flash_attention_bwd.launches = 0
-    for route in fa.flash_attention_bwd.launches_by_route:
-        fa.flash_attention_bwd.launches_by_route[route] = 0
+    zero_routes(fa.flash_attention_bwd, "backward")
 
 
 def tp_log(rank: int, msg: str) -> None:
@@ -7195,11 +7306,17 @@ def main(argv=None) -> int:
         log(f"done in {time.perf_counter() - t_start:.1f} s")
         return 0
     t_last = [t_start]
+    # SIMT attention launches of each phase, forward and backward
+    simt_last, simt_by_phase = [simt_launches()], {}
 
     def took(phase: str) -> None:
         now = time.perf_counter()
         log(f"{phase} took {now - t_last[0]:.1f} s")
         t_last[0] = now
+        simt_now = simt_launches()
+        simt_by_phase[phase] = {k: simt_now[k] - simt_last[0][k]
+                                for k in simt_now}
+        simt_last[0] = simt_now
     took("(a)")
     phase_kernel_vs_plain(max_err)
     took("(b)")
@@ -7283,6 +7400,21 @@ def main(argv=None) -> int:
                      for name in ("rmsnorm_split", "rmsnorm_split_bwd")}
     for name in ("rmsnorm_bwd", "flash_attention_bwd"):
         check(bwd_launches[name] > 0, f"training never launched {name}")
+    # the SIMT route on the main paths: every phase but (f) and (n1), which
+    # hold the kernels against their plain versions and time them; (r)'s
+    # examples run in their own interpreters and report their counts
+    simt_main = {kind: {p: n[kind] for p, n in simt_by_phase.items()
+                        if n[kind] and p not in ("(f)", "(n1)")}
+                 for kind in ("forward", "backward")}
+    for kind, key in (("forward", "flash_attention_by_route"),
+                      ("backward", "flash_attention_bwd_by_route")):
+        if ex_launches[key]["simt"]:
+            simt_main[kind]["(r) examples"] = ex_launches[key]["simt"]
+    log(f"SIMT attention launches by phase, in this process: "
+        f"{simt_by_phase}; on the main paths: {simt_main}")
+    for kind, by_phase in simt_main.items():
+        check(sum(by_phase.values()) > 0,
+              f"the main paths never launched the SIMT {kind} kernel")
     log("(n) readings " + json.dumps(train))
     log("(o) readings " + json.dumps(dp))
     log("(p) readings " + json.dumps(tp, default=str))
@@ -7531,6 +7663,62 @@ def main(argv=None) -> int:
         "at_other_cases": fa_bwd["at_other_cases"],
         "ms_per_training_step": step_part("attention backward"),
         "training": train,
+    }, {
+        "name": "flash_attention_simt",
+        "route": "cuda (SIMT float32 FMAs, cp.async rings)",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:98 "
+                    "(float32, and head dims 16 and 32)",
+        "launches": sum(simt_main["forward"].values()),
+        "launches_by_phase": simt_main["forward"],
+        "launches_by_phase_all": {p: n["forward"]
+                                  for p, n in simt_by_phase.items()
+                                  if n["forward"]},
+        "match": "float32 within 2e-3 + 2e-3 |plain| of the plain version "
+                 "at every (f) case and at the prefill shape; row "
+                 "statistics within STATS_TOL",
+        "max_abs_err": fa_errs[torch.float32],
+        "ms": fa["simt_float32"]["ms"],
+        "ms_turns": fa["simt_float32"]["ms_turns"],
+        "plain_ms": fa["simt_float32"]["plain_ms"],
+        "bound_ms": fa["simt_float32"]["bound_ms"],
+        "bound_by": "operations" if fa["simt_float32"]["op_ms"]
+                    >= fa["simt_float32"]["byte_ms"] else "bytes",
+        "library_ms": fa["simt_float32"]["library_ms"],
+        "blocks_per_sm": fa["simt_float32"]["blocks_per_sm"],
+        "per": "one call at q (4, 40, 4096, 128), k/v (4, 8, 4096, 128) "
+               "float32 causal, heads views",
+    }, {
+        "name": "flash_attention_bwd_simt",
+        "route": "cuda (SIMT float32 FMAs, cp.async rings)",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:98 "
+                    "(backward, float32 and head dims 16 and 32; no Pallas "
+                    "counterpart: the JAX package differentiates its plain "
+                    "version)",
+        "launches": sum(simt_main["backward"].values()),
+        "launches_by_phase": simt_main["backward"],
+        "launches_by_phase_all": {p: n["backward"]
+                                  for p, n in simt_by_phase.items()
+                                  if n["backward"]},
+        "match": "within 1e-4 (float32) and 2^-7 (bfloat16) of max |plain| "
+                 "against ref.attention_bwd and autograd through "
+                 "ref.attention; two runs bit-equal; both planted faults "
+                 "caught in float32 and bfloat16",
+        "max_abs_err": bwd_errs[("flash_attention", "float32", "abs")],
+        "max_rel_err": bwd_errs[("flash_attention", "float32", "rel")],
+        "planted_fault_min_errs": bwd_errs[
+            "SIMT planted fault errors (smallest)"],
+        "ms": fa_bwd["simt_float32"]["ms"],
+        "ms_turns": fa_bwd["simt_float32"]["ms_turns"],
+        "plain_ms": fa_bwd["simt_float32"]["plain_ms"],
+        "bound_ms": fa_bwd["simt_float32"]["bound_ms"],
+        "bound_ms_seven_products": fa_bwd["simt_float32"][
+            "bound_ms_seven_products"],
+        "bound_by": fa_bwd["simt_float32"]["bound_by"],
+        "library_ms": fa_bwd["simt_float32"]["library_ms"],
+        "per": "one call at q (2, 40, 2048, 128), k/v (2, 8, 2048, 128) "
+               "float32 causal with the forward's statistics",
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
-// Flash attention for Hopper (sm_90a): blockwise online-softmax attention
-// with grouped-query heads, a causal mask aligned at the sequence ends and an
-// optional sliding window, in float32 or bfloat16.
+// Flash attention for Hopper (sm_90a), the SIMT route: blockwise
+// online-softmax attention with grouped-query heads, a causal mask aligned
+// at the sequence ends and an optional sliding window, in float32 FMAs
+// outside the tensor cores, for float32 and for bfloat16 at head dims 16 and
+// 32.
 //
 // Replaces the Pallas TPU kernel `_fa_kernel`, launched by `flash_attention`
 // (src/repro/kernels/flash_attention/kernel.py).  Plain version:
-// src/repro_torch/kernels/flash_attention/ref.py.  Binding:
-// src/repro_torch/kernels/flash_attention/kernel.py (ctypes).
+// src/repro_torch/kernels/flash_attention/ref.py.  Binding and launch plan
+// (`simt_plan`): src/repro_torch/kernels/flash_attention/kernel.py (ctypes).
 //
 // What it computes.  q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D); query head h
 // reads key/value head h / (Hq / Hkv).  Query row i sits at position
@@ -16,116 +18,123 @@
 // exp(-1e30 - -1e30) = 1 terms until a real key arrives, and
 // exp(-1e30 - m) = 0 wipes them.  A row that sees no key at all (a causal
 // row before the first key when Sq > Skv) gets the mean of v over every key,
-// as ref.py gives; the Pallas kernel gave 0 there.
+// as ref.py gives; the Pallas kernel gave 0 there.  Keys past Skv are
+// absent (-inf), not masked.
 //
-// What bounds it.  At the prefill shape the work is 4 * D operations per
-// visible (query, key) pair, 687 GFLOP for q (4, 40, 4096, 128) causal,
-// against 0.40 GB of inputs and outputs: bound by operations.  This kernel
-// does them as float32 FMAs outside the tensor cores (67 TFLOP/s at most),
-// as the TPU kernel's float32 dot_general does, so it cannot come near the
-// bfloat16 tensor-core bound (989 TFLOP/s).  The binding therefore sends
-// bfloat16 at D 64, 112 and 128, the main path, to the tensor-core kernel of
-// csrc/flash_attention_wgmma.cu; this one serves float32 (D 16, 32, 64, 112
-// and 128) and bfloat16 at D 16 and 32.
+// What bounds it.  4 * D operations per visible (query, key) pair, 687 GFLOP
+// for q (4, 40, 4096, 128) causal, against 0.40 GB of inputs and outputs:
+// bound by operations, here full IEEE float32 FMAs (67 TFLOP/s at most; no
+// TF32).  An SM issues one warp instruction a clock on each of its four
+// schedulers, so every instruction that is not an FMA costs an FMA: the
+// design keeps the loads, the softmax and the staging a small share of the
+// instructions.  bfloat16 at D 64, 112 and 128, the main path, takes the
+// tensor-core kernel of csrc/flash_attention_wgmma.cu instead.
 //
-// Design.  One block of 256 threads per (batch * query head, 64-row query
-// tile); the heaviest causal tiles launch first.  A loop inside the block over
-// 64-key tiles takes the place of the TPU's sequential fori_loop and stops at
-// the causal bound; with a window it also starts at the window's first tile.
-// Shared memory holds, in float32, the scaled query tile transposed
-// (Qt[d][row]), the key tile transposed (Kt[d][key]), the value tile
-// (Vs[key][d]) and the probabilities transposed (Pt[key][row]): 112 KB at
-// D = 128, 100 KB at D = 112.  Thread (ty, tx) of a 16 x 16 grid owns score
-// rows 4ty..4ty+3 and columns 4tx..4tx+3, and output rows 4ty..4ty+3 and
-// columns tx*D/16..(tx+1)*D/16-1 (7 columns at D = 112, read from Vs one at
-// a time), so a row's running max, denominator and
-// accumulator stay in the registers of the 16 threads that share ty; row
-// reductions are 16-lane shuffles.  Loads are 16 bytes a thread; the ragged
-// ends of Sq and Skv are masked in the kernel (keys past Skv count as absent,
-// not as masked), so no length needs to divide 64.  When the caller passes a
-// `stats` buffer (autograd's forward) the epilogue also writes each row's
-// max m and sum l, the row statistics the backward
+// Design (Hopper).  One block per (batch * query head, query
+// tile of BQ rows), gridded so that every head's heaviest causal tiles
+// launch first; a loop inside the block over BK-key tiles takes the place of
+// the TPU's sequential fori_loop, stopping at the causal bound and starting
+// at the window's first tile.  Thread (ty, tx) of a (BQ / RQ) x 16 grid
+// owns RQ query rows (two runs of four at D >= 64, one below) for the scores
+// and for the output: S = Q K^T as an RQ x 4 register tile (keys tx + 16 j),
+// O as RQ rows x D / 16 columns, so each float read from shared memory feeds
+// 4 to 8 FMAs; a row's max, sum and output stay in the registers of the 16
+// lanes that share ty, and row reductions are 16-lane shuffles.  Q is read
+// once, scaled and widened through registers, into [D/4][BQ][4] (the 16
+// lanes of a row group read one address); K lands in [D/4][BK][4] (lanes on
+// neighbouring keys), V in plain rows, P through [BK][BQ] with its 4-row
+// chunks XOR-swizzled by the key's low three bits, so no read or write
+// conflicts.  K and V arrive by cp.async in a two-slot ring in which they
+// alternate: V of tile t is in flight while the block scores K of tile t,
+// and K of tile t + 1 while it runs P V of tile t (bfloat16 lands raw and
+// is widened once by the block).  Two barriers a tile (four in bfloat16).
+// Shared memory at D 128: 112 KB, two blocks an SM (`simt_plan`).  The ends
+// of Sq and Skv are masked in the kernel, so no length needs to divide a
+// tile, and only tiles that straddle a mask edge test the mask.  When the
+// caller passes a `stats` buffer (autograd's forward) the epilogue also
+// writes each row's max m and sum l, the row statistics the backward
 // (csrc/flash_attention_bwd.cu) reads.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "flash_attention_simt.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int NT = 256;       // threads per block (16 x 16)
-constexpr float MASKED = -1e30f;
+using namespace simt;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16_rn(v);
-}
-
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
+// the launch plan of each head dim (MINB: blocks an SM, capped lower where
+// shared memory holds fewer); kernel.py's simt_plan states the same
+template <int D> struct Fwd;
+template <> struct Fwd<128> {
+  static constexpr int BQ = 64, BK = 64, RQ = 8, VW = 4, MINB = 2;
+};
+template <> struct Fwd<112> {
+  static constexpr int BQ = 64, BK = 64, RQ = 8, VW = 4, MINB = 2;
+};
+template <> struct Fwd<64> {
+  static constexpr int BQ = 64, BK = 64, RQ = 8, VW = 4, MINB = 3;
+};
+template <> struct Fwd<32> {
+  static constexpr int BQ = 64, BK = 64, RQ = 4, VW = 2, MINB = 3;
+};
+template <> struct Fwd<16> {
+  static constexpr int BQ = 64, BK = 64, RQ = 4, VW = 1, MINB = 3;
 };
 
-// VEC elements from 16-byte-aligned p as float32, or zeros when !live
-template <typename T, int VEC>
-__device__ __forceinline__ void load_row_chunk(const T* p, bool live,
-                                               float* f) {
-  if (live) {
-    const Pack<T, VEC> pk = *reinterpret_cast<const Pack<T, VEC>*>(p);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) f[j] = to_f(pk.v[j]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) f[j] = 0.0f;
-  }
-}
-
-__device__ __forceinline__ float row16_max(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row16_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+constexpr int TX = 16;       // lanes that share a query row
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
-                       float* __restrict__ stats, int hq, int group, int sq,
-                       int skv, long long qsb,
-                       long long qsh, long long qss, long long ksb,
-                       long long ksh, long long kss, long long vsb,
-                       long long vsh, long long vss, int causal, int window,
-                       float scale) {
-  constexpr int VEC = 16 / sizeof(T);     // elements in one 16-byte load
-  constexpr int CH = D / VEC;             // 16-byte chunks in a row
-  constexpr int DC = D / 16;              // output columns per thread
-  extern __shared__ float smem[];
-  float* Qt = smem;                       // [D][BQ]
-  float* Kt = Qt + D * BQ;                // [D][BK]
-  float* Vs = Kt + D * BK;                // [BK][D]
-  float* Pt = Vs + BK * D;                // [BK][BQ]
+struct FwdShape {
+  using C = Fwd<D>;
+  static constexpr int BQ = C::BQ, BK = C::BK, RQ = C::RQ, VW = C::VW;
+  static constexpr int TY = BQ / RQ, NT = TY * TX;
+  static constexpr int NU = D / 4;              // 16-byte units of a row
+  static constexpr int CK = BK / TX;            // keys a thread scores
+  static constexpr int NG = RQ / 4;             // runs of 4 rows a thread owns
+  static constexpr int NCV = D / VW;            // output column vectors
+  static constexpr int CPT = (NCV + TX - 1) / TX;
+  static constexpr bool RAW = sizeof(T) == 2;   // bfloat16 lands raw
+  using QL = UnitMajor<D, BQ>;
+  using KL = UnitMajor<D, BK>;
+  using VL = PlainRows<D, BK>;
+  static constexpr int SMEM =
+      (QL::FLOATS + KL::FLOATS + VL::FLOATS + BK * BQ) * 4 +
+      (RAW ? 2 * BK * D * (int)sizeof(T) : 0);
+  // blocks an SM: the head dim's cap, or fewer where shared memory says so
+  static constexpr int FIT = SM_SMEM / (SMEM + BLOCK_RESERVED);
+  static constexpr int MINB = FIT < C::MINB ? FIT : C::MINB;
+  static_assert(BQ % (4 * NG) == 0 && TY * RQ == BQ, "tile");
+  static_assert(CK * TX == BK && BK % 8 == 0, "key tile");
+  static_assert(BQ / 4 >= 8, "the P swizzle needs 8 row chunks");
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(FwdShape<T, D>::NT, FwdShape<T, D>::MINB)
+fa_fwd(const T* __restrict__ q, const T* __restrict__ k,
+       const T* __restrict__ v, T* __restrict__ out,
+       float* __restrict__ stats, int hq, int group, int sq, int skv,
+       long long qsb, long long qsh, long long qss, long long ksb,
+       long long ksh, long long kss, long long vsb, long long vsh,
+       long long vss, int causal, int window, float scale) {
+  using S = FwdShape<T, D>;
+  constexpr int BQ = S::BQ, BK = S::BK, RQ = S::RQ, NT = S::NT, TY = S::TY;
+  constexpr int NU = S::NU, CK = S::CK, NG = S::NG, VW = S::VW;
+  constexpr int NCV = S::NCV, CPT = S::CPT;
+  using QL = typename S::QL;
+  using KL = typename S::KL;
+  using VL = typename S::VL;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                         // [NU][BQ][4], scaled
+  float* Ks = Qs + QL::FLOATS;              // [NU][BK][4]
+  float* Vs = Ks + KL::FLOATS;              // [BK][D]
+  float* Pt = Vs + VL::FLOATS;              // [BK][BQ], chunks swizzled
+  T* Kraw = reinterpret_cast<T*>(Pt + BK * BQ);   // bfloat16: [BK][D]
+  T* Vraw = Kraw + BK * D;
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
-  const int b = blockIdx.y / hq, h = blockIdx.y % hq, hk = h / group;
+  const int tx = tid % TX, ty = tid / TX;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // heaviest tiles first
+  const int b = bh / hq, h = bh % hq, hk = h / group;
   const int q0 = qt * BQ;
   const int off = skv - sq;                    // q_pos = row + off
   const T* qb = q + b * qsb + h * qsh;
@@ -142,173 +151,243 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (window > 0) lo = max(0, first_pos - window + 1) / BK;
   }  // else rows before the first key average every key: visit them all
 
-  for (int i = tid; i < BQ * CH; i += NT) {
-    const int r = i % BQ, c = i / BQ;
-    float f[VEC];
-    load_row_chunk<T, VEC>(qb + (long long)(q0 + r) * qss + c * VEC,
-                           q0 + r < sq, f);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) Qt[(c * VEC + j) * BQ + r] = f[j] * scale;
-  }
+  auto issue_k = [&](int t) {
+    if constexpr (S::RAW)
+      issue_rows<T, D, BK, NT, KL>(Kraw, kb, kss, t * BK, skv);
+    else
+      issue_rows<T, D, BK, NT, KL>(Ks, kb, kss, t * BK, skv);
+    cp_commit();
+  };
+  auto issue_v = [&](int t) {
+    if constexpr (S::RAW)
+      issue_rows<T, D, BK, NT, VL>(Vraw, vb, vss, t * BK, skv);
+    else
+      issue_rows<T, D, BK, NT, VL>(Vs, vb, vss, t * BK, skv);
+    cp_commit();
+  };
 
-  float m[4], l[4], acc[4][DC];
+  if (lo < hi) issue_k(lo);
+  load_rows<T, D, BQ, NT, QL>(Qs, qb, qss, q0, sq, scale);
+
+  // this thread's rows: run g of four at g * BQ / NG + 4 ty
+  int rows[RQ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RQ; ++i) rows[i] = (i / 4) * (BQ / NG) + ty * 4 + i % 4;
+  float m[RQ], l[RQ], acc[RQ][CPT][VW];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
     m[i] = MASKED;
     l[i] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.0f;
+    for (int c = 0; c < CPT; ++c)
+#pragma unroll
+      for (int w = 0; w < VW; ++w) acc[i][c][w] = 0.0f;
   }
+  // the output column vectors this thread owns (past NCV: a copy of a real
+  // one, computed and never stored)
+  int cvs[CPT];
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) cvs[c] = min(tx + TX * c, NCV - 1);
+  const int swz_w = tx & 7;        // key & 7 of every key this thread scores
 
   for (int t = lo; t < hi; ++t) {
     const int k0 = t * BK;
-    __syncthreads();                 // the last tile's Kt, Vs, Pt are read
-    for (int i = tid; i < BK * CH; i += NT) {
-      const int r = i % BK, c = i / BK;
-      float f[VEC];
-      load_row_chunk<T, VEC>(kb + (long long)(k0 + r) * kss + c * VEC,
-                             k0 + r < skv, f);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) Kt[(c * VEC + j) * BK + r] = f[j];
-    }
-    for (int i = tid; i < BK * CH; i += NT) {
-      const int r = i / CH, c = i % CH;
-      float f[VEC];
-      load_row_chunk<T, VEC>(vb + (long long)(k0 + r) * vss + c * VEC,
-                             k0 + r < skv, f);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) Vs[r * D + c * VEC + j] = f[j];
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int dd = 0; dd < D; ++dd) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qt[dd * BQ + ty * 4]);
-      const float4 kk =
-          *reinterpret_cast<const float4*>(&Kt[dd * BK + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float kv[4] = {kk.x, kk.y, kk.z, kk.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], kv[j], s[i][j]);
+    cp_wait_all();
+    __syncthreads();               // K of tile t landed; P V of t - 1 done
+    issue_v(t);
+    if constexpr (S::RAW) {
+      widen_rows<D, BK, NT, KL>(Ks, Kraw);
+      __syncthreads();
     }
 
+    float s[RQ][CK];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q_pos = q0 + ty * 4 + i + off;
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int j = 0; j < CK; ++j) s[i][j] = 0.0f;
+#pragma unroll 4
+    for (int u = 0; u < NU; ++u) {
+      float4 kf[CK];
+#pragma unroll
+      for (int j = 0; j < CK; ++j)
+        kf[j] = *reinterpret_cast<const float4*>(Ks + KL::at(tx + TX * j, u));
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(Qs + QL::at(rows[i],
+                                                                      u));
+#pragma unroll
+        for (int j = 0; j < CK; ++j) {
+          float x = fmaf(a.x, kf[j].x, s[i][j]);
+          x = fmaf(a.y, kf[j].y, x);
+          x = fmaf(a.z, kf[j].z, x);
+          s[i][j] = fmaf(a.w, kf[j].w, x);
+        }
+      }
+    }
+
+    // a tile that straddles a mask edge, the keys' end or a row that sees
+    // no key tests every pair; the others are all visible
+    const bool edge = k0 + BK > skv || (causal && k0 + BK - 1 > first_pos) ||
+                      (window > 0 && k0 <= last_pos - window);
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const int q_pos = q0 + rows[i] + off;
       float mx = MASKED;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k_pos = k0 + tx * 4 + j;
-        if (k_pos >= skv)
-          s[i][j] = -CUDART_INF_F;       // not a key: contributes nothing
-        else if ((causal && k_pos > q_pos) ||
-                 (window > 0 && k_pos <= q_pos - window))
-          s[i][j] = MASKED;
+      for (int j = 0; j < CK; ++j) {
+        if (edge) {
+          const int k_pos = k0 + tx + TX * j;
+          if (k_pos >= skv)
+            s[i][j] = -CUDART_INF_F;     // not a key: contributes nothing
+          else if ((causal && k_pos > q_pos) ||
+                   (window > 0 && k_pos <= q_pos - window))
+            s[i][j] = MASKED;
+        }
         mx = fmaxf(mx, s[i][j]);
       }
-      const float m_new = fmaxf(m[i], row16_max(mx));   // finite
-      const float alpha = expf(m[i] - m_new);
+      const float m_new = fmaxf(m[i], group_max<TX>(mx));   // finite
+      const float alpha = exp_sfu(m[i] - m_new);
       float sum = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        Pt[(tx * 4 + j) * BQ + ty * 4 + i] = p;
+      for (int j = 0; j < CK; ++j) {
+        s[i][j] = exp_sfu(s[i][j] - m_new);
+        sum += s[i][j];
       }
-      l[i] = l[i] * alpha + row16_sum(sum);
+      l[i] = l[i] * alpha + group_sum<TX>(sum);
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < CPT; ++c)
+#pragma unroll
+        for (int w = 0; w < VW; ++w) acc[i][c][w] *= alpha;
     }
-    __syncthreads();
+    // P transposed: key tx + 16 j, the chunk of rows 4 (g TY + ty) .. + 3
+#pragma unroll
+    for (int j = 0; j < CK; ++j)
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+        *reinterpret_cast<float4*>(
+            Pt + (tx + TX * j) * BQ + (((g * TY + ty) ^ swz_w) * 4)) =
+            make_float4(s[4 * g][j], s[4 * g + 1][j], s[4 * g + 2][j],
+                        s[4 * g + 3][j]);
 
-#pragma unroll 4
+    cp_wait_all();
+    __syncthreads();               // V of tile t landed; P written; K read
+    if (t + 1 < hi) issue_k(t + 1);
+    if constexpr (S::RAW) {
+      widen_rows<D, BK, NT, VL>(Vs, Vraw);
+      __syncthreads();
+    }
+
+#pragma unroll 8
     for (int kk = 0; kk < BK; ++kk) {
-      const float4 p = *reinterpret_cast<const float4*>(&Pt[kk * BQ + ty * 4]);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
-      float vv[DC];
-      const float* vrow = Vs + kk * D + tx * DC;
-      if constexpr (DC % 4 == 0) {
+      float4 p[NG];
 #pragma unroll
-        for (int c = 0; c < DC; c += 4) {
-          const float4 x4 = *reinterpret_cast<const float4*>(vrow + c);
-          vv[c] = x4.x;
-          vv[c + 1] = x4.y;
-          vv[c + 2] = x4.z;
-          vv[c + 3] = x4.w;
-        }
-      } else {
+      for (int g = 0; g < NG; ++g)
+        p[g] = *reinterpret_cast<const float4*>(
+            Pt + kk * BQ + (((g * TY + ty) ^ (kk & 7)) * 4));
+      float vv[CPT][VW];
 #pragma unroll
-        for (int c = 0; c < DC; ++c) vv[c] = vrow[c];
+      for (int c = 0; c < CPT; ++c)
+        read_vec<VW>(Vs + kk * D + cvs[c] * VW, vv[c]);
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const float pv[4] = {p[g].x, p[g].y, p[g].z, p[g].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int c = 0; c < CPT; ++c)
+#pragma unroll
+            for (int w = 0; w < VW; ++w)
+              acc[4 * g + e][c][w] = fmaf(pv[e], vv[c][w],
+                                          acc[4 * g + e][c][w]);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
     }
   }
+  cp_wait_all();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < RQ; ++i) {
+    const int row = q0 + rows[i];
     if (row >= sq) continue;
     const float denom = l[i] == 0.0f ? 1.0f : l[i];
+    const long long idx = (long long)bh * sq + row;
     if (stats != nullptr && tx == 0) {
-      const long long idx = (long long)blockIdx.y * sq + row;
       stats[idx] = m[i];
-      stats[(long long)gridDim.y * sq + idx] = l[i];
+      stats[(long long)gridDim.x * sq + idx] = l[i];
     }
-    T* orow = out + ((long long)blockIdx.y * sq + row) * D + tx * DC;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) orow[c] = from_f<T>(acc[i][c] / denom);
+    for (int c = 0; c < CPT; ++c) {
+      if (tx + TX * c >= NCV) continue;
+      float o[VW];
+#pragma unroll
+      for (int w = 0; w < VW; ++w) o[w] = acc[i][c][w] / denom;
+      write_vec<T, VW>(out + idx * D + (tx + TX * c) * VW, o);
+    }
   }
+}
+
+// plan: rows, key tile, threads, shared bytes, blocks an SM, as
+// kernel.py's simt_plan("forward", ...) gives them
+template <typename T, int D>
+bool plan_matches(const int* plan) {
+  using S = FwdShape<T, D>;
+  return plan[0] == S::BQ && plan[1] == S::BK && plan[2] == S::NT &&
+         plan[3] == S::SMEM && plan[4] == S::MINB;
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* stats, int b, int hq, int hkv, int sq, int skv,
            const long long* st, int causal, int window, float scale,
-           cudaStream_t stream) {
-  constexpr size_t smem = (size_t)(3 * D * BQ + BK * BQ) * sizeof(float);
-  static_assert(BQ == BK, "the shared-memory layout assumes BQ == BK");
+           const int* plan, cudaStream_t stream) {
+  using S = FwdShape<T, D>;
+  if (!plan_matches<T, D>(plan)) return (int)cudaErrorInvalidValue;
   // per device and cheap, so set on every launch
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fa_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((sq + BQ - 1) / BQ, b * hq);
-  flash_attention_kernel<T, D><<<grid, NT, smem, stream>>>(
+  const dim3 grid(b * hq, (sq + S::BQ - 1) / S::BQ);
+  fa_fwd<T, D><<<grid, S::NT, S::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), stats, hq, hq / hkv,
-      sq, skv,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
-      window, scale);
+      sq, skv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      causal, window, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int occupancy(int d, int* out) {
+  switch (d) {
+    case 16: return blocks_per_sm(fa_fwd<T, 16>, FwdShape<T, 16>::NT,
+                                  FwdShape<T, 16>::SMEM, out);
+    case 32: return blocks_per_sm(fa_fwd<T, 32>, FwdShape<T, 32>::NT,
+                                  FwdShape<T, 32>::SMEM, out);
+    case 64: return blocks_per_sm(fa_fwd<T, 64>, FwdShape<T, 64>::NT,
+                                  FwdShape<T, 64>::SMEM, out);
+    case 112: return blocks_per_sm(fa_fwd<T, 112>, FwdShape<T, 112>::NT,
+                                   FwdShape<T, 112>::SMEM, out);
+    case 128: return blocks_per_sm(fa_fwd<T, 128>, FwdShape<T, 128>::NT,
+                                   FwdShape<T, 128>::SMEM, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v, void* out,
              float* stats, int b, int hq, int hkv, int sq, int skv,
              const long long* st, int causal, int window, float scale,
-             cudaStream_t s) {
+             const int* plan, cudaStream_t s) {
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, out, stats, b, hq, hkv, sq, skv,
-                                  st, causal, window, scale, s);
+                                  st, causal, window, scale, plan, s);
     case 32: return launch<T, 32>(q, k, v, out, stats, b, hq, hkv, sq, skv,
-                                  st, causal, window, scale, s);
+                                  st, causal, window, scale, plan, s);
     case 64: return launch<T, 64>(q, k, v, out, stats, b, hq, hkv, sq, skv,
-                                  st, causal, window, scale, s);
+                                  st, causal, window, scale, plan, s);
     case 112: return launch<T, 112>(q, k, v, out, stats, b, hq, hkv, sq, skv,
-                                    st, causal, window, scale, s);
+                                    st, causal, window, scale, plan, s);
     case 128: return launch<T, 128>(q, k, v, out, stats, b, hq, hkv, sq, skv,
-                                    st, causal, window, scale, s);
+                                    st, causal, window, scale, plan, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -317,25 +396,41 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* out,
 
 // Launches on `stream` and returns cudaGetLastError(); never synchronises
 // and allocates nothing.  dtype 0 is float32, 1 bfloat16 (q, k, v and out
-// all of it); d is 16, 32, 64, 112 or 128.  `strides` holds the element strides
-// of q, k and v over (batch, head, position), in that order, nine in all;
-// the last dimension is contiguous and every row 16-byte aligned.  `out` is
-// (b, hq, sq, d) contiguous.  `stats` is null, or float32 (2, b, hq, sq)
-// that receives each row's m and l.  window <= 0 means no window.
+// all of it); d is 16, 32, 64, 112 or 128 (the route sends bfloat16 here
+// at 16 and 32 only; chip_smoke.py times the rest beside the tensor-core
+// kernel).  `strides`
+// holds the element strides of q, k and v over (batch, head, position), in
+// that order, nine in all; the last dimension is contiguous and every row
+// 16-byte aligned.  `out` is (b, hq, sq, d) contiguous.  `stats` is null, or
+// float32 (2, b, hq, sq) that receives each row's m and l.  window <= 0
+// means no window.  `plan` is the wrapper's launch plan (rows, key tile,
+// threads, shared bytes, blocks an SM); a plan this build does not hold is
+// refused with cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* stats,
                                       int b, int hq, int hkv, int sq, int skv,
                                       int d, const long long* strides,
                                       int causal, int window, float scale,
-                                      int dtype, void* stream_ptr) {
+                                      int dtype, const int* plan,
+                                      void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   float* st = static_cast<float*>(stats);
   if (dtype == 0)
     return launch_d<float>(d, q, k, v, out, st, b, hq, hkv, sq, skv, strides,
-                           causal, window, scale, stream);
+                           causal, window, scale, plan, stream);
   if (dtype == 1)
     return launch_d<__nv_bfloat16>(d, q, k, v, out, st, b, hq, hkv, sq, skv,
-                                   strides, causal, window, scale, stream);
+                                   strides, causal, window, scale, plan,
+                                   stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of the forward kernel at head dim d and dtype that one SM holds
+// at once (the CUDA occupancy calculator: shared memory, registers and
+// threads), into *out.
+extern "C" int flash_attention_blocks_per_sm(int d, int dtype, int* out) {
+  if (dtype == 0) return occupancy<float>(d, out);
+  if (dtype == 1) return occupancy<__nv_bfloat16>(d, out);
   return (int)cudaErrorInvalidValue;
 }
 

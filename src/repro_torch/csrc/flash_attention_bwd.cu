@@ -1,7 +1,9 @@
-// Flash-attention backward for Hopper (sm_90a): the gradients dq, dk and dv
-// of grouped-query attention with a causal mask aligned at the sequence
-// ends and an optional sliding window, in float32 or bfloat16, given q, k,
-// v, the forward's output o and the output's gradient do.
+// Flash-attention backward for Hopper (sm_90a), the SIMT route: the
+// gradients dq, dk and dv of grouped-query attention with a causal mask
+// aligned at the sequence ends and an optional sliding window, given q, k,
+// v, the forward's output o, the output's gradient do and the forward's row
+// statistics, in float32 FMAs outside the tensor cores, for float32 and for
+// bfloat16 at head dims 16 and 32.
 //
 // The JAX package has no backward Pallas kernel: it trains through the
 // plain jnp attention (`repro/models/transformer.py`, attn_impl="ref"), so
@@ -9,9 +11,9 @@
 // autograd through the port's plain version
 // (src/repro_torch/kernels/flash_attention/ref.py, whose `attention_bwd` is
 // the same algorithm).  It is the backward of the SIMT forward
-// (csrc/flash_attention.cu), whose route it shares: float32, and bfloat16
-// at head dims 16 and 32.  Binding: src/repro_torch/kernels/
-// flash_attention/kernel.py (ctypes).
+// (csrc/flash_attention.cu), whose route it shares.  Binding and launch
+// plans (`simt_plan`): src/repro_torch/kernels/flash_attention/kernel.py
+// (ctypes).
 //
 // What it computes.  With S = scale q k^T, masked logits set to the finite
 // -1e30 of the forward (keys past Skv absent), P = softmax(S) by row, and
@@ -28,119 +30,60 @@
 // all -1e30).
 //
 // What bounds it.  Seven products of 2 D operations per visible (query, key)
-// pair (S, dP and dq in the dq launch; S, dP, dk and dv in the dk/dv launch)
-// against a few bytes per element of q, k, v, o and do: bound by
-// operations.  This backward does them as float32 FMAs outside the tensor
-// cores (67 TFLOP/s at most, against 989 in bfloat16 on them), so it serves
-// float32 and head dims 16 and 32; bfloat16 at D 64, 112 and 128 takes the
-// tensor-core backward of csrc/flash_attention_bwd_wgmma.cu.
+// pair (S, dP and dq in the dq launch; S, dP, dk and dv in the dk/dv launch;
+// the bound counts five) against a few bytes per element of q, k, v, o and
+// do: bound by operations, here full IEEE float32 FMAs (67 TFLOP/s at most;
+// no TF32).  bfloat16 at D 64, 112 and 128 takes the tensor-core backward of
+// csrc/flash_attention_bwd_wgmma.cu.
 //
-// Design.  Two launches, each block owning its outputs, so no atomics and
-// the result is deterministic.  Tiles of 64 query rows and 64 keys, 256
-// threads as a 16 x 16 grid; operands are staged in shared memory in
-// float32, transposed where a product walks them by column.
-//   - `fa_bwd_dq`, one block per (batch * query head, 64-row query tile),
-//     heaviest causal tiles first: Di, which it writes for the second
-//     launch, then one pass over the key tiles that forms dS from the
-//     forward's statistics and adds dS k into registers; thread (ty, tx)
-//     owns rows 4ty..4ty+3 and D/16 columns.  180 KB of shared memory at D
-//     128.
-//   - `fa_bwd_dkv`, one block per (batch * key/value head, 64-key tile),
-//     key tile 0 first: for each query head of the group and each query
-//     tile that reaches the key tile, it recomputes P and dS from the
-//     statistics and adds P^T do and dS^T q into registers, so the sum over
-//     the group's heads needs no atomics; thread (ty, tx) owns D/16 columns
-//     and keys 4tx..4tx+3.  161 KB at D 128.
+// Design (Hopper).  Two launches, each block owning its
+// outputs, so no atomics and the result is bit-equal run to run.  Each
+// keeps one operand pair resident (read once through registers, widened)
+// and streams the other by cp.async, a tile in flight while the block
+// works (bfloat16 lands raw and is widened once by the block).  The
+// products are register tiles whose every float read from shared memory
+// feeds 4 to 16 FMAs; dS and P pass between the two products of a launch
+// through shared memory, padded or swizzled so that neither side
+// conflicts.
+//   - `fa_bwd_dq`, one block per (batch * query head, query tile), every
+//     head's heaviest causal tiles first: Di (written for the second
+//     launch), then one pass over the key tiles through a two-stage ring
+//     of (K, V): S and dP as 4-row x (BK/16)-key tiles (keys tx + 16 j),
+//     dS from the forward's statistics, dq += dS k as 4 rows x D/16
+//     columns.  Q (scaled) and do resident in [D/4][BQ][4]; K and V in
+//     padded rows (read by key and by row).  Two barriers a tile.
+//   - `fa_bwd_dkv`, one block per (batch * key/value head, 64 keys), key
+//     tile 0 first: for each query head of the group and each BQ-row
+//     step that reaches the keys, dP^T = V do^T, then S^T = K q^T, as
+//     4-key (2 below D 64) x (BQ/8)-row tiles over eight lanes, P and dS
+//     from the statistics (read into registers ahead of the products),
+//     then dv += P^T do and dk += dS^T q as 16 keys (8, 4) x one column
+//     vector a thread, summing the group's heads in registers.  K and V
+//     resident in [D/4][64][4]; q and do in one slot each (rows swizzled,
+//     or padded at D 16 and 112), alternating: do of the next step lands
+//     while the block forms dk, q while it forms dP^T.  Four barriers a
+//     step.
 // A tile pair is visited only when it holds a visible pair or a row that
-// sees no key.  q, k, v, o and do are read at their strides (the heads
-// views of the model's projections; do arrives as one); dq, dk and dv are
-// contiguous.
+// sees no key, and only tiles that straddle a mask edge or an end test
+// the mask.  Shared memory at D 128: 103 KB (dq) and 112 KB (dk/dv), two
+// blocks an SM each (`simt_plan`).  q, k, v, o and do are read at their
+// strides (the heads views of the model's projections; do arrives as one);
+// dq, dk and dv are contiguous.
+//
+// `fault` plants one of two faults for chip_smoke.py's check that the
+// route's limit catches them (kernel.py's SIMT_BWD_FAULTS): 1 leaves dS
+// unzeroed under the mask (P taken from the unmasked score), 2 leaves the
+// group's last query head out of dK and dV.  Every real call passes 0.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "flash_attention_simt.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // keys per tile
-constexpr int NT = 256;       // threads per block (16 x 16)
-constexpr float MASKED = -1e30f;
+using namespace simt;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16_rn(v);
-}
-
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
-
-// VEC elements from 16-byte-aligned p as float32, or zeros when !live
-template <typename T, int VEC>
-__device__ __forceinline__ void load_chunk(const T* p, bool live, float* f) {
-  if (live) {
-    const Pack<T, VEC> pk = *reinterpret_cast<const Pack<T, VEC>*>(p);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) f[j] = to_f(pk.v[j]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) f[j] = 0.0f;
-  }
-}
-
-// rows [r0, r0 + ROWS) of a (rows, D) operand at row stride `rs`, times
-// `mul`, into dst transposed: dst[d * ROWS + r]; rows at or past `n` are 0
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void stage_t(float* dst, const T* src, long long rs,
-                                        int r0, int n, float mul) {
-  constexpr int VEC = 16 / sizeof(T), CH = D / VEC;
-  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
-    const int r = i % ROWS, c = i / ROWS;
-    float f[VEC];
-    load_chunk<T, VEC>(src + (long long)(r0 + r) * rs + c * VEC, r0 + r < n,
-                       f);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) dst[(c * VEC + j) * ROWS + r] = f[j] * mul;
-  }
-}
-
-// the same rows kept in their own layout: dst[r * D + d]
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long rs,
-                                      int r0, int n) {
-  constexpr int VEC = 16 / sizeof(T), CH = D / VEC;
-  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
-    const int r = i / CH, c = i % CH;
-    float f[VEC];
-    load_chunk<T, VEC>(src + (long long)(r0 + r) * rs + c * VEC, r0 + r < n,
-                       f);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) dst[r * D + c * VEC + j] = f[j];
-  }
-}
-
-__device__ __forceinline__ float row16_max(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row16_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+constexpr int TX = 16;      // dq: lanes that share a run of 4 rows
+constexpr int FAULT_MASK_NOT_ZEROED = 1;
+constexpr int FAULT_HEAD_DROPPED = 2;
 
 struct Attn {
   int hq, hkv, group, sq, skv, causal, window;
@@ -166,31 +109,91 @@ struct Attn {
     if (window > 0 && k1 <= i0 + o - window) return false;
     return true;
   }
+
+  // rows [i0, i0 + bq) x keys [k0, k0 + bk) are all real and all visible
+  __device__ __forceinline__ bool all_visible(int i0, int bq, int k0,
+                                              int bk) const {
+    const int o = off();
+    return k0 + bk <= skv && i0 + bq <= sq &&
+           (!causal || k0 + bk - 1 <= i0 + o) &&
+           (window <= 0 || k0 > i0 + bq - 1 + o - window);
+  }
 };
 
-// dq and Di per (batch * query head, query tile).  stats holds two
-// (B * Hq * Sq) float32 arrays, m and l; di receives Di.
+// the launch plans of each head dim (MINB: blocks an SM, capped lower where
+// shared memory holds fewer); kernel.py's simt_plan states the same
+template <int D> struct Plan;
+template <> struct Plan<128> {
+  static constexpr int BQ = 32, BK = 64, VW = 4, MINB = 2;
+};
+template <> struct Plan<112> {
+  static constexpr int BQ = 32, BK = 64, VW = 4, MINB = 2;
+};
+template <> struct Plan<64> {
+  static constexpr int BQ = 32, BK = 64, VW = 4, MINB = 2;
+};
+template <> struct Plan<32> {
+  static constexpr int BQ = 64, BK = 64, VW = 2, MINB = 2;
+};
+template <> struct Plan<16> {
+  static constexpr int BQ = 64, BK = 64, VW = 1, MINB = 2;
+};
+
+template <int SMEM, int CAP>
+struct Resident {
+  static constexpr int FIT = SM_SMEM / (SMEM + BLOCK_RESERVED);
+  static constexpr int VALUE = FIT < CAP ? FIT : CAP;
+};
+
+// ---- dq: per (batch * query head, BQ query rows), BK keys a tile
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
+struct DqShape {
+  using C = Plan<D>;
+  static constexpr int BQ = C::BQ, BK = C::BK, VW = C::VW;
+  static constexpr int TY = BQ / 4, NT = TY * TX;   // 4 rows a thread
+  static constexpr int NU = D / 4, CK = BK / TX, NCV = D / VW;
+  static constexpr int CPT = (NCV + TX - 1) / TX;
+  static constexpr int SP = BQ + 4;                 // dS^T row pitch
+  static constexpr bool RAW = sizeof(T) == 2;
+  using QL = UnitMajor<D, BQ>;
+  using KL = PaddedRows<D, BK>;
+  using VL = UnitMajor<D, BK>;
+  static constexpr int SMEM =
+      (2 * QL::FLOATS + BK * SP + BQ + KL::FLOATS + VL::FLOATS) * 4 +
+      (RAW ? 2 * BK * D * (int)sizeof(T) : 0);
+  static constexpr int MINB = Resident<SMEM, C::MINB>::VALUE;
+  static_assert(NT / BQ == 4, "four threads a row for Di");
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(DqShape<T, D>::NT, DqShape<T, D>::MINB)
 fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ o,
           const T* __restrict__ dout, T* __restrict__ dq,
           const float* __restrict__ stats, float* __restrict__ di_out,
-          Attn A) {
-  constexpr int VEC = 16 / sizeof(T), CH = D / VEC, DC = D / 16;
+          Attn A, int fault) {
+  using S = DqShape<T, D>;
+  constexpr int BQ = S::BQ, BK = S::BK, NT = S::NT, VW = S::VW;
+  constexpr int NU = S::NU, CK = S::CK, NCV = S::NCV, CPT = S::CPT;
+  constexpr int SP = S::SP;
+  using QL = typename S::QL;
+  using KL = typename S::KL;
+  using VL = typename S::VL;
   extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;                       // [D][BQ], scaled
-  float* dOt = Qt + D * BQ;               // [D][BQ]
-  float* Kt = dOt + D * BQ;               // [D][BK]
-  float* Vt = Kt + D * BK;                // [D][BK]
-  float* Ks = Vt + D * BK;                // [BK][D]
-  float* St = Ks + BK * D;                // [BK][BQ]: dS transposed
-  float* Ds = St + BK * BQ;               // [BQ]: Di
+  float* Qs = smem;                       // [NU][BQ][4], scaled
+  float* dOs = Qs + QL::FLOATS;           // [NU][BQ][4]
+  float* dSt = dOs + QL::FLOATS;          // [BK][SP]: dS transposed
+  float* Ds = dSt + BK * SP;              // [BQ]: Di
+  float* Ks = Ds + BQ;                    // the K slot, padded rows
+  float* Vs = Ks + KL::FLOATS;            // the V slot, [NU][BK][4]
+  T* Kraw = reinterpret_cast<T*>(Vs + VL::FLOATS);   // bfloat16: [BK][D]
+  T* Vraw = Kraw + BK * D;
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
-  const int b = blockIdx.y / A.hq, h = blockIdx.y % A.hq, hk = h / A.group;
+  const int tx = tid % TX, ty = tid / TX;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // heaviest tiles first
+  const int b = bh / A.hq, h = bh % A.hq, hk = h / A.group;
   const int q0 = qt * BQ, i1 = min(q0 + BQ, A.sq) - 1;
   const int off = A.off();
   const T* qb = q + b * A.qs[0] + h * A.qs[1];
@@ -199,20 +202,46 @@ fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * A.ks[0] + hk * A.ks[1];
   const T* vb = v + b * A.vs[0] + hk * A.vs[1];
 
-  stage_t<T, D, BQ>(Qt, qb, A.qs[2], q0, A.sq, A.scale);
-  stage_t<T, D, BQ>(dOt, db, A.ds[2], q0, A.sq, 1.0f);
+  // the key tiles this query tile needs (Attn::tile_live, as a range)
+  const int first_pos = q0 + off, last_pos = i1 + off;
+  int lo = 0, hi = (A.skv + BK - 1) / BK;
+  if (!A.causal || first_pos >= 0) {
+    if (A.causal) hi = min(hi, last_pos / BK + 1);
+    if (A.window > 0) lo = max(0, first_pos - A.window + 1) / BK;
+  }
+
+  // K and V of tile t into their slots (float32 straight into their
+  // layouts, bfloat16 raw)
+  auto issue_k = [&](int t) {
+    if constexpr (S::RAW)
+      issue_rows<T, D, BK, NT, KL>(Kraw, kb, A.ks[2], t * BK, A.skv);
+    else
+      issue_rows<T, D, BK, NT, KL>(Ks, kb, A.ks[2], t * BK, A.skv);
+    cp_commit();
+  };
+  auto issue_v = [&](int t) {
+    if constexpr (S::RAW)
+      issue_rows<T, D, BK, NT, VL>(Vraw, vb, A.vs[2], t * BK, A.skv);
+    else
+      issue_rows<T, D, BK, NT, VL>(Vs, vb, A.vs[2], t * BK, A.skv);
+    cp_commit();
+  };
+
+  if (lo < hi) issue_v(lo);
+  load_rows<T, D, BQ, NT, QL>(Qs, qb, A.qs[2], q0, A.sq, A.scale);
+  load_rows<T, D, BQ, NT, QL>(dOs, db, A.ds[2], q0, A.sq, 1.0f);
   {  // Di = rowsum(do * o), four threads a row
+    constexpr int VEC = 16 / sizeof(T), CH = D / VEC;
     const int r = tid >> 2, part = tid & 3;
     float s = 0.0f;
     if (q0 + r < A.sq)
       for (int c = part; c < CH; c += 4) {
-        float fo[VEC], fd[VEC];
-        load_chunk<T, VEC>(ob + (long long)(q0 + r) * A.os[2] + c * VEC,
-                           true, fo);
-        load_chunk<T, VEC>(db + (long long)(q0 + r) * A.ds[2] + c * VEC,
-                           true, fd);
+        const Pack<T, VEC> po = *reinterpret_cast<const Pack<T, VEC>*>(
+            ob + (long long)(q0 + r) * A.os[2] + c * VEC);
+        const Pack<T, VEC> pd = *reinterpret_cast<const Pack<T, VEC>*>(
+            db + (long long)(q0 + r) * A.ds[2] + c * VEC);
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) s = fmaf(fo[j], fd[j], s);
+        for (int j = 0; j < VEC; ++j) s = fmaf(to_f(po.v[j]), to_f(pd.v[j]), s);
       }
     s += __shfl_xor_sync(0xffffffffu, s, 1);
     s += __shfl_xor_sync(0xffffffffu, s, 2);
@@ -220,287 +249,491 @@ fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  const int n_kt = (A.skv + BK - 1) / BK;
-  const long long n = (long long)gridDim.y * A.sq;
-  float m[4], l[4], di[4];
+  const long long n = (long long)gridDim.x * A.sq;
+  float m[4], inv_l[4], di[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
-    const long long idx = (long long)blockIdx.y * A.sq + row;
+    const long long idx = (long long)bh * A.sq + row;
     const bool in = row < A.sq;
     m[i] = in ? stats[idx] : 0.0f;
-    l[i] = in ? stats[n + idx] : 1.0f;
+    inv_l[i] = in ? 1.0f / stats[n + idx] : 0.0f;
     di[i] = Ds[ty * 4 + i];
     if (tx == 0 && in) di_out[idx] = di[i];
   }
+  int cvs[CPT];
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) cvs[c] = min(tx + TX * c, NCV - 1);
 
-  // dS, then dq += dS k
-  float acc[4][DC];
+  float acc[4][CPT][VW];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.0f;
-  for (int t = 0; t < n_kt; ++t) {
+    for (int c = 0; c < CPT; ++c)
+#pragma unroll
+      for (int w = 0; w < VW; ++w) acc[i][c][w] = 0.0f;
+
+  // V and K alternate in their slots: V of tile t + 1 lands while the
+  // block forms S and dq of tile t, K of tile t while it forms dP
+  for (int t = lo; t < hi; ++t) {
     const int k0 = t * BK;
-    if (!A.tile_live(q0, i1, k0, min(k0 + BK, A.skv) - 1)) continue;
-    __syncthreads();                     // the last tile's Ks and St are read
-    stage_t<T, D, BK>(Kt, kb, A.ks[2], k0, A.skv, 1.0f);
-    stage_t<T, D, BK>(Vt, vb, A.vs[2], k0, A.skv, 1.0f);
-    stage<T, D, BK>(Ks, kb, A.ks[2], k0, A.skv);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-#pragma unroll 4
-    for (int dd = 0; dd < D; ++dd) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qt[dd * BQ + ty * 4]);
-      const float4 g = *reinterpret_cast<const float4*>(&dOt[dd * BQ + ty * 4]);
-      const float4 kk = *reinterpret_cast<const float4*>(&Kt[dd * BK + tx * 4]);
-      const float4 vv = *reinterpret_cast<const float4*>(&Vt[dd * BK + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float gv[4] = {g.x, g.y, g.z, g.w};
-      const float kv[4] = {kk.x, kk.y, kk.z, kk.w};
-      const float vw[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(av[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], vw[j], dp[i][j]);
-        }
+    cp_wait_all();
+    __syncthreads();      // V of tile t landed; the last tile's reads done
+    issue_k(t);
+    if constexpr (S::RAW) {
+      widen_rows<D, BK, NT, VL>(Vs, Vraw);
+      __syncthreads();
     }
+
+    float sc[4][CK], dp[4][CK];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx * 4 + j;
-        const bool vis = row < A.sq && kp < A.skv && A.visible(row, kp);
-        const float p = expf(s[i][j] - m[i]) / l[i];
-        St[(tx * 4 + j) * BQ + ty * 4 + i] = vis ? p * (dp[i][j] - di[i])
-                                                 : 0.0f;
+      for (int j = 0; j < CK; ++j) sc[i][j] = dp[i][j] = 0.0f;
+#pragma unroll 4
+    for (int u = 0; u < NU; ++u) {       // dP = do V^T
+      float4 vf[CK];
+#pragma unroll
+      for (int j = 0; j < CK; ++j)
+        vf[j] = *reinterpret_cast<const float4*>(Vs + VL::at(tx + TX * j, u));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 g = *reinterpret_cast<const float4*>(
+            dOs + QL::at(ty * 4 + i, u));
+#pragma unroll
+        for (int j = 0; j < CK; ++j) {
+          float y = fmaf(g.x, vf[j].x, dp[i][j]);
+          y = fmaf(g.y, vf[j].y, y);
+          y = fmaf(g.z, vf[j].z, y);
+          dp[i][j] = fmaf(g.w, vf[j].w, y);
+        }
       }
     }
-    __syncthreads();
+    cp_wait_all();
+    __syncthreads();      // K of tile t landed; V read
+    if (t + 1 < hi) issue_v(t + 1);
+    if constexpr (S::RAW) {
+      widen_rows<D, BK, NT, KL>(Ks, Kraw);
+      __syncthreads();
+    }
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 p = *reinterpret_cast<const float4*>(&St[kk * BQ + ty * 4]);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
-      const float* krow = Ks + kk * D + tx * DC;
-      float kv[DC];
+    for (int u = 0; u < NU; ++u) {       // S = q K^T
+      float4 kf[CK];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) kv[c] = krow[c];
+      for (int j = 0; j < CK; ++j)
+        kf[j] = *reinterpret_cast<const float4*>(Ks + KL::at(tx + TX * j, u));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            Qs + QL::at(ty * 4 + i, u));
+#pragma unroll
+        for (int j = 0; j < CK; ++j) {
+          float x = fmaf(a.x, kf[j].x, sc[i][j]);
+          x = fmaf(a.y, kf[j].y, x);
+          x = fmaf(a.z, kf[j].z, x);
+          sc[i][j] = fmaf(a.w, kf[j].w, x);
+        }
+      }
+    }
+
+    const bool edge = !A.all_visible(q0, BQ, k0, BK);
+#pragma unroll
+    for (int j = 0; j < CK; ++j) {
+      const int key = k0 + tx + TX * j;
+      float d4[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + ty * 4 + i;
+        float ds = exp_sfu(sc[i][j] - m[i]) * inv_l[i] * (dp[i][j] - di[i]);
+        if (edge) {
+          const bool real = row < A.sq && key < A.skv;
+          if (!real || (!A.visible(row, key) &&
+                        fault != FAULT_MASK_NOT_ZEROED))
+            ds = 0.0f;
+        }
+        d4[i] = ds;
+      }
+      *reinterpret_cast<float4*>(dSt + (tx + TX * j) * SP + ty * 4) =
+          make_float4(d4[0], d4[1], d4[2], d4[3]);
+    }
+    __syncthreads();      // dS written
+
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 d = *reinterpret_cast<const float4*>(dSt + kk * SP + ty * 4);
+      const float dv[4] = {d.x, d.y, d.z, d.w};
+      float kv[CPT][VW];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+        read_vec<VW>(Ks + KL::at(kk, 0) + cvs[c] * VW, kv[c]);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pv[i], kv[c], acc[i][c]);
+        for (int c = 0; c < CPT; ++c)
+#pragma unroll
+          for (int w = 0; w < VW; ++w)
+            acc[i][c][w] = fmaf(dv[i], kv[c][w], acc[i][c][w]);
     }
   }
+  cp_wait_all();
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= A.sq) continue;
-    T* orow = dq + ((long long)blockIdx.y * A.sq + row) * D + tx * DC;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) orow[c] = from_f<T>(acc[i][c] * A.scale);
+    for (int c = 0; c < CPT; ++c) {
+      if (tx + TX * c >= NCV) continue;
+      float x[VW];
+#pragma unroll
+      for (int w = 0; w < VW; ++w) x[w] = acc[i][c][w] * A.scale;
+      write_vec<T, VW>(dq + ((long long)bh * A.sq + row) * D +
+                           (tx + TX * c) * VW, x);
+    }
   }
 }
 
-// dk and dv per (batch * key/value head, key tile), summing the group's
-// query heads inside the block.
+// ---- dk, dv: per (batch * key/value head, BK keys), BQ query rows a tile
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
+struct DkvShape {
+  using C = Plan<D>;
+  static constexpr int BK = 64, BQ = C::BQ, VW = C::VW;
+  static constexpr int NT = 4 * BQ;
+  static constexpr int NU = D / 4, NCV = D / VW;
+  // S^T and dP^T: keys KS ty .. KS ty + KS - 1 x rows tx + 8 i
+  static constexpr int TXS = 8, TYS = NT / TXS, KS = BK / TYS;
+  static constexpr int RS = BQ / TXS;
+  // dk and dv: keys KA ya .. KA ya + KA - 1 x column vector xa
+  static constexpr int TXA = NCV > 16 ? 32 : 16, TYA = NT / TXA;
+  static constexpr int KA = BK / TYA;
+  static constexpr bool RAW = sizeof(T) == 2;
+  using KL = UnitMajor<D, BK>;
+  using QL = SwizzledRows<D, BQ>;
+  static constexpr int SMEM =
+      (2 * KL::FLOATS + 2 * BQ * BK + 2 * QL::FLOATS) * 4 +
+      (RAW ? 2 * BQ * D * (int)sizeof(T) : 0);
+  static constexpr int MINB = Resident<SMEM, C::MINB>::VALUE;
+  static_assert(NCV <= TXA && KA % 4 == 0 && KS % 2 == 0 && BK / 4 >= 8,
+                "thread maps");
+};
+
+// P and dS rows [BQ][BK]: 4-key chunk c of row r at chunk c ^ (r & 7)
+template <int BK>
+__device__ __forceinline__ int pk_at(int r, int key) {
+  return r * BK + (((key >> 2) ^ (r & 7)) << 2) + (key & 3);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(DkvShape<T, D>::NT, DkvShape<T, D>::MINB)
 fa_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const T* __restrict__ dout,
            T* __restrict__ dk, T* __restrict__ dv,
            const float* __restrict__ stats, const float* __restrict__ di,
-           Attn A, int batch) {
-  constexpr int DC = D / 16;
+           Attn A, int batch, int fault) {
+  using S = DkvShape<T, D>;
+  constexpr int BK = S::BK, BQ = S::BQ, NT = S::NT, VW = S::VW;
+  constexpr int NU = S::NU, NCV = S::NCV, RS = S::RS, KA = S::KA;
+  constexpr int KS = S::KS, TXS = S::TXS, TXA = S::TXA;
+  using KL = typename S::KL;
+  using QL = typename S::QL;
   extern __shared__ __align__(16) float smem[];
-  float* Kt = smem;                       // [D][BK]
-  float* Vt = Kt + D * BK;                // [D][BK]
-  float* Qt = Vt + D * BK;                // [D][BQ], scaled
-  float* dOt = Qt + D * BQ;               // [D][BQ]
-  float* Ps = dOt + D * BQ;               // [BQ][BK]
-  float* dSs = Ps + BQ * BK;              // [BQ][BK]
-  float* Ms = dSs + BQ * BK;              // [BQ] each: m, l, Di
-  float* Ls = Ms + BQ;
-  float* Dis = Ls + BQ;
+  float* Ks = smem;                       // [NU][BK][4]
+  float* Vs = Ks + KL::FLOATS;            // [NU][BK][4]
+  float* Ps = Vs + KL::FLOATS;            // [BQ][BK], chunks swizzled
+  float* dSs = Ps + BQ * BK;              // [BQ][BK], chunks swizzled
+  float* Qw = dSs + BQ * BK;              // the q slot, swizzled rows
+  float* dOw = Qw + QL::FLOATS;           // the do slot
+  T* Qraw = reinterpret_cast<T*>(dOw + QL::FLOATS);   // bfloat16: [BQ][D]
+  T* dOraw = Qraw + BQ * D;
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int b = blockIdx.y / A.hkv, hk = blockIdx.y % A.hkv;
-  const int k0 = blockIdx.x * BK, k1 = min(k0 + BK, A.skv) - 1;
+  const int txs = tid % TXS, tys = tid / TXS;
+  const int xa = tid % TXA, ya = tid / TXA;
+  const int bkv = blockIdx.x;
+  const int b = bkv / A.hkv, hk = bkv % A.hkv;
+  const int k0 = blockIdx.y * BK, k1 = min(k0 + BK, A.skv) - 1;
   const long long n = (long long)batch * A.hq * A.sq;
-  stage_t<T, D, BK>(Kt, k + b * A.ks[0] + hk * A.ks[1], A.ks[2], k0, A.skv,
-                    1.0f);
-  stage_t<T, D, BK>(Vt, v + b * A.vs[0] + hk * A.vs[1], A.vs[2], k0, A.skv,
-                    1.0f);
-
-  float acc_k[DC][4], acc_v[DC][4];
-#pragma unroll
-  for (int c = 0; c < DC; ++c)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc_k[c][j] = 0.0f;
-      acc_v[c][j] = 0.0f;
-    }
   const int n_qt = (A.sq + BQ - 1) / BQ;
-  for (int g = 0; g < A.group; ++g) {
-    const int h = hk * A.group + g;
-    const T* qb = q + b * A.qs[0] + h * A.qs[1];
-    const T* db = dout + b * A.ds[0] + h * A.ds[1];
-    const long long sbase = ((long long)b * A.hq + h) * A.sq;
-    for (int qt = 0; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
-      if (!A.tile_live(q0, min(q0 + BQ, A.sq) - 1, k0, k1)) continue;
-      __syncthreads();                   // the last tile's operands are read
-      stage_t<T, D, BQ>(Qt, qb, A.qs[2], q0, A.sq, A.scale);
-      stage_t<T, D, BQ>(dOt, db, A.ds[2], q0, A.sq, 1.0f);
-      if (tid < BQ) {
-        const bool in = q0 + tid < A.sq;
-        const long long idx = sbase + q0 + tid;
-        Ms[tid] = in ? stats[idx] : 0.0f;
-        Ls[tid] = in ? stats[n + idx] : 1.0f;
-        Dis[tid] = in ? di[idx] : 0.0f;
-      }
+  const int heads = fault == FAULT_HEAD_DROPPED ? A.group - 1 : A.group;
+  const int total = heads * n_qt;
+
+  auto next_live = [&](int it) {
+    for (; it < total; ++it) {
+      const int q0 = (it % n_qt) * BQ;
+      if (A.tile_live(q0, min(q0 + BQ, A.sq) - 1, k0, k1)) break;
+    }
+    return it;
+  };
+  // q and do of step `it` into their slots (float32 straight into the
+  // swizzled rows, bfloat16 raw)
+  auto issue = [&](int it, const T* src, const long long* st, float* work,
+                   T* raw) {
+    const int h = hk * A.group + it / n_qt, q0 = (it % n_qt) * BQ;
+    const T* base = src + b * st[0] + h * st[1];
+    if constexpr (S::RAW)
+      issue_rows<T, D, BQ, NT, QL>(raw, base, st[2], q0, A.sq);
+    else
+      issue_rows<T, D, BQ, NT, QL>(work, base, st[2], q0, A.sq);
+    cp_commit();
+  };
+
+  int it = next_live(0);
+  if (it < total) issue(it, dout, A.ds, dOw, dOraw);
+  load_rows<T, D, BK, NT, KL>(Ks, k + b * A.ks[0] + hk * A.ks[1], A.ks[2],
+                              k0, A.skv, 1.0f);
+  load_rows<T, D, BK, NT, KL>(Vs, v + b * A.vs[0] + hk * A.vs[1], A.vs[2],
+                              k0, A.skv, 1.0f);
+  const int cva = min(xa, NCV - 1);
+  float acc_k[KA][VW], acc_v[KA][VW];
+#pragma unroll
+  for (int kk = 0; kk < KA; ++kk)
+#pragma unroll
+    for (int w = 0; w < VW; ++w) acc_k[kk][w] = acc_v[kk][w] = 0.0f;
+
+  while (it < total) {
+    const int nxt = next_live(it + 1);
+    const int h = hk * A.group + it / n_qt, q0 = (it % n_qt) * BQ;
+    // the rows' statistics, read now and used after the products
+    float mr[RS], lr[RS], dr[RS];
+#pragma unroll
+    for (int i = 0; i < RS; ++i) {
+      const int row = q0 + txs + TXS * i;
+      const long long idx = ((long long)b * A.hq + h) * A.sq + row;
+      const bool in = row < A.sq;
+      mr[i] = in ? stats[idx] : 0.0f;
+      lr[i] = in ? stats[n + idx] : 0.0f;
+      dr[i] = in ? di[idx] : 0.0f;
+    }
+    cp_wait_all();
+    __syncthreads();      // do landed; the last step's reads are done
+    issue(it, q, A.qs, Qw, Qraw);
+    if constexpr (S::RAW) {
+      widen_rows<D, BQ, NT, QL>(dOw, dOraw);
       __syncthreads();
-      float s[4][4] = {}, dp[4][4] = {};
+    }
+
+    float sc[KS][RS], dp[KS][RS];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int i = 0; i < RS; ++i) sc[kk][i] = dp[kk][i] = 0.0f;
 #pragma unroll 4
-      for (int dd = 0; dd < D; ++dd) {
-        const float4 a =
-            *reinterpret_cast<const float4*>(&Qt[dd * BQ + ty * 4]);
-        const float4 gg =
-            *reinterpret_cast<const float4*>(&dOt[dd * BQ + ty * 4]);
-        const float4 kk =
-            *reinterpret_cast<const float4*>(&Kt[dd * BK + tx * 4]);
-        const float4 vv =
-            *reinterpret_cast<const float4*>(&Vt[dd * BK + tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float gv[4] = {gg.x, gg.y, gg.z, gg.w};
-        const float kv[4] = {kk.x, kk.y, kk.z, kk.w};
-        const float vw[4] = {vv.x, vv.y, vv.z, vv.w};
+    for (int u = 0; u < NU; ++u) {       // dP^T = V do^T
+      float4 vf[KS];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int kk = 0; kk < KS; ++kk)
+        vf[kk] = *reinterpret_cast<const float4*>(Vs +
+                                                  KL::at(tys * KS + kk, u));
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(av[i], kv[j], s[i][j]);
-            dp[i][j] = fmaf(gv[i], vw[j], dp[i][j]);
-          }
+      for (int i = 0; i < RS; ++i) {
+        const float4 g = *reinterpret_cast<const float4*>(
+            dOw + QL::at(txs + TXS * i, u));
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          float y = fmaf(g.x, vf[kk].x, dp[kk][i]);
+          y = fmaf(g.y, vf[kk].y, y);
+          y = fmaf(g.z, vf[kk].z, y);
+          dp[kk][i] = fmaf(g.w, vf[kk].w, y);
+        }
       }
+    }
+    cp_wait_all();
+    __syncthreads();      // q landed
+    if constexpr (S::RAW) {
+      widen_rows<D, BQ, NT, QL>(Qw, Qraw);
+      __syncthreads();
+    }
+#pragma unroll 4
+    for (int u = 0; u < NU; ++u) {       // S^T = K q^T
+      float4 kf[KS];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i, row = q0 + r;
-        float pr[4], dr[4];
+      for (int kk = 0; kk < KS; ++kk)
+        kf[kk] = *reinterpret_cast<const float4*>(Ks +
+                                                  KL::at(tys * KS + kk, u));
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int kp = k0 + tx * 4 + j;
-          const bool real = row < A.sq && kp < A.skv;
-          const bool vis = real && A.visible(row, kp);
+      for (int i = 0; i < RS; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            Qw + QL::at(txs + TXS * i, u));
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          float x = fmaf(a.x, kf[kk].x, sc[kk][i]);
+          x = fmaf(a.y, kf[kk].y, x);
+          x = fmaf(a.z, kf[kk].z, x);
+          sc[kk][i] = fmaf(a.w, kf[kk].w, x);
+        }
+      }
+    }
+
+    const bool edge = !A.all_visible(q0, BQ, k0, BK);
+#pragma unroll
+    for (int i = 0; i < RS; ++i) {
+      const int r = txs + TXS * i, row = q0 + r;
+      const float il = row < A.sq ? 1.0f / lr[i] : 0.0f;
+      float pv[KS], dsv[KS];
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const float s = sc[kk][i] * A.scale;
+        float p = exp_sfu(s - mr[i]) * il;
+        float ds = p * (dp[kk][i] - dr[i]);
+        if (edge) {
+          const int key = k0 + tys * KS + kk;
+          const bool real = row < A.sq && key < A.skv;
+          const bool vis = real && A.visible(row, key);
           // a masked score is -1e30: P is 0 there unless the row sees no
           // key at all, where it is 1/Skv as in the forward
-          const float p = real ? expf((vis ? s[i][j] : MASKED) - Ms[r]) / Ls[r]
-                               : 0.0f;
-          pr[j] = p;
-          dr[j] = vis ? p * (dp[i][j] - Dis[r]) : 0.0f;
-        }
-        *reinterpret_cast<float4*>(&Ps[r * BK + tx * 4]) =
-            make_float4(pr[0], pr[1], pr[2], pr[3]);
-        *reinterpret_cast<float4*>(&dSs[r * BK + tx * 4]) =
-            make_float4(dr[0], dr[1], dr[2], dr[3]);
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
-        const float4 p4 = *reinterpret_cast<const float4*>(&Ps[r * BK + tx * 4]);
-        const float4 s4 =
-            *reinterpret_cast<const float4*>(&dSs[r * BK + tx * 4]);
-        const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-        const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const int col = ty * DC + c;
-          const float qv = Qt[col * BQ + r], gv = dOt[col * BQ + r];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc_v[c][j] = fmaf(pv[j], gv, acc_v[c][j]);
-            acc_k[c][j] = fmaf(sv[j], qv, acc_k[c][j]);
+          if (!vis) {
+            if (!(real && fault == FAULT_MASK_NOT_ZEROED)) ds = 0.0f;
+            p = real ? exp_sfu(MASKED - mr[i]) * il : 0.0f;
           }
         }
+        pv[kk] = p;
+        dsv[kk] = ds;
+      }
+#pragma unroll
+      for (int kk = 0; kk < KS; kk += 2) {
+        *reinterpret_cast<float2*>(Ps + pk_at<BK>(r, tys * KS + kk)) =
+            make_float2(pv[kk], pv[kk + 1]);
+        *reinterpret_cast<float2*>(dSs + pk_at<BK>(r, tys * KS + kk)) =
+            make_float2(dsv[kk], dsv[kk + 1]);
       }
     }
-  }
+    __syncthreads();      // P and dS written
 
-  const long long base = (long long)blockIdx.y * A.skv;
+#pragma unroll 4
+    for (int r = 0; r < BQ; ++r) {       // dv += P^T do
+      float pk[KA], gv[VW];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int kp = k0 + tx * 4 + j;
-    if (kp >= A.skv) continue;
-    T* krow = dk + (base + kp) * D + ty * DC;
-    T* vrow = dv + (base + kp) * D + ty * DC;
+      for (int kk = 0; kk < KA; kk += 4) {
+        const float4 p = *reinterpret_cast<const float4*>(
+            Ps + pk_at<BK>(r, ya * KA + kk));
+        pk[kk] = p.x, pk[kk + 1] = p.y, pk[kk + 2] = p.z, pk[kk + 3] = p.w;
+      }
+      read_vec<VW>(dOw + QL::at(r, cva * VW / 4) + cva * VW % 4, gv);
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      krow[c] = from_f<T>(acc_k[c][j]);
-      vrow[c] = from_f<T>(acc_v[c][j]);
+      for (int kk = 0; kk < KA; ++kk)
+#pragma unroll
+        for (int w = 0; w < VW; ++w)
+          acc_v[kk][w] = fmaf(pk[kk], gv[w], acc_v[kk][w]);
+    }
+    __syncthreads();      // do read: its slot takes the next step's
+    if (nxt < total) issue(nxt, dout, A.ds, dOw, dOraw);
+#pragma unroll 4
+    for (int r = 0; r < BQ; ++r) {       // dk += dS^T q
+      float sk[KA], qv[VW];
+#pragma unroll
+      for (int kk = 0; kk < KA; kk += 4) {
+        const float4 d = *reinterpret_cast<const float4*>(
+            dSs + pk_at<BK>(r, ya * KA + kk));
+        sk[kk] = d.x, sk[kk + 1] = d.y, sk[kk + 2] = d.z, sk[kk + 3] = d.w;
+      }
+      read_vec<VW>(Qw + QL::at(r, cva * VW / 4) + cva * VW % 4, qv);
+#pragma unroll
+      for (int kk = 0; kk < KA; ++kk)
+#pragma unroll
+        for (int w = 0; w < VW; ++w)
+          acc_k[kk][w] = fmaf(sk[kk], qv[w], acc_k[kk][w]);
+    }
+    it = nxt;
+  }
+  cp_wait_all();
+
+  if (xa < NCV) {
+    const long long base = (long long)bkv * A.skv;
+#pragma unroll
+    for (int kk = 0; kk < KA; ++kk) {
+      const int key = k0 + ya * KA + kk;
+      if (key >= A.skv) continue;
+      float x[VW];
+#pragma unroll
+      for (int w = 0; w < VW; ++w) x[w] = acc_k[kk][w] * A.scale;
+      write_vec<T, VW>(dk + (base + key) * D + xa * VW, x);
+      write_vec<T, VW>(dv + (base + key) * D + xa * VW, acc_v[kk]);
     }
   }
 }
 
-template <int D>
-constexpr size_t dq_smem() {
-  return (size_t)(4 * D * BQ + BK * D + BK * BQ + BQ) * sizeof(float);
-}
-template <int D>
-constexpr size_t dkv_smem() {
-  return (size_t)(4 * D * BQ + 2 * BQ * BK + 3 * BQ) * sizeof(float);
+// plan: (rows, tile, threads, shared bytes, blocks an SM) of the dq
+// launch, then of the dk/dv launch, as kernel.py's simt_plan gives them
+template <typename T, int D>
+bool plan_matches(const int* p) {
+  using Q = DqShape<T, D>;
+  using K = DkvShape<T, D>;
+  return p[0] == Q::BQ && p[1] == Q::BK && p[2] == Q::NT &&
+         p[3] == Q::SMEM && p[4] == Q::MINB && p[5] == K::BK &&
+         p[6] == K::BQ && p[7] == K::NT && p[8] == K::SMEM &&
+         p[9] == K::MINB;
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, void* dq, void* dk, void* dv,
-           const float* stats, float* di, int b, const Attn& A,
-           cudaStream_t stream) {
-  static_assert(BQ == BK, "the shared-memory layouts assume BQ == BK");
+           const float* stats, float* di, int b, const Attn& A, int fault,
+           const int* plan, cudaStream_t stream) {
+  using Q = DqShape<T, D>;
+  using K = DkvShape<T, D>;
+  if (!plan_matches<T, D>(plan)) return (int)cudaErrorInvalidValue;
   // per device and cheap, so set on every launch
   cudaError_t e = cudaFuncSetAttribute(
-      fa_bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)dq_smem<D>());
+      fa_bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Q::SMEM);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(fa_bwd_dkv<T, D>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)dkv_smem<D>());
+                           K::SMEM);
   if (e != cudaSuccess) return (int)e;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dt = static_cast<const T*>(dout);
-  fa_bwd_dq<T, D><<<dim3((A.sq + BQ - 1) / BQ, b * A.hq), NT, dq_smem<D>(),
-                    stream>>>(qt, kt, vt, static_cast<const T*>(o), dt,
-                              static_cast<T*>(dq), stats, di, A);
+  fa_bwd_dq<T, D><<<dim3(b * A.hq, (A.sq + Q::BQ - 1) / Q::BQ), Q::NT,
+                    Q::SMEM, stream>>>(qt, kt, vt, static_cast<const T*>(o),
+                                       dt, static_cast<T*>(dq), stats, di, A,
+                                       fault);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  fa_bwd_dkv<T, D><<<dim3((A.skv + BK - 1) / BK, b * A.hkv), NT,
-                     dkv_smem<D>(), stream>>>(
+  fa_bwd_dkv<T, D><<<dim3(b * A.hkv, (A.skv + K::BK - 1) / K::BK), K::NT,
+                     K::SMEM, stream>>>(
       qt, kt, vt, dt, static_cast<T*>(dk), static_cast<T*>(dv), stats, di,
-      A, b);
+      A, b, fault);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int occupancy_d(int* out) {
+  using Q = DqShape<T, D>;
+  using K = DkvShape<T, D>;
+  const int e = blocks_per_sm(fa_bwd_dq<T, D>, Q::NT, Q::SMEM, out);
+  if (e != 0) return e;
+  return blocks_per_sm(fa_bwd_dkv<T, D>, K::NT, K::SMEM, out + 1);
+}
+
+template <typename T>
+int occupancy(int d, int* out) {
+  switch (d) {
+    case 16: return occupancy_d<T, 16>(out);
+    case 32: return occupancy_d<T, 32>(out);
+    case 64: return occupancy_d<T, 64>(out);
+    case 112: return occupancy_d<T, 112>(out);
+    case 128: return occupancy_d<T, 128>(out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v,
              const void* o, const void* dout, void* dq, void* dk, void* dv,
-             const float* st, float* di, int b, const Attn& A,
-             cudaStream_t s) {
+             const float* st, float* di, int b, const Attn& A, int fault,
+             const int* plan, cudaStream_t s) {
   switch (d) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, dout, dq, dk, dv, st, di, b, A, s);
-    case 32:
-      return launch<T, 32>(q, k, v, o, dout, dq, dk, dv, st, di, b, A, s);
-    case 64:
-      return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, st, di, b, A, s);
-    case 112:
-      return launch<T, 112>(q, k, v, o, dout, dq, dk, dv, st, di, b, A, s);
-    case 128:
-      return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, st, di, b, A, s);
+    case 16: return launch<T, 16>(q, k, v, o, dout, dq, dk, dv, st, di, b, A,
+                                  fault, plan, s);
+    case 32: return launch<T, 32>(q, k, v, o, dout, dq, dk, dv, st, di, b, A,
+                                  fault, plan, s);
+    case 64: return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, st, di, b, A,
+                                  fault, plan, s);
+    case 112: return launch<T, 112>(q, k, v, o, dout, dq, dk, dv, st, di, b,
+                                    A, fault, plan, s);
+    case 128: return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, st, di, b,
+                                    A, fault, plan, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -515,13 +748,16 @@ int launch_d(int d, const void* q, const void* k, const void* v,
 // contiguous and every row 16-byte aligned.  dq is (b, hq, sq, d), dk and
 // dv (b, hkv, skv, d), contiguous; `stats` is the forward's float32
 // (2, b, hq, sq) of each row's m and l; `di` is float32 scratch of
-// b * hq * sq.  window <= 0 means no window.
+// b * hq * sq.  window <= 0 means no window; `fault` is 0 but in
+// chip_smoke.py's planted faults.  `plan` is the wrapper's launch plan of
+// the two kernels (rows, tile, threads, shared bytes, blocks an SM, each);
+// a plan this build does not hold is refused with cudaErrorInvalidValue.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, const void* stats,
     void* di, int b, int hq, int hkv, int sq, int skv, int d,
     const long long* strides, int causal, int window, float scale, int dtype,
-    void* stream_ptr) {
+    int fault, const int* plan, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   Attn A{hq, hkv, hq / hkv, sq, skv, causal, window, scale, {}, {}, {}, {},
          {}};
@@ -536,10 +772,19 @@ extern "C" int flash_attention_bwd_launch(
   float* dd = static_cast<float*>(di);
   if (dtype == 0)
     return launch_d<float>(d, q, k, v, o, dout, dq, dk, dv, st, dd, b, A,
-                           stream);
+                           fault, plan, stream);
   if (dtype == 1)
     return launch_d<__nv_bfloat16>(d, q, k, v, o, dout, dq, dk, dv, st, dd, b,
-                                   A, stream);
+                                   A, fault, plan, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of the dq kernel and of the dk/dv kernel at head dim d and dtype
+// that one SM holds at once (the CUDA occupancy calculator), into out[0]
+// and out[1].
+extern "C" int flash_attention_bwd_blocks_per_sm(int d, int dtype, int* out) {
+  if (dtype == 0) return occupancy<float>(d, out);
+  if (dtype == 1) return occupancy<__nv_bfloat16>(d, out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,9 +10,12 @@ kernels on two routes, a forward and a backward each:
   ``csrc/flash_attention_wgmma.cu`` and the backward
   ``csrc/flash_attention_bwd_wgmma.cu``, TMA loads into rings of stages
   and ``wgmma`` products;
-- the SIMT route, float32 FMAs, for float32 and for head dims 16 and 32:
-  the forward ``csrc/flash_attention.cu`` and the backward
-  ``csrc/flash_attention_bwd.cu``.
+- the SIMT route, full float32 FMAs outside the tensor cores, for float32
+  and for head dims 16 and 32: the forward ``csrc/flash_attention.cu`` and
+  the backward ``csrc/flash_attention_bwd.cu`` (cp.async rings of tiles,
+  register tiles of 4 to 8 FMAs a shared-memory read, at least two blocks
+  an SM); :func:`simt_plan` is their launch plan, which the kernels check
+  at every launch.
 
 :func:`route` picks one from the dtype and head dim alone, for the forward
 and the backward alike; a build or launch error raises, and no call ever
@@ -50,6 +53,7 @@ off a CUDA device.  Each library is built at its first launch
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import torch
@@ -59,21 +63,23 @@ from repro_torch.kernels.flash_attention import ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-LIBRARY = CudaLibrary("flash_attention", {"flash_attention_launch": (
-    [_P] * 5 + [_I] * 6 + [_STRIDES, _I, _I, ctypes.c_float, _I, _P],
-    ctypes.c_int)})
+_PLAN = ctypes.POINTER(ctypes.c_int)
+LIBRARY = CudaLibrary("flash_attention", {
+    "flash_attention_launch": (
+        [_P] * 5 + [_I] * 6 + [_STRIDES, _I, _I, ctypes.c_float, _I, _PLAN,
+                               _P], ctypes.c_int),
+    "flash_attention_blocks_per_sm": ([_I, _I, _PLAN], ctypes.c_int)})
 LIBRARY_WGMMA = CudaLibrary("flash_attention_wgmma", {
     "flash_attention_wgmma_launch": (
         [_P] * 5 + [_I] * 6 + [_STRIDES, _I, _I, ctypes.c_float, _P],
         ctypes.c_int),
     "flash_attention_wgmma_smem_bytes": ([_I], ctypes.c_int)})
 LIBRARIES = {"simt": LIBRARY, "wgmma": LIBRARY_WGMMA}
-# the backwards' C interfaces end alike: ..., scale, dtype (SIMT) or planted
-# fault (tensor cores), stream
 LIBRARY_BWD = CudaLibrary("flash_attention_bwd", {
     "flash_attention_bwd_launch": (
-        [_P] * 10 + [_I] * 6 + [_STRIDES, _I, _I, ctypes.c_float, _I, _P],
-        ctypes.c_int)})
+        [_P] * 10 + [_I] * 6 + [_STRIDES, _I, _I, ctypes.c_float, _I, _I,
+                                _PLAN, _P], ctypes.c_int),
+    "flash_attention_bwd_blocks_per_sm": ([_I, _I, _PLAN], ctypes.c_int)})
 LIBRARY_BWD_WGMMA = CudaLibrary("flash_attention_bwd_wgmma", {
     "flash_attention_bwd_wgmma_launch": (
         [_P] * 10 + [_I] * 6 + [_STRIDES, _I, _I, ctypes.c_float, _I, _P],
@@ -88,11 +94,87 @@ WGMMA_HEAD_DIMS = (64, 112, 128)
 WGMMA_BLOCK_ROWS = 128            # query rows per block of the wgmma kernel
 STATS_TILE = 64                   # rows a statistics tile of the wgmma backward
 _MAX_GRID_Y = 65535
-# the tensor-core backward's planted faults (chip_smoke.py's check that its
-# limits catch them): dS not zeroed under the mask; the group's last query
-# head left out of dK and dV
+# each backward's planted faults (chip_smoke.py's check that its limit
+# catches them): dS not zeroed under the mask (P taken from the unmasked
+# score); the group's last query head left out of dK and dV.  BWD_FAULTS
+# are the tensor-core backward's, SIMT_BWD_FAULTS the SIMT one's.
 BWD_FAULTS = {"dS not zeroed under the mask": 1,
               "last query head of each group left out of dK/dV": 2}
+SIMT_BWD_FAULTS = {"dS not zeroed under the mask": 1,
+                   "last query head of each group left out of dK/dV": 2}
+ROUTE_BWD_FAULTS = {"wgmma": BWD_FAULTS, "simt": SIMT_BWD_FAULTS}
+
+# shared memory of an H100 SM for its resident blocks, what one block may
+# take, and what the system keeps beside each block
+SM_SMEM = 233472
+MAX_BLOCK_SMEM = 232448
+BLOCK_RESERVED = 1024
+SIMT_KERNELS = ("forward", "bwd_dq", "bwd_dkv")
+
+
+@dataclasses.dataclass(frozen=True)
+class SimtPlan:
+    """One SIMT kernel's launch at one head dim and dtype.  ``rows`` a
+    block and ``tile`` a step of its loop: query rows and keys (forward,
+    ``bwd_dq``), or keys and query rows (``bwd_dkv``); ``threads`` a
+    block; ``stages`` the slots of its cp.async ring; ``smem`` dynamic
+    shared bytes; ``blocks_per_sm`` the blocks an SM holds at once (the
+    kernel's ``__launch_bounds__`` minimum, which shared memory allows)."""
+    kernel: str
+    rows: int
+    tile: int
+    threads: int
+    stages: int
+    smem: int
+    blocks_per_sm: int
+
+    def ints(self):
+        return [self.rows, self.tile, self.threads, self.smem,
+                self.blocks_per_sm]
+
+
+def simt_plan(kernel: str, d: int, dtype: torch.dtype) -> SimtPlan:
+    """The launch of a SIMT kernel (:data:`SIMT_KERNELS`), as the CUDA
+    sources instantiate it; they refuse any other.
+
+    Every tile is float32 in shared memory (bfloat16 lands raw and is
+    widened once).  The forward takes 64 query rows against 64-key tiles,
+    8 rows a thread (128 threads) from D 64, 4 below (256); its K and V
+    alternate in two slots, each refilled while the block works on the
+    other.  The backward's dq launch takes 32 query rows against 64-key
+    tiles from D 64 (128 threads; 64 rows below, 256), K and V
+    alternating in two slots; its dk/dv launch 64 keys against 32-row
+    steps from D 64 (64 below), q and do alternating likewise.  Each is
+    held to two blocks an SM (three for the forward at D 64 and below)
+    or to what shared memory holds."""
+    if kernel not in SIMT_KERNELS:
+        raise ValueError(f"unknown SIMT kernel {kernel!r}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if dtype not in DTYPES:
+        raise ValueError(f"no flash-attention kernel for {dtype}")
+    raw = dtype == torch.bfloat16          # lands raw, widened once
+    if kernel == "forward":
+        bq = bk = 64
+        threads = bq // (8 if d >= 64 else 4) * 16
+        floats = bq * d + 2 * bk * d + bk * bq
+        raw_bytes = 2 * bk * d * 2
+        cap, rows, tile = (2 if d >= 112 else 3), bq, bk
+    elif kernel == "bwd_dq":        # Q, dO, dS^T, Di; a K and a V slot
+        bq, bk = (32 if d >= 64 else 64), 64
+        threads = 4 * bq
+        floats = 2 * bq * d + bk * (bq + 4) + bq + bk * (d + 4) + bk * d
+        raw_bytes, cap, rows, tile = 2 * bk * d * 2, 2, bq, bk
+    else:                           # K, V, P, dS; a q and a do slot
+        bk, bq = 64, (32 if d >= 64 else 64)
+        threads = 4 * bq
+        units = d // 4
+        pitch = d if units >= 8 and units & (units - 1) == 0 else d + 4
+        floats = 2 * bk * d + 2 * bq * bk + 2 * bq * pitch
+        raw_bytes, cap, rows, tile = 2 * bq * d * 2, 2, bk, bq
+    smem = floats * 4 + (raw_bytes if raw else 0)
+    return SimtPlan(kernel, rows, tile, threads, 2, smem,
+                    min(cap, SM_SMEM // (smem + BLOCK_RESERVED)))
 
 
 def route(dtype: torch.dtype, d: int) -> str:
@@ -220,10 +302,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"Sq = {sq} needs {n_tiles} query tiles, more "
                              f"than {_MAX_GRID_Y}")
     elif route == "simt":
-        if d not in HEAD_DIMS:
-            raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-        if b * hq > _MAX_GRID_Y:
-            raise ValueError(f"B * Hq = {b * hq} exceeds {_MAX_GRID_Y}")
+        plan = simt_plan("forward", d, q.dtype)
+        n_tiles = -(-sq // plan.rows)
+        if n_tiles > _MAX_GRID_Y:
+            raise ValueError(f"Sq = {sq} needs {n_tiles} query tiles, more "
+                             f"than {_MAX_GRID_Y}")
     else:
         raise ValueError(f"unknown flash-attention route {route!r}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -248,7 +331,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if route == "wgmma":
             err = lib.flash_attention_wgmma_launch(*args, stream)
         else:
-            err = lib.flash_attention_launch(*args, DTYPES[q.dtype], stream)
+            err = lib.flash_attention_launch(*args, DTYPES[q.dtype],
+                                             _ints(plan.ints()), stream)
     LIBRARIES[route].check(err, f"flash_attention launch ({route})")
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1
@@ -259,6 +343,23 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
 flash_attention.stats_launches = 0
+
+
+def _ints(values):
+    return (ctypes.c_int * len(values))(*values)
+
+
+def simt_blocks_per_sm(d: int, dtype: torch.dtype) -> dict:
+    """The blocks of each SIMT kernel at head dim ``d`` and ``dtype`` that
+    one SM of the current card holds at once, by the CUDA occupancy
+    calculator (shared memory, registers, threads): {kernel: blocks}.
+    Builds both libraries."""
+    fwd, bwd = (ctypes.c_int * 1)(), (ctypes.c_int * 2)()
+    LIBRARY.check(LIBRARY.get().flash_attention_blocks_per_sm(
+        d, DTYPES[dtype], fwd), "flash_attention_blocks_per_sm")
+    LIBRARY_BWD.check(LIBRARY_BWD.get().flash_attention_bwd_blocks_per_sm(
+        d, DTYPES[dtype], bwd), "flash_attention_bwd_blocks_per_sm")
+    return {"forward": fwd[0], "bwd_dq": bwd[0], "bwd_dkv": bwd[1]}
 
 
 def _check_stats(stats: torch.Tensor, q: torch.Tensor) -> None:
@@ -319,23 +420,30 @@ def _launch_bwd(q, k, v, o, do, stats, *, causal=True, window=None,
     """Launch one route's backward kernels on CUDA tensors with the
     forward's ``stats``.  Called with an explicit route by
     :func:`flash_attention_bwd` and, to time the SIMT backward against the
-    tensor-core one on bfloat16 or to plant a fault (``BWD_FAULTS``), by
-    chip_smoke.py."""
+    tensor-core one on bfloat16 or to plant a fault (``ROUTE_BWD_FAULTS``
+    of the route), by chip_smoke.py."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
-    if max(b * hq, b * hkv) > _MAX_GRID_Y:
-        raise ValueError(f"B * Hq = {b * hq} exceeds {_MAX_GRID_Y}")
     if route == "wgmma":
+        if max(b * hq, b * hkv) > _MAX_GRID_Y:
+            raise ValueError(f"B * Hq = {b * hq} exceeds {_MAX_GRID_Y}")
         if q.dtype != torch.bfloat16 or d not in WGMMA_HEAD_DIMS:
             raise ValueError(f"the wgmma backward takes bfloat16 at head "
                              f"dims {WGMMA_HEAD_DIMS}, got {q.dtype} at {d}")
         if -(-sq // STATS_TILE) > _MAX_GRID_Y:
             raise ValueError(f"Sq = {sq} needs more than {_MAX_GRID_Y} "
                              f"statistics tiles")
-    elif route != "simt":
+    elif route == "simt":
+        plans = [simt_plan(n, d, q.dtype) for n in ("bwd_dq", "bwd_dkv")]
+        if max(-(-sq // plans[0].rows), -(-skv // plans[1].rows)) \
+                > _MAX_GRID_Y:
+            raise ValueError(f"Sq = {sq} or Skv = {skv} needs more than "
+                             f"{_MAX_GRID_Y} tiles")
+    else:
         raise ValueError(f"unknown flash-attention route {route!r}")
-    if fault and route != "wgmma":
-        raise ValueError("faults are planted in the wgmma backward only")
+    if fault not in (0, *ROUTE_BWD_FAULTS[route].values()):
+        raise ValueError(f"no planted fault {fault} in the {route} "
+                         f"backward")
     if not _rows_aligned(do):
         do = do.contiguous()                # e.g. an expanded gradient
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
@@ -368,8 +476,9 @@ def _launch_bwd(q, k, v, o, do, stats, *, causal=True, window=None,
             err = lib.flash_attention_bwd_wgmma_launch(*args, int(fault),
                                                        stream)
         else:
-            err = lib.flash_attention_bwd_launch(*args, DTYPES[q.dtype],
-                                                 stream)
+            err = lib.flash_attention_bwd_launch(
+                *args, DTYPES[q.dtype], int(fault),
+                _ints(plans[0].ints() + plans[1].ints()), stream)
     BWD_LIBRARIES[route].check(err, f"flash_attention backward launch "
                                     f"({route})")
     flash_attention_bwd.launches += 1

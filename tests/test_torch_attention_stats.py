@@ -193,7 +193,7 @@ def test_backward_launch_refuses_other_routes_and_faults():
     q, stats = torch.ones(1, 2, 4, 16), torch.ones(2, 1, 2, 4)
     with pytest.raises(ValueError, match="unknown flash-attention route"):
         fa._launch_bwd(q, q, q, q, q, stats, route="pallas")
-    with pytest.raises(ValueError, match="wgmma backward only"):
-        fa._launch_bwd(q, q, q, q, q, stats, route="simt", fault=1)
+    with pytest.raises(ValueError, match="no planted fault 3 in the simt"):
+        fa._launch_bwd(q, q, q, q, q, stats, route="simt", fault=3)
     with pytest.raises(ValueError, match="bfloat16 at head dims"):
         fa._launch_bwd(q, q, q, q, q, stats, route="wgmma")

@@ -244,6 +244,52 @@ def test_route_is_chosen_by_dtype_and_head_dim(dtype, d, want):
     assert kernel.route(dtype, d) == want
 
 
+# the (dtype, head dim) pairs the SIMT route takes
+SIMT_ROUTE = [(dt, d) for dt in (torch.float32, torch.bfloat16)
+              for d in kernel.HEAD_DIMS if kernel.route(dt, d) == "simt"]
+
+
+@pytest.mark.parametrize("name", kernel.SIMT_KERNELS)
+@pytest.mark.parametrize("dtype,d", SIMT_ROUTE, ids=str)
+def test_simt_plan_keeps_two_blocks_resident(name, dtype, d):
+    """Each SIMT kernel the route takes fits a block's 227 KB of shared
+    memory, and an SM holds the blocks its plan states, at least two, with
+    the 1 KB the system keeps beside each; its ring has two stages, its
+    blocks whole warps."""
+    plan = kernel.simt_plan(name, d, dtype)
+    assert plan.kernel == name
+    assert plan.smem <= kernel.MAX_BLOCK_SMEM
+    assert plan.blocks_per_sm >= 2
+    assert plan.blocks_per_sm * (plan.smem + kernel.BLOCK_RESERVED) \
+        <= kernel.SM_SMEM
+    assert plan.stages >= 2 and plan.threads % 32 == 0
+    assert plan.threads * plan.blocks_per_sm <= 2048
+
+
+def test_simt_plans_at_the_timed_shapes():
+    """The float32 forward at D 128: 64 query rows a block against
+    64-key tiles on 128 threads, 112 KB, two blocks an SM; the backward's
+    dq launch 32 query rows against 64-key tiles and its dk/dv launch 64
+    keys against 32-row steps, on 128 threads, two blocks an SM each."""
+    f32 = torch.float32
+    assert kernel.simt_plan("forward", 128, f32) == kernel.SimtPlan(
+        "forward", 64, 64, 128, 2, 114688, 2)
+    assert kernel.simt_plan("bwd_dq", 128, f32) == kernel.SimtPlan(
+        "bwd_dq", 32, 64, 128, 2, 108672, 2)
+    assert kernel.simt_plan("bwd_dkv", 128, f32) == kernel.SimtPlan(
+        "bwd_dkv", 64, 32, 128, 2, 114688, 2)
+    assert kernel.simt_plan("forward", 32, torch.bfloat16).threads == 256
+
+
+def test_simt_plan_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="unknown SIMT kernel"):
+        kernel.simt_plan("backward", 64, torch.float32)
+    with pytest.raises(ValueError, match="head dim 96"):
+        kernel.simt_plan("forward", 96, torch.float32)
+    with pytest.raises(ValueError, match="float16"):
+        kernel.simt_plan("bwd_dq", 64, torch.float16)
+
+
 def test_route_refuses_other_head_dims_and_dtypes():
     with pytest.raises(ValueError, match="head dim 96"):
         kernel.route(torch.bfloat16, 96)
@@ -336,3 +382,46 @@ def test_forward_kernels_write_the_stats(dtype, case):
     m, l = ref.attention_stats(q, k, v, causal=causal, window=window)
     assert float(((stats[0] - m).abs() / (1 + m.abs())).max()) <= 1e-5
     assert float(((stats[1] - l).abs() / l).max()) <= 1e-4
+
+
+# shapes of the SIMT legs, at every head dim of the route: (b, hq, hkv, sq,
+# skv, causal, window): ragged lengths with a window; rows that see no key
+# (Sq > Skv, causal); not causal with Sq < Skv
+SIMT_SHAPES = {"ragged, window": (2, 8, 2, 130, 200, True, 24),
+               "rows that see no key": (1, 6, 2, 150, 70, True, None),
+               "not causal, Sq < Skv": (1, 4, 4, 77, 333, False, None)}
+
+
+@gpu
+@pytest.mark.parametrize("shape", SIMT_SHAPES)
+@pytest.mark.parametrize("dtype,d", SIMT_ROUTE, ids=str)
+def test_simt_forward_on_heads_views(dtype, d, shape):
+    """The SIMT forward on heads views of (B, S, H*D) projections, taken at
+    their strides: within the route's tolerance of the plain version, its
+    row statistics within 1e-5 and 1e-4 of ``ref.attention_stats``, the
+    same output bits with and without them, one launch on the route; and
+    each kernel resident as its plan states (the occupancy calculator)."""
+    b, hq, hkv, sq, skv, causal, window = SIMT_SHAPES[shape]
+    rng = np.random.default_rng(d)
+
+    def heads(s, h):
+        x = torch.from_numpy(rng.standard_normal((b, s, h * d))
+                             .astype(np.float32))
+        return x.to("cuda", dtype).view(b, s, h, d).transpose(1, 2)
+    q, k, v = heads(sq, hq), heads(skv, hkv), heads(skv, hkv)
+    stats = torch.empty((2, b, hq, sq), device="cuda")
+    before = kernel.flash_attention.launches_by_route["simt"]
+    got = kernel._launch(q, k, v, causal=causal, window=window, route="simt",
+                         stats=stats)
+    again = ops.attention(q, k, v, causal=causal, window=window)
+    assert kernel.flash_attention.launches_by_route["simt"] == before + 2
+    assert torch.equal(got, again)
+    want = ref.attention(q, k, v, causal=causal, window=window)
+    tol = TOL[str(dtype)[6:]]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    m, l = ref.attention_stats(q, k, v, causal=causal, window=window)
+    assert float(((stats[0] - m).abs() / (1 + m.abs())).max()) <= 1e-5
+    assert float(((stats[1] - l).abs() / l).max()) <= 1e-4
+    resident = kernel.simt_blocks_per_sm(d, dtype)
+    for name, n in resident.items():
+        assert n >= kernel.simt_plan(name, d, dtype).blocks_per_sm, name

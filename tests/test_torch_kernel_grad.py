@@ -668,3 +668,56 @@ def test_tensor_core_backward_on_the_card(case):
     # without statistics the wrapper runs the forward for them
     assert all(torch.equal(a, c) for a, c in zip(
         got, fa.flash_attention_bwd(q, k, v, o, do, **kw)))
+
+
+# the SIMT backward at every (dtype, head dim) of its route and three
+# shapes: (b, hq, hkv, sq, skv, causal, window)
+SIMT_ROUTE = [(dt, d) for dt in (torch.float32, torch.bfloat16)
+              for d in fa.HEAD_DIMS if fa.route(dt, d) == "simt"]
+SIMT_BWD_SHAPES = {"ragged, window": (2, 8, 2, 130, 200, True, 24),
+                   "rows that see no key": (1, 6, 2, 150, 70, True, None),
+                   "not causal, Sq < Skv": (1, 4, 4, 77, 333, False, None)}
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+
+
+@gpu
+@pytest.mark.parametrize("shape", SIMT_BWD_SHAPES)
+@pytest.mark.parametrize("dtype,d", SIMT_ROUTE, ids=str)
+def test_simt_backward_on_the_card(dtype, d, shape):
+    """The SIMT backward (two launches) on heads views, given the SIMT
+    forward's statistics: each gradient within BWD_TOL of the largest
+    plain one, against the plain backward and autograd through the plain
+    forward; two runs bit-equal; each planted fault beyond the limit
+    wherever it can show (the mask's where the shape masks a pair)."""
+    b, hq, hkv, sq, skv, causal, window = SIMT_BWD_SHAPES[shape]
+    rng = np.random.default_rng(d + 1)
+
+    def heads(s, h):
+        x = torch.tensor(rng.standard_normal((b, s, h * d)),
+                         dtype=torch.float32, device="cuda")
+        return x.to(dtype).view(b, s, h, d).transpose(1, 2)
+    q, k, v, do = heads(sq, hq), heads(skv, hkv), heads(skv, hkv), \
+        heads(sq, hq)
+    kw = dict(causal=causal, window=window)
+    stats = torch.empty((2, b, hq, sq), device="cuda")
+    o = fa._launch(q, k, v, route="simt", stats=stats, **kw)
+    before = fa.flash_attention_bwd.launches_by_route["simt"]
+    got = fa.flash_attention_bwd(q, k, v, o, do, stats=stats, **kw)
+    again = fa.flash_attention_bwd(q, k, v, o, do, stats=stats, **kw)
+    assert fa.flash_attention_bwd.launches_by_route["simt"] == before + 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want = attn_ref.attention_bwd(q, k, v, o, do, **kw)
+    ts = [a.detach().requires_grad_() for a in (q, k, v)]
+    auto = torch.autograd.grad(attn_ref.attention(*ts, **kw), ts, do)
+    tol = BWD_TOL[dtype]
+
+    def err(gs, ws):
+        return max(float((g.float() - w.float()).abs().max())
+                   / float(w.float().abs().max()) for g, w in zip(gs, ws))
+    assert err(got, want) <= tol and err(got, auto) <= tol
+    for fault, code in fa.SIMT_BWD_FAULTS.items():
+        if code == 1 and not (causal or window):
+            continue
+        bad = fa._launch_bwd(q, k, v, o, do, stats, route="simt", fault=code,
+                             **kw)
+        assert not err(bad, want) <= tol, fault
