@@ -246,11 +246,11 @@ fa_fwd(const T* __restrict__ q, const T* __restrict__ k,
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], group_max<TX>(mx));   // finite
-      const float alpha = exp_sfu(m[i] - m_new);
+      const float alpha = expf(m[i] - m_new);
       float sum = 0.0f;
 #pragma unroll
       for (int j = 0; j < CK; ++j) {
-        s[i][j] = exp_sfu(s[i][j] - m_new);
+        s[i][j] = expf(s[i][j] - m_new);
         sum += s[i][j];
       }
       l[i] = l[i] * alpha + group_sum<TX>(sum);
@@ -326,22 +326,12 @@ fa_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// plan: rows, key tile, threads, shared bytes, blocks an SM, as
-// kernel.py's simt_plan("forward", ...) gives them
-template <typename T, int D>
-bool plan_matches(const int* plan) {
-  using S = FwdShape<T, D>;
-  return plan[0] == S::BQ && plan[1] == S::BK && plan[2] == S::NT &&
-         plan[3] == S::SMEM && plan[4] == S::MINB;
-}
-
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* stats, int b, int hq, int hkv, int sq, int skv,
            const long long* st, int causal, int window, float scale,
-           const int* plan, cudaStream_t stream) {
+           cudaStream_t stream) {
   using S = FwdShape<T, D>;
-  if (!plan_matches<T, D>(plan)) return (int)cudaErrorInvalidValue;
   // per device and cheap, so set on every launch
   const cudaError_t e = cudaFuncSetAttribute(
       fa_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
@@ -355,19 +345,25 @@ int launch(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+// the plan (rows, key tile, threads, ring stages, shared bytes, blocks an
+// SM) into out[0..5], and the blocks that one SM of the current card holds
+// at once (the occupancy calculator) into out[6]
+template <typename T, int D>
+int plan_d(int* out) {
+  using S = FwdShape<T, D>;
+  const int v[6] = {S::BQ, S::BK, S::NT, STAGES, S::SMEM, S::MINB};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return blocks_per_sm(fa_fwd<T, D>, S::NT, S::SMEM, out + 6);
+}
+
 template <typename T>
-int occupancy(int d, int* out) {
+int plan(int d, int* out) {
   switch (d) {
-    case 16: return blocks_per_sm(fa_fwd<T, 16>, FwdShape<T, 16>::NT,
-                                  FwdShape<T, 16>::SMEM, out);
-    case 32: return blocks_per_sm(fa_fwd<T, 32>, FwdShape<T, 32>::NT,
-                                  FwdShape<T, 32>::SMEM, out);
-    case 64: return blocks_per_sm(fa_fwd<T, 64>, FwdShape<T, 64>::NT,
-                                  FwdShape<T, 64>::SMEM, out);
-    case 112: return blocks_per_sm(fa_fwd<T, 112>, FwdShape<T, 112>::NT,
-                                   FwdShape<T, 112>::SMEM, out);
-    case 128: return blocks_per_sm(fa_fwd<T, 128>, FwdShape<T, 128>::NT,
-                                   FwdShape<T, 128>::SMEM, out);
+    case 16: return plan_d<T, 16>(out);
+    case 32: return plan_d<T, 32>(out);
+    case 64: return plan_d<T, 64>(out);
+    case 112: return plan_d<T, 112>(out);
+    case 128: return plan_d<T, 128>(out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -376,18 +372,18 @@ template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v, void* out,
              float* stats, int b, int hq, int hkv, int sq, int skv,
              const long long* st, int causal, int window, float scale,
-             const int* plan, cudaStream_t s) {
+             cudaStream_t s) {
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, out, stats, b, hq, hkv, sq, skv,
-                                  st, causal, window, scale, plan, s);
+                                  st, causal, window, scale, s);
     case 32: return launch<T, 32>(q, k, v, out, stats, b, hq, hkv, sq, skv,
-                                  st, causal, window, scale, plan, s);
+                                  st, causal, window, scale, s);
     case 64: return launch<T, 64>(q, k, v, out, stats, b, hq, hkv, sq, skv,
-                                  st, causal, window, scale, plan, s);
+                                  st, causal, window, scale, s);
     case 112: return launch<T, 112>(q, k, v, out, stats, b, hq, hkv, sq, skv,
-                                    st, causal, window, scale, plan, s);
+                                    st, causal, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, out, stats, b, hq, hkv, sq, skv,
-                                    st, causal, window, scale, plan, s);
+                                    st, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -403,34 +399,33 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* out,
 // that order, nine in all; the last dimension is contiguous and every row
 // 16-byte aligned.  `out` is (b, hq, sq, d) contiguous.  `stats` is null, or
 // float32 (2, b, hq, sq) that receives each row's m and l.  window <= 0
-// means no window.  `plan` is the wrapper's launch plan (rows, key tile,
-// threads, shared bytes, blocks an SM); a plan this build does not hold is
-// refused with cudaErrorInvalidValue.
+// means no window.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* stats,
                                       int b, int hq, int hkv, int sq, int skv,
                                       int d, const long long* strides,
                                       int causal, int window, float scale,
-                                      int dtype, const int* plan,
-                                      void* stream_ptr) {
+                                      int dtype, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   float* st = static_cast<float*>(stats);
   if (dtype == 0)
     return launch_d<float>(d, q, k, v, out, st, b, hq, hkv, sq, skv, strides,
-                           causal, window, scale, plan, stream);
+                           causal, window, scale, stream);
   if (dtype == 1)
     return launch_d<__nv_bfloat16>(d, q, k, v, out, st, b, hq, hkv, sq, skv,
-                                   strides, causal, window, scale, plan,
-                                   stream);
+                                   strides, causal, window, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// Blocks of the forward kernel at head dim d and dtype that one SM holds
-// at once (the CUDA occupancy calculator: shared memory, registers and
-// threads), into *out.
-extern "C" int flash_attention_blocks_per_sm(int d, int dtype, int* out) {
-  if (dtype == 0) return occupancy<float>(d, out);
-  if (dtype == 1) return occupancy<__nv_bfloat16>(d, out);
+// The forward kernel's launch plan at head dim d and dtype, as this build
+// instantiates it, into out[0..5]: query rows a block, keys a tile,
+// threads, cp.async stages, dynamic shared bytes and the blocks an SM its
+// __launch_bounds__ asks for (kernel.py's simt_plan states the same); and
+// into out[6] the blocks one SM of the current card holds at once (the
+// CUDA occupancy calculator: shared memory, registers and threads).
+extern "C" int flash_attention_plan(int d, int dtype, int* out) {
+  if (dtype == 0) return plan<float>(d, out);
+  if (dtype == 1) return plan<__nv_bfloat16>(d, out);
   return (int)cudaErrorInvalidValue;
 }
 

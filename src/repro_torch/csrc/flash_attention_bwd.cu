@@ -65,15 +65,16 @@
 //     step.
 // A tile pair is visited only when it holds a visible pair or a row that
 // sees no key, and only tiles that straddle a mask edge or an end test
-// the mask.  Shared memory at D 128: 103 KB (dq) and 112 KB (dk/dv), two
-// blocks an SM each (`simt_plan`).  q, k, v, o and do are read at their
-// strides (the heads views of the model's projections; do arrives as one);
-// dq, dk and dv are contiguous.
+// the mask.  Shared memory at D 128: 108,672 bytes (dq) and 114,688
+// (dk/dv), two blocks an SM each (`simt_plan`).  q, k, v, o and do are read
+// at their strides (the heads views of the model's projections; do arrives
+// as one); dq, dk and dv are contiguous.
 //
 // `fault` plants one of two faults for chip_smoke.py's check that the
-// route's limit catches them (kernel.py's SIMT_BWD_FAULTS): 1 leaves dS
-// unzeroed under the mask (P taken from the unmasked score), 2 leaves the
-// group's last query head out of dK and dV.  Every real call passes 0.
+// route's limit catches them (kernel.py's BWD_FAULTS, the tensor-core
+// backward's codes): 1 leaves dS unzeroed under the mask (P taken from the
+// unmasked score), 2 leaves the group's last query head out of dK and dV.
+// Every real call passes 0.
 
 #include "flash_attention_simt.cuh"
 
@@ -344,7 +345,7 @@ fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int row = q0 + ty * 4 + i;
-        float ds = exp_sfu(sc[i][j] - m[i]) * inv_l[i] * (dp[i][j] - di[i]);
+        float ds = expf(sc[i][j] - m[i]) * inv_l[i] * (dp[i][j] - di[i]);
         if (edge) {
           const bool real = row < A.sq && key < A.skv;
           if (!real || (!A.visible(row, key) &&
@@ -573,7 +574,7 @@ fa_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         const float s = sc[kk][i] * A.scale;
-        float p = exp_sfu(s - mr[i]) * il;
+        float p = expf(s - mr[i]) * il;
         float ds = p * (dp[kk][i] - dr[i]);
         if (edge) {
           const int key = k0 + tys * KS + kk;
@@ -583,7 +584,7 @@ fa_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
           // key at all, where it is 1/Skv as in the forward
           if (!vis) {
             if (!(real && fault == FAULT_MASK_NOT_ZEROED)) ds = 0.0f;
-            p = real ? exp_sfu(MASKED - mr[i]) * il : 0.0f;
+            p = real ? expf(MASKED - mr[i]) * il : 0.0f;
           }
         }
         pv[kk] = p;
@@ -652,26 +653,13 @@ fa_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// plan: (rows, tile, threads, shared bytes, blocks an SM) of the dq
-// launch, then of the dk/dv launch, as kernel.py's simt_plan gives them
-template <typename T, int D>
-bool plan_matches(const int* p) {
-  using Q = DqShape<T, D>;
-  using K = DkvShape<T, D>;
-  return p[0] == Q::BQ && p[1] == Q::BK && p[2] == Q::NT &&
-         p[3] == Q::SMEM && p[4] == Q::MINB && p[5] == K::BK &&
-         p[6] == K::BQ && p[7] == K::NT && p[8] == K::SMEM &&
-         p[9] == K::MINB;
-}
-
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, void* dq, void* dk, void* dv,
            const float* stats, float* di, int b, const Attn& A, int fault,
-           const int* plan, cudaStream_t stream) {
+           cudaStream_t stream) {
   using Q = DqShape<T, D>;
   using K = DkvShape<T, D>;
-  if (!plan_matches<T, D>(plan)) return (int)cudaErrorInvalidValue;
   // per device and cheap, so set on every launch
   cudaError_t e = cudaFuncSetAttribute(
       fa_bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Q::SMEM);
@@ -697,23 +685,30 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+// the plans (rows, tile, threads, ring stages, shared bytes, blocks an SM)
+// of the dq launch into out[0..5] and of the dk/dv launch into out[6..11],
+// and the blocks of each that one SM of the current card holds at once (the
+// occupancy calculator) into out[12] and out[13]
 template <typename T, int D>
-int occupancy_d(int* out) {
+int plan_d(int* out) {
   using Q = DqShape<T, D>;
   using K = DkvShape<T, D>;
-  const int e = blocks_per_sm(fa_bwd_dq<T, D>, Q::NT, Q::SMEM, out);
+  const int v[12] = {Q::BQ, Q::BK, Q::NT, STAGES, Q::SMEM, Q::MINB,
+                     K::BK, K::BQ, K::NT, STAGES, K::SMEM, K::MINB};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
+  const int e = blocks_per_sm(fa_bwd_dq<T, D>, Q::NT, Q::SMEM, out + 12);
   if (e != 0) return e;
-  return blocks_per_sm(fa_bwd_dkv<T, D>, K::NT, K::SMEM, out + 1);
+  return blocks_per_sm(fa_bwd_dkv<T, D>, K::NT, K::SMEM, out + 13);
 }
 
 template <typename T>
-int occupancy(int d, int* out) {
+int plan(int d, int* out) {
   switch (d) {
-    case 16: return occupancy_d<T, 16>(out);
-    case 32: return occupancy_d<T, 32>(out);
-    case 64: return occupancy_d<T, 64>(out);
-    case 112: return occupancy_d<T, 112>(out);
-    case 128: return occupancy_d<T, 128>(out);
+    case 16: return plan_d<T, 16>(out);
+    case 32: return plan_d<T, 32>(out);
+    case 64: return plan_d<T, 64>(out);
+    case 112: return plan_d<T, 112>(out);
+    case 128: return plan_d<T, 128>(out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -722,18 +717,18 @@ template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v,
              const void* o, const void* dout, void* dq, void* dk, void* dv,
              const float* st, float* di, int b, const Attn& A, int fault,
-             const int* plan, cudaStream_t s) {
+             cudaStream_t s) {
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, o, dout, dq, dk, dv, st, di, b, A,
-                                  fault, plan, s);
+                                  fault, s);
     case 32: return launch<T, 32>(q, k, v, o, dout, dq, dk, dv, st, di, b, A,
-                                  fault, plan, s);
+                                  fault, s);
     case 64: return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, st, di, b, A,
-                                  fault, plan, s);
+                                  fault, s);
     case 112: return launch<T, 112>(q, k, v, o, dout, dq, dk, dv, st, di, b,
-                                    A, fault, plan, s);
+                                    A, fault, s);
     case 128: return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, st, di, b,
-                                    A, fault, plan, s);
+                                    A, fault, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -749,15 +744,13 @@ int launch_d(int d, const void* q, const void* k, const void* v,
 // dv (b, hkv, skv, d), contiguous; `stats` is the forward's float32
 // (2, b, hq, sq) of each row's m and l; `di` is float32 scratch of
 // b * hq * sq.  window <= 0 means no window; `fault` is 0 but in
-// chip_smoke.py's planted faults.  `plan` is the wrapper's launch plan of
-// the two kernels (rows, tile, threads, shared bytes, blocks an SM, each);
-// a plan this build does not hold is refused with cudaErrorInvalidValue.
+// chip_smoke.py's planted faults.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, const void* stats,
     void* di, int b, int hq, int hkv, int sq, int skv, int d,
     const long long* strides, int causal, int window, float scale, int dtype,
-    int fault, const int* plan, void* stream_ptr) {
+    int fault, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   Attn A{hq, hkv, hq / hkv, sq, skv, causal, window, scale, {}, {}, {}, {},
          {}};
@@ -772,19 +765,23 @@ extern "C" int flash_attention_bwd_launch(
   float* dd = static_cast<float*>(di);
   if (dtype == 0)
     return launch_d<float>(d, q, k, v, o, dout, dq, dk, dv, st, dd, b, A,
-                           fault, plan, stream);
+                           fault, stream);
   if (dtype == 1)
     return launch_d<__nv_bfloat16>(d, q, k, v, o, dout, dq, dk, dv, st, dd, b,
-                                   A, fault, plan, stream);
+                                   A, fault, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// Blocks of the dq kernel and of the dk/dv kernel at head dim d and dtype
-// that one SM holds at once (the CUDA occupancy calculator), into out[0]
-// and out[1].
-extern "C" int flash_attention_bwd_blocks_per_sm(int d, int dtype, int* out) {
-  if (dtype == 0) return occupancy<float>(d, out);
-  if (dtype == 1) return occupancy<__nv_bfloat16>(d, out);
+// The launch plans of the dq and the dk/dv kernels at head dim d and
+// dtype, as this build instantiates them, into out[0..5] and out[6..11]:
+// rows a block and a step's tile (query rows and keys for dq, keys and
+// query rows for dk/dv), threads, cp.async stages, dynamic shared bytes and
+// the blocks an SM its __launch_bounds__ asks for (kernel.py's simt_plan
+// states the same); and into out[12] and out[13] the blocks of each that
+// one SM of the current card holds at once (the CUDA occupancy calculator).
+extern "C" int flash_attention_bwd_plan(int d, int dtype, int* out) {
+  if (dtype == 0) return plan<float>(d, out);
+  if (dtype == 1) return plan<__nv_bfloat16>(d, out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -36,11 +36,12 @@
 namespace simt {
 
 constexpr float MASKED = -1e30f;            // a masked logit, as in JAX
-constexpr float LOG2E = 1.4426950408889634f;
 // shared memory an SM gives its resident blocks, and the 1 KB the system
 // keeps beside each block (H100)
 constexpr int SM_SMEM = 233472;
 constexpr int BLOCK_RESERVED = 1024;
+// slots of each kernel's cp.async ring (two operands alternate in them)
+constexpr int STAGES = 2;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -59,14 +60,6 @@ template <typename T, int N>
 struct alignas(sizeof(T) * N) Pack {
   T v[N];
 };
-
-// e^x by the SFU's 2^x (x may be -inf: then 0); relative error about
-// 2^-22, far inside the route's limits
-__device__ __forceinline__ float exp_sfu(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * LOG2E));
-  return y;
-}
 
 template <int LANES>
 __device__ __forceinline__ float group_max(float v) {

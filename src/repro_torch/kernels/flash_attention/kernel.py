@@ -14,8 +14,8 @@ kernels on two routes, a forward and a backward each:
   and for head dims 16 and 32: the forward ``csrc/flash_attention.cu`` and
   the backward ``csrc/flash_attention_bwd.cu`` (cp.async rings of tiles,
   register tiles of 4 to 8 FMAs a shared-memory read, at least two blocks
-  an SM); :func:`simt_plan` is their launch plan, which the kernels check
-  at every launch.
+  an SM); :func:`simt_plan` states their launch plan, and
+  :func:`simt_built_plans` reads it back from the built libraries.
 
 :func:`route` picks one from the dtype and head dim alone, for the forward
 and the backward alike; a build or launch error raises, and no call ever
@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -63,12 +64,12 @@ from repro_torch.kernels.flash_attention import ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-_PLAN = ctypes.POINTER(ctypes.c_int)
+_INTS = ctypes.POINTER(ctypes.c_int)
 LIBRARY = CudaLibrary("flash_attention", {
     "flash_attention_launch": (
-        [_P] * 5 + [_I] * 6 + [_STRIDES, _I, _I, ctypes.c_float, _I, _PLAN,
-                               _P], ctypes.c_int),
-    "flash_attention_blocks_per_sm": ([_I, _I, _PLAN], ctypes.c_int)})
+        [_P] * 5 + [_I] * 6 + [_STRIDES, _I, _I, ctypes.c_float, _I, _P],
+        ctypes.c_int),
+    "flash_attention_plan": ([_I, _I, _INTS], ctypes.c_int)})
 LIBRARY_WGMMA = CudaLibrary("flash_attention_wgmma", {
     "flash_attention_wgmma_launch": (
         [_P] * 5 + [_I] * 6 + [_STRIDES, _I, _I, ctypes.c_float, _P],
@@ -78,8 +79,8 @@ LIBRARIES = {"simt": LIBRARY, "wgmma": LIBRARY_WGMMA}
 LIBRARY_BWD = CudaLibrary("flash_attention_bwd", {
     "flash_attention_bwd_launch": (
         [_P] * 10 + [_I] * 6 + [_STRIDES, _I, _I, ctypes.c_float, _I, _I,
-                                _PLAN, _P], ctypes.c_int),
-    "flash_attention_bwd_blocks_per_sm": ([_I, _I, _PLAN], ctypes.c_int)})
+                                _P], ctypes.c_int),
+    "flash_attention_bwd_plan": ([_I, _I, _INTS], ctypes.c_int)})
 LIBRARY_BWD_WGMMA = CudaLibrary("flash_attention_bwd_wgmma", {
     "flash_attention_bwd_wgmma_launch": (
         [_P] * 10 + [_I] * 6 + [_STRIDES, _I, _I, ctypes.c_float, _I, _P],
@@ -94,15 +95,12 @@ WGMMA_HEAD_DIMS = (64, 112, 128)
 WGMMA_BLOCK_ROWS = 128            # query rows per block of the wgmma kernel
 STATS_TILE = 64                   # rows a statistics tile of the wgmma backward
 _MAX_GRID_Y = 65535
-# each backward's planted faults (chip_smoke.py's check that its limit
-# catches them): dS not zeroed under the mask (P taken from the unmasked
-# score); the group's last query head left out of dK and dV.  BWD_FAULTS
-# are the tensor-core backward's, SIMT_BWD_FAULTS the SIMT one's.
+# the planted faults of both routes' backwards, one code each
+# (chip_smoke.py's check that each route's limit catches them): dS not
+# zeroed under the mask (P taken from the unmasked score); the group's last
+# query head left out of dK and dV
 BWD_FAULTS = {"dS not zeroed under the mask": 1,
               "last query head of each group left out of dK/dV": 2}
-SIMT_BWD_FAULTS = {"dS not zeroed under the mask": 1,
-                   "last query head of each group left out of dK/dV": 2}
-ROUTE_BWD_FAULTS = {"wgmma": BWD_FAULTS, "simt": SIMT_BWD_FAULTS}
 
 # shared memory of an H100 SM for its resident blocks, what one block may
 # take, and what the system keeps beside each block
@@ -128,14 +126,11 @@ class SimtPlan:
     smem: int
     blocks_per_sm: int
 
-    def ints(self):
-        return [self.rows, self.tile, self.threads, self.smem,
-                self.blocks_per_sm]
 
-
+@functools.lru_cache(maxsize=None)
 def simt_plan(kernel: str, d: int, dtype: torch.dtype) -> SimtPlan:
     """The launch of a SIMT kernel (:data:`SIMT_KERNELS`), as the CUDA
-    sources instantiate it; they refuse any other.
+    sources instantiate it (:func:`simt_built_plans` reads theirs back).
 
     Every tile is float32 in shared memory (bfloat16 lands raw and is
     widened once).  The forward takes 64 query rows against 64-key tiles,
@@ -331,8 +326,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if route == "wgmma":
             err = lib.flash_attention_wgmma_launch(*args, stream)
         else:
-            err = lib.flash_attention_launch(*args, DTYPES[q.dtype],
-                                             _ints(plan.ints()), stream)
+            err = lib.flash_attention_launch(*args, DTYPES[q.dtype], stream)
     LIBRARIES[route].check(err, f"flash_attention launch ({route})")
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1
@@ -345,21 +339,20 @@ flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
 flash_attention.stats_launches = 0
 
 
-def _ints(values):
-    return (ctypes.c_int * len(values))(*values)
-
-
-def simt_blocks_per_sm(d: int, dtype: torch.dtype) -> dict:
-    """The blocks of each SIMT kernel at head dim ``d`` and ``dtype`` that
-    one SM of the current card holds at once, by the CUDA occupancy
-    calculator (shared memory, registers, threads): {kernel: blocks}.
-    Builds both libraries."""
-    fwd, bwd = (ctypes.c_int * 1)(), (ctypes.c_int * 2)()
-    LIBRARY.check(LIBRARY.get().flash_attention_blocks_per_sm(
-        d, DTYPES[dtype], fwd), "flash_attention_blocks_per_sm")
-    LIBRARY_BWD.check(LIBRARY_BWD.get().flash_attention_bwd_blocks_per_sm(
-        d, DTYPES[dtype], bwd), "flash_attention_bwd_blocks_per_sm")
-    return {"forward": fwd[0], "bwd_dq": bwd[0], "bwd_dkv": bwd[1]}
+def simt_built_plans(d: int, dtype: torch.dtype) -> dict:
+    """Each SIMT kernel at head dim ``d`` and ``dtype`` as the built
+    libraries instantiate it: {kernel: (its :class:`SimtPlan`, which
+    should be :func:`simt_plan`'s, the blocks one SM of the current card
+    holds at once by the CUDA occupancy calculator: shared memory,
+    registers, threads)}.  Builds both libraries."""
+    fwd, bwd = (ctypes.c_int * 7)(), (ctypes.c_int * 14)()
+    LIBRARY.check(LIBRARY.get().flash_attention_plan(
+        d, DTYPES[dtype], fwd), "flash_attention_plan")
+    LIBRARY_BWD.check(LIBRARY_BWD.get().flash_attention_bwd_plan(
+        d, DTYPES[dtype], bwd), "flash_attention_bwd_plan")
+    return {"forward": (SimtPlan("forward", *fwd[:6]), fwd[6]),
+            "bwd_dq": (SimtPlan("bwd_dq", *bwd[:6]), bwd[12]),
+            "bwd_dkv": (SimtPlan("bwd_dkv", *bwd[6:12]), bwd[13])}
 
 
 def _check_stats(stats: torch.Tensor, q: torch.Tensor) -> None:
@@ -420,8 +413,8 @@ def _launch_bwd(q, k, v, o, do, stats, *, causal=True, window=None,
     """Launch one route's backward kernels on CUDA tensors with the
     forward's ``stats``.  Called with an explicit route by
     :func:`flash_attention_bwd` and, to time the SIMT backward against the
-    tensor-core one on bfloat16 or to plant a fault (``ROUTE_BWD_FAULTS``
-    of the route), by chip_smoke.py."""
+    tensor-core one on bfloat16 or to plant a fault (``BWD_FAULTS``), by
+    chip_smoke.py."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     if route == "wgmma":
@@ -441,7 +434,7 @@ def _launch_bwd(q, k, v, o, do, stats, *, causal=True, window=None,
                              f"{_MAX_GRID_Y} tiles")
     else:
         raise ValueError(f"unknown flash-attention route {route!r}")
-    if fault not in (0, *ROUTE_BWD_FAULTS[route].values()):
+    if fault not in (0, *BWD_FAULTS.values()):
         raise ValueError(f"no planted fault {fault} in the {route} "
                          f"backward")
     if not _rows_aligned(do):
@@ -477,8 +470,7 @@ def _launch_bwd(q, k, v, o, do, stats, *, causal=True, window=None,
                                                        stream)
         else:
             err = lib.flash_attention_bwd_launch(
-                *args, DTYPES[q.dtype], int(fault),
-                _ints(plans[0].ints() + plans[1].ints()), stream)
+                *args, DTYPES[q.dtype], int(fault), stream)
     BWD_LIBRARIES[route].check(err, f"flash_attention backward launch "
                                     f"({route})")
     flash_attention_bwd.launches += 1

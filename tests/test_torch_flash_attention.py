@@ -400,7 +400,8 @@ def test_simt_forward_on_heads_views(dtype, d, shape):
     their strides: within the route's tolerance of the plain version, its
     row statistics within 1e-5 and 1e-4 of ``ref.attention_stats``, the
     same output bits with and without them, one launch on the route; and
-    each kernel resident as its plan states (the occupancy calculator)."""
+    each kernel built as :func:`kernel.simt_plan` states it and resident as
+    its plan states (the occupancy calculator)."""
     b, hq, hkv, sq, skv, causal, window = SIMT_SHAPES[shape]
     rng = np.random.default_rng(d)
 
@@ -422,6 +423,6 @@ def test_simt_forward_on_heads_views(dtype, d, shape):
     m, l = ref.attention_stats(q, k, v, causal=causal, window=window)
     assert float(((stats[0] - m).abs() / (1 + m.abs())).max()) <= 1e-5
     assert float(((stats[1] - l).abs() / l).max()) <= 1e-4
-    resident = kernel.simt_blocks_per_sm(d, dtype)
-    for name, n in resident.items():
-        assert n >= kernel.simt_plan(name, d, dtype).blocks_per_sm, name
+    for name, (built, n) in kernel.simt_built_plans(d, dtype).items():
+        plan = kernel.simt_plan(name, d, dtype)
+        assert built == plan and n >= plan.blocks_per_sm, (built, n)

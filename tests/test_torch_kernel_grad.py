@@ -715,7 +715,7 @@ def test_simt_backward_on_the_card(dtype, d, shape):
         return max(float((g.float() - w.float()).abs().max())
                    / float(w.float().abs().max()) for g, w in zip(gs, ws))
     assert err(got, want) <= tol and err(got, auto) <= tol
-    for fault, code in fa.SIMT_BWD_FAULTS.items():
+    for fault, code in fa.BWD_FAULTS.items():
         if code == 1 and not (causal or window):
             continue
         bad = fa._launch_bwd(q, k, v, o, do, stats, route="simt", fault=code,
